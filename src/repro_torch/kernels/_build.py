@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each source under ``csrc/`` compiles on its own into a shared library with
+a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
+
+into ``build/repro_torch/`` at the repository root (listed in .gitignore).
+The file name carries a hash of the source and the flags, so a second run
+skips the build. Builds happen at first use — never at import — and
+``build_all`` starts one ``nvcc`` per source, all together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+from repro_torch import compat
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel name -> (source file, C entry, argtypes); c_void_p for pointers and
+# the stream, c_int64 for sizes (a bare int would be cut to 32 bits)
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+KERNELS = {
+    "embed_gather": ("embed_gather.cu", "repro_embed_gather",
+                     (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "embed_scatter_add": ("embed_scatter.cu", "repro_embed_scatter_add",
+                          (_P, _P, _P, _I, _I, _I, _I, _P)),
+}
+
+_loaded: dict = {}
+_lock = threading.Lock()
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Popen of nvcc for one kernel, or None when its library exists."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    nvcc = compat.nvcc_path()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+            "the CUDA kernels are built from source on the machine with "
+            "the card")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> str:
+    if started is None:
+        return ""
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name} "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)          # atomic: a reader never sees half a file
+    return log
+
+
+def build_all(names=None) -> dict:
+    """Compile every (or the named) kernel, one nvcc each, in parallel.
+    Returns {name: {"seconds": wall time, "log": nvcc's -Xptxas -v output}}
+    ("" log when the library was already built)."""
+    names = list(names or KERNELS)
+    t0 = time.perf_counter()
+    started = {n: _start(n) for n in names}
+    logs = {n: _finish(n, s) for n, s in started.items()}
+    dt = time.perf_counter() - t0
+    return {n: {"seconds": dt, "log": logs[n]} for n in names}
+
+
+def load(name: str):
+    """The C entry of one kernel (built on first use), argtypes set."""
+    with _lock:
+        fn = _loaded.get(name)
+        if fn is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, KERNELS[name][1])
+            fn.argtypes = list(KERNELS[name][2])
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+        return fn
