@@ -7,20 +7,44 @@ Phases, one JSON line each; any failure raises, so the script exits non-zero
 and never prints the final line:
 
   1. banner   torch/CUDA versions, the card and its power limit; TF32 off.
-  2. build    nvcc builds both kernels from src/repro_torch/kernels/csrc
-              (one process per source, in parallel) into build/repro_torch/.
-  3. kernels  each kernel against its plain version on the card, bit for bit
-              (torch.equal), at the main path's shapes and at edge cases;
-              kernel, plain and library-call times (CUDA events, median of
-              50 runs, L2 flushed before each) beside the byte bound.
+  2. build    nvcc builds the three kernels from src/repro_torch/kernels/
+              csrc (one process per source, in parallel) into
+              build/repro_torch/.
+  3. kernels  each kernel against its plain version on the card at the main
+              paths' shapes and at edge cases: the embedding kernels bit for
+              bit (torch.equal; embed_gather at parallax-lm's table and at
+              phi3-medium-14b's, with the ids of a 2,048-token prefill and
+              of a 4-slot decode step), flash_attention within 2e-5 at
+              f32 and 2e-2 at bf16 (absolute and relative; the reference's
+              own bars, the difference being summation order). Kernel,
+              plain and library-call times (CUDA events, median of 50 runs,
+              L2 flushed before each) beside the bound.
   4. parity   reduced parallax-lm at f32, the same parameters and batches,
               3 steps on the CPU and on the card: losses within rtol 1e-4
               (GEMM and index_add_ summation order differ on the card), the
               embed_* census metrics equal.
-  5. main     full-width parallax-lm, ShapeConfig("lm1b", 20, 128) and the
+  5. serve_parity  reduced phi3-medium-14b at f32, attention "pallas": the
+              same parameters and prompts through Server(device="cpu") and
+              Server(device="cuda"): prefill logits within rtol 1e-4, greedy
+              tokens equal (at most 2 may differ, the reference's own
+              allowance for argmax near-ties; any difference is printed).
+  6. main     full-width parallax-lm, ShapeConfig("lm1b", 20, 128) and the
               default RunConfig (bf16): get_runner(..., device="cuda"), 10
               steps of SyntheticLM batches. Every loss finite, the last below
-              the first, each kernel launched exactly once per step.
+              the first, each embedding kernel launched exactly once per
+              step.
+  7. serve    full-width phi3-medium-14b (40 layers, nothing cut), bf16,
+              Server(..., RunConfig(attention_impl="pallas"),
+              ServerConfig(max_batch=4, max_seq=2048)) on the card: 8
+              requests with prompts of 200..1800 tokens, 16 new tokens each.
+              All complete, no cross-slot mismatch, flash_attention launched
+              40 times per prefill, embed_gather once per prefill and per
+              decode step. TTFT, inter-token gaps and decode tokens/s over
+              the run's window, prefill ms per bucket, one synthetic decode
+              step (lens 1024), peak memory, clocks and power.
+
+Each path (main, serve) runs with every launch count set to 0 just before
+it and read just after.
 
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels' numbers, and last {"ok": true, "device": {...}}.
@@ -50,6 +74,8 @@ from repro_torch.core.embedding import dedupe  # noqa: E402
 from repro_torch.core.transform import get_runner  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.runtime.server import (Request, Server,  # noqa: E402
+                                        ServerConfig, bucket_len)
 from repro_torch.utils.roofline import HW  # noqa: E402
 from repro_torch.utils.tree import named_parameters  # noqa: E402
 
@@ -66,7 +92,18 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/embed_scatter.cu",
         "replaces": "src/repro/kernels/embed_scatter.py:36",
     },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:67",
+    },
 }
+# the kernels each path must launch (embed_scatter_add is a backward kernel;
+# serving has no backward)
+PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
+                "serve": ("embed_gather", "flash_attention")}
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SERVE_BATCH, SERVE_MAX_SEQ = 4, 2048                # phase_serve's engine
 
 
 def emit(obj: dict) -> None:
@@ -117,6 +154,11 @@ class Timer:
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HW.hbm_bw * 1e3
+
+
+def ops_ms(flops: float) -> float:
+    """Least time for ``flops`` at the card's bf16 tensor-core peak."""
+    return flops / HW.peak_flops * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -267,11 +309,134 @@ def phase_kernels(dev) -> dict:
         "fill_bytes": (VOCAB + 1) * E * 4,
         "fill_bound_ms": bound_ms((VOCAB + 1) * E * 4),
     }
+    del t16, out, rows16, rows16_f32
+    gather["shape"] = (f"parallax-lm: table ({VOCAB}, {E}) bf16, {n} ids "
+                       "(one training step's dedupe buffer)")
+    scatter["shape"] = gather["shape"]
+    gather_serve = _serve_gather(dev, gen, timer, hold)
+    flash = _flash_kernels(dev, gen, timer, errs, cases)
     res = {"phase": "kernels", "cases": cases, "n_ids": n, "owned": owned,
            "max_abs_err": errs, "launches": ops.launch_counts(),
-           "embed_gather": gather, "embed_scatter_add": scatter}
+           "embed_gather": gather, "embed_gather_serve": gather_serve,
+           "embed_scatter_add": scatter, "flash_attention": flash}
     emit(res)
     return res
+
+
+def _serve_ids(dev) -> dict:
+    """The ids the serve path hands embed_gather (phi3-medium-14b, exact
+    capacity): the dedupe buffer of the serve phase's first prefill (its
+    first prompt, 1,561 tokens zero-padded to the 2,048 bucket) and of one
+    decode step's 4 tokens (batch 4, one token each)."""
+    vs = get_config("phi3-medium-14b").vocab_size
+    rng = np.random.default_rng(0)
+    prompt = _serve_prompts(rng, vs)[1][0]
+    toks = np.zeros(bucket_len(len(prompt), SERVE_MAX_SEQ), np.int32)
+    toks[:len(prompt)] = prompt
+    step = rng.integers(0, vs, size=SERVE_BATCH).astype(np.int32)
+    out = {}
+    for case, flat in (("prefill", toks), ("decode", step)):
+        ids = torch.from_numpy(flat).to(dev)
+        out[case], _, _ = dedupe(ids, min(ids.numel(), vs), vs, True)
+    return out
+
+
+def _serve_gather(dev, gen, timer: Timer, hold) -> dict:
+    """embed_gather at the serve path's shapes: phi3-medium-14b's (100,352,
+    5,120) table in bf16 (the served dtype) and f32, held bit for bit
+    against its plain version; kernel, plain and library times of the
+    bf16 prefill and decode lookups beside their byte bounds."""
+    cfg = get_config("phi3-medium-14b")
+    vs, d = cfg.vocab_size, cfg.d_model
+    t32 = torch.randn((vs, d), generator=gen, device=dev)
+    t16 = t32.to(torch.bfloat16)
+    ids = _serve_ids(dev)
+    for case, uids in ids.items():
+        for tname, table in (("bf16", t16), ("f32", t32)):
+            hold("embed_gather", f"serve_{case}_{tname}",
+                 ops.embed_gather(table, uids, 0),
+                 ref.embed_gather_ref(table, uids, 0))
+    del t32
+    res = {}
+    for case, uids in ids.items():
+        n = uids.shape[0]
+        owned = int(((uids >= 0) & (uids < vs)).sum())
+        clamped = uids.long().clamp(0, vs - 1)
+        nbytes = (owned + n) * d * 2 + 4 * n
+        res[case] = {
+            "shape": f"phi3-medium-14b: table ({vs}, {d}) bf16, {n} ids "
+                     f"({owned} owned)",
+            "kernel_ms": timer.ms(lambda: ops.embed_gather(t16, uids, 0)),
+            "plain_ms": timer.ms(lambda: ref.embed_gather_ref(t16, uids, 0)),
+            "library_ms": timer.ms(
+                lambda: torch.index_select(t16, 0, clamped)),
+            "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes"}
+    return res
+
+
+def _flash_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
+    """flash_attention against its plain version at the serve path's main
+    shape (one 2,048-token prefill of phi3-medium-14b: B 1, H 40, D 128,
+    causal) and at edge cases, in f32 and bf16; times at the main bf16
+    shape."""
+    def qkv(b, sq, sk, h, d, dtype):
+        return [torch.randn((b, s_, h, d), generator=gen, device=dev)
+                .to(dtype) for s_ in (sq, sk, sk)]
+
+    worst = {}
+    for case, (b, sq, sk, h, d), causals in (
+            ("main", (1, 2048, 2048, 40, 128), (True,)),
+            ("ragged", (1, 200, 200, 4, 64), (True, False)),
+            ("cross_lengths", (2, 96, 160, 2, 64), (False,)),
+            ("b2_d32", (2, 64, 64, 8, 32), (True, False)),
+            ("b2_d16", (2, 16, 16, 4, 16), (True, False))):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = qkv(b, sq, sk, h, d, dtype)
+            for causal in causals:
+                name = (f"{case}_{'causal' if causal else 'full'}_"
+                        f"{str(dtype).removeprefix('torch.')}")
+                got = ops.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and got.shape == want.shape,
+                      f"flash_attention/{name}: {got.dtype}"
+                      f"{tuple(got.shape)} vs {want.dtype}"
+                      f"{tuple(want.shape)}")
+                diff = (got.float() - want.float()).abs()
+                tol = FLASH_TOL[dtype]
+                bad = diff > tol + tol * want.float().abs()
+                err = float(diff.max())
+                check(not bool(bad.any()) and bool(torch.isfinite(got)
+                                                   .all()),
+                      f"flash_attention/{name}: {int(bad.sum())} elements "
+                      f"outside {tol} (max abs err {err})")
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                worst[name] = err
+                cases.append(f"flash_attention/{name}")
+
+    # ---- timing at the main bf16 shape: a 2,048-token causal prefill ----
+    b, s_, h, d = 1, 2048, 40, 128
+    q, k, v = qkv(b, s_, s_, h, d, torch.bfloat16)
+    shape = f"phi3-medium-14b prefill: ({b}, {s_}, {h}, {d}) bf16, causal"
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))    # (B, H, S, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = b * h * s_ * (s_ + 1) // 2          # unmasked (q, k) pairs
+    flops = 4 * d * pairs                       # QK^T and P.V, 2 per FMA
+    nbytes = 4 * b * s_ * h * d * q.element_size()   # q, k, v read; o written
+    t_ops, t_bytes = ops_ms(flops), bound_ms(nbytes)
+    return {
+        "shape": shape, "max_abs_err_by_case": worst,
+        "kernel_ms": timer.ms(lambda: ops.flash_attention(q, k, v)),
+        "plain_ms": timer.ms(lambda: ref.flash_attention_ref(q, k, v)),
+        # cuDNN / flash SDPA on a (B, H, S, D) view: timed only, never
+        # called by the port
+        "library_ms": timer.ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+        "flops": flops, "bytes": nbytes,
+        "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
 
 
 def phase_parity() -> None:
@@ -299,6 +464,160 @@ def phase_parity() -> None:
     emit({"phase": "parity", "steps": rows})
 
 
+def _prompts(rng, lens, vocab: int) -> list:
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in lens]
+
+
+def _serve_prompts(rng, vocab: int, n: int = 8) -> tuple:
+    """The serve phase's traffic: ``n`` prompts of 200..1800 tokens."""
+    lens = rng.integers(200, 1801, size=n)
+    return lens, _prompts(rng, lens, vocab)
+
+
+def _drain(sv: Server, prompts, new: int) -> dict:
+    for i, p in enumerate(prompts):
+        sv.submit(Request(i, p, max_new_tokens=new))
+    done = sv.run_until_drained()
+    return {r.uid: r for r in done}
+
+
+def phase_serve_parity() -> None:
+    """Reduced phi3-medium-14b at f32 on the CPU and on the card, the same
+    parameters and prompts, attention through flash_attention."""
+    cfg = reduced(get_config("phi3-medium-14b"))
+    rc = RunConfig(attention_impl="pallas", param_dtype="float32",
+                   compute_dtype="float32")
+    scfg = ServerConfig(max_batch=2, max_seq=64)
+    cpu = Server(cfg, rc, scfg, seed=0, device="cpu")
+    gpu = Server(cfg, rc, scfg, device="cuda",
+                 params={k: p.to("cuda") for k, p in cpu.params.items()})
+    prompts = _prompts(np.random.default_rng(0), (5, 23, 40, 11),
+                       cfg.vocab_size)
+    logit_diff = logit_max = 0.0
+    for p in prompts:
+        lb = bucket_len(len(p), scfg.max_seq)
+        toks = np.zeros((1, lb), np.int32)
+        toks[0, :len(p)] = p
+        lc, _ = cpu.model.prefill_cache_fn(torch.from_numpy(toks))
+        lg, _ = gpu.model.prefill_cache_fn(torch.from_numpy(toks).cuda())
+        lg = lg.cpu()
+        check(torch.allclose(lg, lc, rtol=1e-4, atol=1e-5),
+              f"prefill logits (prompt {len(p)}): max abs diff "
+              f"{float((lg - lc).abs().max())}")
+        logit_diff = max(logit_diff, float((lg - lc).abs().max()))
+        logit_max = max(logit_max, float(lc.abs().max()))
+    ops.reset_launch_counts()
+    got = _drain(gpu, prompts, 8)
+    flash = ops.launch_counts()["flash_attention"]
+    want = _drain(cpu, prompts, 8)
+    cpu.close()
+    gpu.close()
+    check(flash == cfg.n_layers * gpu.stats["prefill_calls"],
+          f"flash_attention launched {flash} times in "
+          f"{gpu.stats['prefill_calls']} prefills")
+    diffs = [(u, i, a, b) for u in want
+             for i, (a, b) in enumerate(zip(got[u].out_tokens,
+                                            want[u].out_tokens)) if a != b]
+    check(all(len(got[u].out_tokens) == len(want[u].out_tokens) == 8
+              for u in want), "a request did not complete on both devices")
+    check(len(diffs) <= 2, f"greedy tokens differ at {diffs}")
+    emit({"phase": "serve_parity", "prompts": [len(p) for p in prompts],
+          "max_abs_logit_diff": logit_diff, "max_abs_logit": logit_max,
+          "token_diffs": diffs,
+          "tokens": {u: r.out_tokens for u, r in got.items()},
+          "flash_launches": flash})
+
+
+def phase_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
+    """Full-width phi3-medium-14b served on the card."""
+    cfg = get_config("phi3-medium-14b")
+    scfg = ServerConfig(max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sv = Server(cfg, RunConfig(attention_impl="pallas"), scfg, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    check(sv.rt.device.type == "cuda", f"served on {sv.rt.device}")
+    rng = np.random.default_rng(0)
+    lens, prompts = _serve_prompts(rng, cfg.vocab_size, n_requests)
+    # the first call of each GEMM shape pays cuBLAS's heuristics: one short
+    # request first, outside the counted run
+    _drain(sv, _prompts(rng, (100,), cfg.vocab_size), 2)
+    before = {k: sv.stats[k] for k in ("prefill_calls", "decode_steps")}
+    sv.completed.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    done = _drain(sv, prompts, new)
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+
+    prefills = sv.stats["prefill_calls"] - before["prefill_calls"]
+    steps = sv.stats["decode_steps"] - before["decode_steps"]
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    check(len(done) == n_requests, f"{len(done)} of {n_requests} completed")
+    check(all(len(r.out_tokens) == new for r in done.values()),
+          f"token counts {[len(r.out_tokens) for r in done.values()]}")
+    check(sv.stats["cross_slot_mismatches"] == 0,
+          f"{sv.stats['cross_slot_mismatches']} cross-slot mismatches")
+    check(counts["flash_attention"] == cfg.n_layers * prefills,
+          f"flash_attention launched {counts['flash_attention']} times in "
+          f"{prefills} prefills")
+    check(counts["embed_gather"] == prefills + steps,
+          f"embed_gather launched {counts['embed_gather']} times in "
+          f"{prefills} prefills + {steps} decode steps")
+    ttft = sorted(r.ttft for r in done.values())
+    # decode over the counted window: every token after a request's first
+    # comes from a decode step, with later requests' prefills interleaved
+    tokens = sum(len(r.out_tokens) for r in done.values())
+    window_s = (max(r.token_times[-1] for r in done.values())
+                - min(r.t_first for r in done.values()))
+    gaps = sorted(b - a for r in done.values()
+                  for a, b in zip(r.token_times, r.token_times[1:]))
+
+    # device times of one prefill per bucket and of one synthetic decode
+    # step over the full batch at lens 1024, on the engine's own steps
+    # (after the counted run)
+    timer = Timer(dev)
+    prefill_ms = {}
+    for lb in sorted(sv.stats["buckets"]):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, lb))
+                                .astype(np.int32)).to(dev)
+        prefill_ms[lb] = timer.ms(lambda: sv._prefill(
+            sv.cache, sv.lens, sv.tok, toks, lb, 0, sv._gen), 3)
+    active = torch.ones(scfg.max_batch, dtype=torch.bool, device=dev)
+    sv.lens.fill_(1024)
+    decode_ms = timer.ms(lambda: sv._decode(sv.cache, sv.lens, sv.tok,
+                                             active, sv._gen), 10)
+    sv.close()
+    res = {"phase": "serve", "arch": cfg.name, "requests": n_requests,
+           "prompt_lens": [int(x) for x in lens],
+           "buckets": sorted(sv.stats["buckets"]),
+           "prefill_calls": prefills, "decode_steps": steps,
+           "launches": counts,
+           "ttft_ms_p50": ttft[len(ttft) // 2] * 1e3,
+           "ttft_ms_max": ttft[-1] * 1e3,
+           "prefill_ms_by_bucket": prefill_ms,
+           "decode_step_ms_median": decode_ms,
+           "decode_step_tokens_per_s": scfg.max_batch / (decode_ms / 1e3),
+           "window_decode_tokens": tokens - n_requests,
+           "window_decode_s": window_s,
+           "window_decode_tokens_per_s": (tokens - n_requests) / window_s,
+           "itl_ms_p50": gaps[len(gaps) // 2] * 1e3,
+           "itl_ms_max": gaps[-1] * 1e3,
+           "run_s": wall, "run_tokens_per_s": tokens / wall,
+           "setup_s": setup_s, "init_peak_bytes": init_peak,
+           "max_memory_allocated": serve_peak,
+           "first_tokens": {u: r.out_tokens[:4] for u, r in done.items()},
+           "nvidia_smi": nvidia_smi(
+               "clocks.sm,power.draw,power.limit,temperature.gpu")}
+    emit(res)
+    return res
+
+
 def phase_main(dev, steps: int = 10) -> dict:
     cfg = get_config("parallax-lm")
     shape = ShapeConfig("lm1b", seq_len=SEQ, global_batch=BATCH, kind="train")
@@ -321,8 +640,9 @@ def phase_main(dev, steps: int = 10) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for k, c in counts.items():
-        check(c == steps, f"{k} launched {c} times in {steps} steps")
+    for k in PATH_KERNELS["main"]:
+        check(counts[k] == steps,
+              f"{k} launched {counts[k]} times in {steps} steps")
     med = statistics.median(step_ms)
     res = {"phase": "main", "arch": cfg.name, "tokens_per_step": shape.tokens,
            "losses": losses, "step_ms": step_ms, "median_step_ms": med,
@@ -343,18 +663,31 @@ def main() -> None:
     kern = phase_kernels(dev)
     torch.cuda.empty_cache()
     phase_parity()
-    main_res = phase_main(dev)
+    phase_serve_parity()
+    paths = {"main": phase_main(dev)["launches"]}
+    torch.cuda.empty_cache()
+    paths["serve"] = phase_serve(dev)["launches"]
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(paths[path][name] > 0, f"{name} not launched on {path}")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(info["nvidia_smi"], flush=True)
     rows = []
     for name, meta in KERNELS.items():
         k = kern[name]
+        by_path = {p: c[name] for p, c in paths.items()
+                   if name in PATH_KERNELS[p]}
         rows.append({"name": name, **meta,
-                     "launches": main_res["launches"][name],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
                      "max_abs_err": kern["max_abs_err"][name],
                      "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
-                     "bound_ms": k["bound_ms"], "bound_by": "bytes",
-                     "library_ms": k["library_ms"]})
+                     "bound_ms": k["bound_ms"],
+                     "bound_by": k.get("bound_by", "bytes"),
+                     "library_ms": k["library_ms"],
+                     "timed_at": k["shape"]})
+        if name == "embed_gather":
+            rows[-1]["serve_shapes"] = kern["embed_gather_serve"]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

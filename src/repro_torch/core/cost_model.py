@@ -1,6 +1,5 @@
 """Table 3 of the paper, generalized and latency-aware — the port of
-``repro/core/cost_model.py`` (training-step pricing; serve pricing waits
-for ROADMAP slice 5).
+``repro/core/cost_model.py`` (training-step and serve-pull pricing).
 
 Per-chip wire bytes per training step for one parameter of ``b`` bytes:
 
@@ -220,3 +219,47 @@ def choose_method(*, b: float, sparse: bool, alpha: float, dims: MeshDims,
         best = min(cands, key=lambda k: secs[k])
         return best, costs
     raise ValueError(f"unknown comm_mode {comm_mode!r}")
+
+
+def serve_pull_bytes(b: float, alpha: float, method: str,
+                     dims: MeshDims) -> float:
+    """Per-decode-step wire bytes for one sparse table's serve-time pull.
+
+    Inference has no push leg: a row-sharded table (ps / ps_gather) pays the
+    deduped row-buffer all-reduce over the model axis every decode step
+    (2αb of the step's activated fraction, α from a decode-shape census); a
+    replicated table (allreduce / mpi_gatherv / dense) gathers locally and
+    moves nothing."""
+    m = dims.model
+    if method in ("ps", "ps_gather") and m > 1:
+        return 2.0 * alpha * b * (m - 1) / m
+    return 0.0
+
+
+def serve_pull_messages(method: str, dims: MeshDims) -> int:
+    return 1 if method in ("ps", "ps_gather") and dims.model > 1 else 0
+
+
+def serve_pull_seconds(*, b: float, alpha: float, method: str,
+                       dims: MeshDims, hw: Optional[Hardware] = None) -> float:
+    """α + β·b seconds one decode step spends pulling this table."""
+    hw = hw or HW
+    return exchange_seconds(serve_pull_bytes(b, alpha, method, dims),
+                            serve_pull_messages(method, dims), hw,
+                            tier=span_tier(dims, hw))
+
+
+def serve_table_pricing(*, b: float, alpha: float, method: str,
+                        dims: MeshDims, batch_tokens: int,
+                        hw: Optional[Hardware] = None) -> dict:
+    """Serve pricing for one table at decode batch shapes: the wire bytes
+    and seconds one decode step pays for the pull, and the per-token
+    exchange seconds at this batch (one token per sequence per step).
+    Stamped into ``Plan.table_serve`` when the planner runs at a decode
+    ShapeConfig and surfaced via ``Plan.tables()``."""
+    hw = hw or HW
+    pull_b = serve_pull_bytes(b, alpha, method, dims)
+    pull_s = serve_pull_seconds(b=b, alpha=alpha, method=method, dims=dims,
+                                hw=hw)
+    return {"pull_bytes": pull_b, "pull_s": pull_s,
+            "s_per_token": pull_s / max(int(batch_tokens), 1)}

@@ -69,6 +69,12 @@ class Runtime:
         return (torch_dtype(self.run_cfg.wire_dtype) if self.run_cfg.opsw
                 else torch.float32)
 
+    def pad_heads(self, h: int) -> int:
+        """q heads padded to the model-axis shard count: 1 on one device,
+        so the identity. (The reference's ``constrain`` pins shardings and
+        has no single-device meaning; the port has none.)"""
+        return h
+
     @property
     def padded_vocab(self) -> int:
         # the vocab rounded up to the model-axis shard count: 1 on one device

@@ -7,6 +7,9 @@
                      through the PS pull/push, the OPSW wire cast, the
                      optimizer (clipping after aggregation).
 ``build_step``       model + optimizer + plan -> (step, state).
+``make_serve_prefill_step`` / ``make_serve_decode_step``
+                     the serving engine's batched prefill and slot-paged
+                     decode (runtime/server.py).
 ``get_runner``       the user-facing two-line API (paper Table 2):
 
     runner = get_runner(get_config("parallax-lm"), shape, RunConfig())
@@ -66,6 +69,8 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census) -> Plan:
     table_capacity: dict = {}
     table_wire: dict = {}
     table_alpha: dict = {}
+    table_serve: dict = {}
+    serving = rt.shape_cfg.kind == "decode"
 
     def wire_for(name: str):
         """OPSW wire dtype: the census's profiled hint when present (and
@@ -90,6 +95,13 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census) -> Plan:
             table_capacity[name] = capacity
             table_wire[name] = wire
             table_alpha[name] = float(alpha)
+            if serving:
+                # the pull wire and per-token exchange seconds this table
+                # costs the engine at decode batch shapes
+                table_serve[name] = cost_model.serve_table_pricing(
+                    b=b, alpha=float(alpha), method=table_methods[name],
+                    dims=dims, batch_tokens=rt.shape_cfg.global_batch,
+                    hw=hw)
         params[name] = ParamPlan(
             name=name, method=method, placement=None,
             wire_dtype=wire, sparse=spec.sparse, bytes=int(b),
@@ -103,6 +115,7 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census) -> Plan:
                 embed_method=embed_method,
                 table_methods=table_methods, table_capacity=table_capacity,
                 table_wire=table_wire, table_alpha=table_alpha,
+                table_serve=table_serve,
                 grown_tables=tuple(sorted(
                     n for n, t in census.tables.items() if t.grown)))
 
@@ -223,3 +236,105 @@ def get_runner(model_cfg: ModelConfig, shape_cfg: ShapeConfig,
     step, state = build_step(model, optimizer, rt, plan, params, seed=seed)
     return Runner(model=model, optimizer=optimizer, plan=plan, rt=rt,
                   train_step=step, state=state)
+
+
+# ---------------------------------------------------------------------------
+# serving steps (runtime/server.py): batched prefill + slot-paged decode.
+# Where the reference donates the cache, ``lens`` and ``tok`` to its jitted
+# steps (donate_argnums), these steps update the same tensors in place.
+# ---------------------------------------------------------------------------
+
+def make_decode_step(model, rt: Runtime, plan: Plan) -> Callable:
+    """(cache, tokens (B, 1), cache_len) -> (logits, cache)."""
+    def decode_step(cache, tokens, cache_len):
+        return model.decode_fn(cache, tokens, cache_len)
+    return decode_step
+
+
+def make_prefill_step(model, rt: Runtime, plan: Plan) -> Callable:
+    """(batch) -> (logits, cache)."""
+    def prefill_step(batch):
+        logits, cache, _ = model.prefill_fn(batch)
+        return logits, cache
+    return prefill_step
+
+
+def sample_tokens(logits: torch.Tensor, *, greedy: bool, temperature: float,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Device-side sampling: (B, V) logits -> (B,) int32 token ids. Greedy
+    argmax (the first maximum on ties, as ``jnp.argmax``), or a draw from
+    softmax(logits / temperature) on ``generator``: a different stream from
+    ``jax.random``'s by construction, so only greedy tokens compare."""
+    if greedy:
+        return logits.argmax(dim=-1).to(torch.int32)
+    t = max(float(temperature), 1e-4)
+    probs = torch.softmax(logits.float() / t, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def make_serve_prefill_step(model, rt: Runtime, plan: Plan, *,
+                            greedy: bool = True, temperature: float = 1.0
+                            ) -> Callable:
+    """Batched prefill for one admitted request:
+
+      1. the full forward over the (bucket-padded) prompt, collecting every
+         layer's K/V (``model.prefill_cache_fn``);
+      2. those rows go into the live decode cache at the request's slot
+         (rows past the true length carry pad K/V, masked out of every later
+         attention by the slot's length);
+      3. the first generated token is sampled from the last prompt position;
+      4. the slot's length and pending token are set.
+
+    ``prefill_step(cache, lens, tok, tokens (1, Lb), length, slot,
+    generator=None) -> (cache, lens, tok, first (1,))``; cache, lens and tok
+    are updated in place and returned."""
+    if model.prefill_cache_fn is None:
+        raise ValueError(
+            f"family {model.cfg.family!r} has no positional KV cache; "
+            "batched prefill is undefined under padding (use the decode "
+            "loop for recurrent families)")
+
+    @torch.no_grad()
+    def prefill_step(cache, lens, tok, tokens, length: int, slot: int,
+                     generator=None):
+        logits, kv = model.prefill_cache_fn(tokens)
+        last = logits[:1, int(length) - 1, :]                  # (1, Vp)
+        nxt = sample_tokens(last, greedy=greedy, temperature=temperature,
+                            generator=generator)               # (1,)
+        lb = tokens.shape[1]
+        for c, p in zip(cache, kv):
+            c[:, slot, :lb] = p[:, 0].to(c.dtype)
+        lens[slot] = int(length)
+        tok[slot, 0] = nxt[0]
+        return cache, lens, tok, nxt
+
+    return prefill_step
+
+
+def make_serve_decode_step(model, rt: Runtime, plan: Plan, *, max_seq: int,
+                           greedy: bool = True, temperature: float = 1.0
+                           ) -> Callable:
+    """One slot-paged decode step over the whole batch.
+
+    ``lens`` (B,) is each slot's position (per-row KV write and per-slot
+    attention mask), ``tok`` (B, 1) each slot's pending token (the previous
+    step's device-side sample). ``active`` is the host's (B,) occupancy
+    mask: inactive slots neither advance their length nor replace their
+    token. ``decode_step(cache, lens, tok, active, generator=None) ->
+    (cache, lens, tok, out (B,))``, with inactive slots as -1 in ``out``;
+    cache, lens and tok are updated in place."""
+
+    @torch.no_grad()
+    def decode_step(cache, lens, tok, active, generator=None):
+        logits, cache = model.decode_fn(cache, tok, lens)
+        nxt = sample_tokens(logits[:, -1, :], greedy=greedy,
+                            temperature=temperature, generator=generator)
+        act = active & (lens > 0)
+        tok.copy_(torch.where(act[:, None], nxt[:, None], tok))
+        lens.copy_(torch.where(act, torch.clamp(lens + 1, max=max_seq),
+                               lens))
+        out_tok = torch.where(act, nxt, torch.full_like(nxt, -1))
+        return cache, lens, tok, out_tok
+
+    return decode_step

@@ -29,13 +29,17 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> (source file, C entry, argtypes); c_void_p for pointers and
-# the stream, c_int64 for sizes (a bare int would be cut to 32 bits)
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+# the stream, c_int64 for sizes (a bare int would be cut to 32 bits), c_float
+# for a float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 KERNELS = {
     "embed_gather": ("embed_gather.cu", "repro_embed_gather",
                      (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "embed_scatter_add": ("embed_scatter.cu", "repro_embed_scatter_add",
                           (_P, _P, _P, _I, _I, _I, _I, _P)),
+    # q, k, v, o; b, sq, sk, h, d, itemsize, causal; 12 strides; scale; stream
+    "flash_attention": ("flash_attention.cu", "repro_flash_attention",
+                        (_P, _P, _P, _P) + (_I,) * 19 + (_F, _P)),
 }
 
 _loaded: dict = {}

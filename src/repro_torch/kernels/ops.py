@@ -1,5 +1,5 @@
-"""Public wrappers of the embedding kernels (the port of
-``repro/kernels/ops.py``).
+"""Public wrappers of the kernels (the port of ``repro/kernels/ops.py``):
+the embedding pull and push, and flash attention.
 
 Dispatch is by the tensor's device, never by a flag:
   * a CPU tensor takes the plain version (kernels/ref.py);
@@ -20,14 +20,19 @@ from repro_torch.kernels import _build, ref
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+_FLASH_DIMS = (16, 32, 64, 128)
+
+
 def reset_launch_counts() -> None:
     embed_gather.launches = 0
     embed_scatter_add.launches = 0
+    flash_attention.launches = 0
 
 
 def launch_counts() -> dict:
     return {"embed_gather": embed_gather.launches,
-            "embed_scatter_add": embed_scatter_add.launches}
+            "embed_scatter_add": embed_scatter_add.launches,
+            "flash_attention": flash_attention.launches}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -127,5 +132,49 @@ def scatter_into(ids: torch.Tensor, rows: torch.Tensor, out: torch.Tensor,
     embed_scatter_add.launches += 1
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, D), k/v (B, Sk, H, D) with KV pre-expanded to H heads,
+    bf16|f32 -> (B, Sq, H, D) in q's dtype: softmax(q k^T D^-0.5) v, causal
+    positions counted from 0 on both sides. The kernel reads the tensors
+    through their strides (the head dimension must be contiguous) and
+    takes D in {16, 32, 64, 128}."""
+    _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+           f"q, k, v must be (B, S, H, D), got {tuple(q.shape)}, "
+           f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    _check(k.shape == v.shape and k.shape[0] == b and k.shape[2:] == (h, d),
+           f"k, v must be (B={b}, Sk, H={h}, D={d}), got "
+           f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check(k.shape[1] > 0, "flash_attention needs Sk >= 1")
+    _check(q.dtype in _DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
+           f"q, k, v must share a dtype in {_DTYPES}, got {q.dtype}, "
+           f"{k.dtype}, {v.dtype}")
+    _check(k.device == q.device and v.device == q.device,
+           f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise NotImplementedError(
+            f"flash_attention: no kernel for device {q.device}")
+    _check(d in _FLASH_DIMS, f"flash_attention: head dim {d} not in "
+           f"{_FLASH_DIMS}")
+    _check(q.stride(-1) == 1 and k.stride(-1) == 1 and v.stride(-1) == 1,
+           "flash_attention needs a contiguous head dimension")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if q.numel() == 0:
+        return out
+    fn = _build.load("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+             k.shape[1], h, d, q.element_size(), int(bool(causal)), *strides,
+             d ** -0.5, stream)
+    _raise_on(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
 embed_gather.launches = 0
 embed_scatter_add.launches = 0
+flash_attention.launches = 0

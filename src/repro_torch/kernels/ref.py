@@ -1,12 +1,31 @@
-"""Plain PyTorch versions of the embedding kernels (the port of
+"""Plain PyTorch versions of the kernels (the port of
 ``repro/kernels/ref.py``).
 
 They are the CPU path of ``kernels/ops.py`` and the yardstick the CUDA
-kernels are held against, bit for bit, on the card (chip_smoke.py).
+kernels are held against on the card (chip_smoke.py): the embedding kernels
+bit for bit, flash attention within the reference's tolerances.
 """
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Sk, H, D) (KV pre-expanded). f32 inside,
+    the output in q's dtype. Causal positions count from 0 on both sides."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
 
 
 def embed_gather_ref(table_shard: torch.Tensor, ids: torch.Tensor,

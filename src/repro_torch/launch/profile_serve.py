@@ -1,0 +1,81 @@
+"""Where the time of serving goes, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+
+Builds the serve path of chip_smoke.py (full-width phi3-medium-14b, bf16,
+RunConfig(attention_impl="pallas"), ServerConfig(max_batch=4,
+max_seq=2048), seed 0), warms every prefill bucket, then runs
+torch.profiler over
+
+  prefill   one engine prefill step per bucket (256 ... 2048 tokens);
+  decode    10 engine decode steps over the full batch of 4;
+
+and prints one JSON line each from ``profile_step.profiled``: per step,
+device time by kernel class, the top kernels by name, the device's idle
+share (1 - union of kernel intervals / profiled wall window) and the wall
+time.
+Chrome traces go to results/profile_serve/. Needs a card; without one it
+exits non-zero.
+"""
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.configs import RunConfig, get_config
+from repro_torch.launch.profile_step import profiled
+from repro_torch.runtime.server import Server, ServerConfig, prefill_buckets
+
+OUT = Path(__file__).resolve().parents[3] / "results" / "profile_serve"
+DECODE_STEPS = 10
+
+
+def _emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("profile_serve: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("phi3-medium-14b")
+    scfg = ServerConfig(max_batch=4, max_seq=2048)
+    sv = Server(cfg, RunConfig(attention_impl="pallas"), scfg, seed=0)
+    dev = sv.rt.device
+    rng = np.random.default_rng(0)
+    buckets = [b for b in prefill_buckets(scfg.max_seq) if b >= 256]
+    toks = {lb: torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, lb))
+                                 .astype(np.int32)).to(dev)
+            for lb in buckets}
+
+    def prefill(lb):
+        for slot in range(scfg.max_batch):
+            sv._prefill(sv.cache, sv.lens, sv.tok, toks[lb], lb, slot,
+                        sv._gen)
+
+    active = torch.ones(scfg.max_batch, dtype=torch.bool, device=dev)
+
+    def decode():
+        for _ in range(DECODE_STEPS):
+            sv._decode(sv.cache, sv.lens, sv.tok, active, sv._gen)
+
+    for lb in buckets:                      # warm every GEMM shape
+        prefill(lb)
+    decode()
+    for lb in buckets:
+        _emit({"phase": "prefill", "tokens": lb,
+               "device": torch.cuda.get_device_name(0),
+               **profiled(lambda: prefill(lb), scfg.max_batch,
+                          OUT / f"prefill_{lb}.json")})
+    sv.lens.fill_(1024)
+    _emit({"phase": "decode", "batch": scfg.max_batch, "cache_len": 1024,
+           **profiled(decode, DECODE_STEPS, OUT / "decode.json")})
+    sv.close()
+
+
+if __name__ == "__main__":
+    main()

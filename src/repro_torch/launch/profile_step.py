@@ -8,9 +8,10 @@ ShapeConfig("lm1b", 20, 128), default RunConfig) and prints JSON lines:
   stages    per-step device time of the forward (lookup, LSTM, head, loss),
             the backward, and the update (OPSW cast, clipping, AdamW), from
             CUDA events with a synchronize between stages;
-  profile   torch.profiler over 3 steady steps: device time by
-            kernel class and the top kernels by name, and the device's idle
-            share (1 - union of kernel intervals / profiled wall window).
+  profile   torch.profiler over 3 steady steps (``profiled``): per step,
+            device time by kernel class and the top kernels by name, and
+            the device's idle share (1 - union of kernel intervals /
+            profiled wall window).
 
 The chrome trace goes to results/profile_step/trace.json. Needs a card;
 without one it exits non-zero.
@@ -39,6 +40,7 @@ OUT = Path(__file__).resolve().parents[3] / "results" / "profile_step"
 CLASSES = (
     ("gather_rows", "embed_gather"),
     ("scatter_rows", "embed_scatter_add"),
+    ("flash_fwd", "flash_attention"),
     ("nvjet", "gemm"), ("gemm", "gemm"), ("xmma", "gemm"),
     ("cutlass", "gemm"),
     ("reduce_kernel", "reduction"),
@@ -102,6 +104,38 @@ def _union_us(intervals) -> float:
     return busy
 
 
+def profiled(fn, per: int, trace_path: Path, top: int = 10) -> dict:
+    """Run ``fn`` once under torch.profiler and return its device time per
+    unit (``per`` units in the call): wall and kernel ms, kernel ms by
+    class, the top kernels by name, and the device's idle share (1 - union
+    of kernel intervals / the profiled wall window). The chrome trace goes
+    to ``trace_path``."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_class, by_name = defaultdict(float), defaultdict(float)
+    for e in kern:
+        us = e.time_range.elapsed_us()
+        by_class[_class(e.name)] += us
+        by_name[e.name] += us
+    busy = _union_us((e.time_range.start, e.time_range.end) for e in kern)
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    return {"device_kernels": len(kern),
+            "wall_ms": wall_us / 1e3 / per,
+            "kernel_ms": sum(by_class.values()) / 1e3 / per,
+            "idle_share": (1.0 - busy / wall_us) if kern else None,
+            "by_class_ms": {k: v / 1e3 / per for k, v in
+                            sorted(by_class.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms": [[n[:120], v / 1e3 / per] for n, v in names]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
@@ -119,36 +153,13 @@ def main() -> None:
            **stages, "step_ms": sum(stages.values())})
 
     batches = [ds.batch(i) for i in range(5, 5 + STEPS)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def steps():
         for b in batches:
             runner.run(b)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_class, by_name = defaultdict(float), defaultdict(float)
-    for e in kern:
-        us = e.time_range.elapsed_us()
-        by_class[_class(e.name)] += us
-        by_name[e.name] += us
-    busy = _union_us((e.time_range.start, e.time_range.end) for e in kern)
-    total = sum(by_class.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    _emit({"phase": "profile", "steps": STEPS,
-           "device_kernels": len(kern),
-           "wall_ms_per_step": wall_us / 1e3 / STEPS,
-           "kernel_ms_per_step": total / 1e3 / STEPS,
-           "idle_share": (1.0 - busy / wall_us) if kern else None,
-           "by_class_ms_per_step": {k: v / 1e3 / STEPS for k, v in
-                                    sorted(by_class.items(),
-                                           key=lambda kv: -kv[1])},
-           "top_kernels_ms_per_step": [[n[:120], v / 1e3 / STEPS]
-                                       for n, v in top]})
-    OUT.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(OUT / "trace.json"))
 
+    _emit({"phase": "profile", "steps": STEPS,
+           **profiled(steps, STEPS, OUT / "trace.json", top=15)})
 
 if __name__ == "__main__":
     main()

@@ -1,4 +1,5 @@
-"""Parameter-spec system (the port of ``repro/models/layers.py``).
+"""Parameter-spec system and basic layers (the port of
+``repro/models/layers.py``).
 
 Parameters are declared once as ``ParamSpec`` trees (nested dicts) with
 logical axes; the same spec tree serves initialization and the sparsity
@@ -13,6 +14,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+from torch import nn
 
 from repro_torch.utils.tree import flatten
 
@@ -85,3 +87,39 @@ def init_tree(generator: torch.Generator, specs: Any,
     """{dotted_name: tensor}: one draw per leaf, in flatten order."""
     return {name: init_param(generator, s, default_dtype)
             for name, s in flatten_specs(specs)}
+
+
+class ParamTree(nn.Module):
+    """A nested spec dict as nested modules: parameter ``a.b.c`` of the
+    spec tree is ``named_parameters()`` entry ``a.b.c``, allocated
+    uninitialized in the spec's dtype (or ``dtype``) on ``device``."""
+
+    def __init__(self, specs: dict, dtype: torch.dtype, device):
+        super().__init__()
+        for name in sorted(specs):
+            s = specs[name]
+            if isinstance(s, dict):
+                self.add_module(name, ParamTree(s, dtype, device))
+            else:
+                self.register_parameter(name, nn.Parameter(torch.empty(
+                    s.shape, dtype=s.dtype or dtype, device=device)))
+
+
+# ---------------------------------------------------------------------------
+# functional layers
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP (the reference's ``constrain`` pins a sharding; one
+    device has none to pin)."""
+    h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down

@@ -20,7 +20,8 @@ from torch import nn
 
 from repro_torch.core import embedding as emb
 from repro_torch.core.xent import xent
-from repro_torch.models.layers import ParamSpec, flatten_specs, stack_tree
+from repro_torch.models.layers import (ParamSpec, ParamTree, flatten_specs,
+                                       stack_tree)
 
 
 def lstm_cell_specs(d_in: int, hidden: int, proj: int) -> dict:
@@ -88,17 +89,6 @@ def _run_stack(layers_p: dict, x: torch.Tensor, states: tuple) -> tuple:
     return x, (torch.stack(new_c), torch.stack(new_h))
 
 
-class _Layers(nn.Module):
-    """The stacked LSTM cell weights, leading dim = layer."""
-
-    def __init__(self, specs: dict, dtype: torch.dtype, device):
-        super().__init__()
-        for name in sorted(specs):
-            s = specs[name]
-            self.register_parameter(name, nn.Parameter(torch.empty(
-                s.shape, dtype=s.dtype or dtype, device=device)))
-
-
 class LSTMLM(nn.Module):
     """``parallax-lm``: its ``named_parameters()`` carry the reference's
     dotted names (embed, head, layers.bias, layers.w_h, layers.w_proj,
@@ -114,7 +104,7 @@ class LSTMLM(nn.Module):
             s = specs[name]
             self.register_parameter(name, nn.Parameter(torch.empty(
                 s.shape, dtype=s.dtype or pdt, device=dev)))
-        self.layers = _Layers(specs["layers"], pdt, dev)
+        self.layers = ParamTree(specs["layers"], pdt, dev)
 
     def specs(self) -> dict:
         return model_specs(self.cfg, self.rt)
@@ -145,6 +135,20 @@ class LSTMLM(nn.Module):
         x, new_state = _run_stack(layers, x, state)
         logits = torch.matmul(x, self.head.to(x.dtype).t())
         return logits, new_state, metrics
+
+    # the recurrent carry cannot be bucket-prefilled exactly under padding:
+    # serving runs it through ToyServer's decode loop
+    prefill_cache_fn = None
+
+    @torch.no_grad()
+    def decode_fn(self, state: tuple, tokens: torch.Tensor,
+                  cache_len=None) -> tuple:
+        """One step of the serving loop: tokens (B, 1) -> (logits, state)."""
+        return self({"tokens": tokens}, state=state)[:2]
+
+    def init_cache(self, batch: int, cache_seq: int) -> tuple:
+        return _init_state(self.cfg, batch, self.cfg.n_layers, self.rt.dtype,
+                           self.rt.device)
 
     def loss_fn(self, batch: dict) -> tuple:
         logits, _, metrics = self(batch)

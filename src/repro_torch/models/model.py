@@ -1,17 +1,21 @@
 """Model factory (the port of ``repro/models/model.py``).
 
-``build_model(cfg, rt)`` returns an ``nn.Module`` with ``specs()``,
-``param_specs()``, ``input_specs()``, ``forward(batch)`` and
-``loss_fn(batch) -> (loss, metrics)``. This slice ports the ``lstm``
-family's decoder-only model; the other families are refused by name.
+``build_model(cfg, rt)`` returns an ``nn.Module`` that holds its
+parameters, with ``specs()``, ``param_specs()``, ``input_specs()``,
+``loss_fn(batch)``, ``prefill_fn(batch)``, ``decode_fn(cache, tokens,
+cache_len)``, ``init_cache(batch, seq)`` and ``prefill_cache_fn(tokens)``
+(None for a family whose recurrent state cannot be bucket-prefilled under
+padding). Ported families: ``lstm`` (the paper's decoder-only LM) and
+``dense`` (serving; its training is ROADMAP slice 4). The others are
+refused by name.
 """
 from __future__ import annotations
 
 from repro_torch.models.lstm import LSTMLM
+from repro_torch.models.transformer import DenseLM
 
 # family -> the ROADMAP slice that ports it
 _LATER = {
-    "dense": "slice 4 (the dense transformer)",
     "vlm": "slice 6 (the other families)",
     "moe": "slice 6 (the other families)",
     "ssm": "slice 6 (the other families)",
@@ -20,9 +24,11 @@ _LATER = {
 }
 
 
-def build_model(cfg, rt) -> LSTMLM:
+def build_model(cfg, rt):
     if cfg.family == "lstm":
         return LSTMLM(cfg, rt)
+    if cfg.family == "dense":
+        return DenseLM(cfg, rt)
     where = _LATER.get(cfg.family, "a later slice")
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP "

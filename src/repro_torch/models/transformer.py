@@ -1,0 +1,328 @@
+"""Decoder LM of the dense family (the port of the dense path of
+``repro/models/transformer.py``), single device.
+
+Parameters stay stacked over layers, under the reference's dotted names
+(``layers.attn.wq`` is (n_layers, d, H*hd), and so on), so
+``weights.load_reference_params`` carries a reference model across by name;
+the reference's ``lax.scan`` over that stack becomes a Python loop over
+``params["layers.*"][i]`` (views, no copies). The embedding goes through the
+PS lookup (core/embedding.py, the ``embed_gather`` kernel on the card); with
+``attention_impl="pallas"`` the cache-less attention goes to the
+``flash_attention`` kernel.
+
+The decode cache is the reference's tuple ``(k, v)`` of
+(n_layers, B, S, KV, hd) tensors. Where JAX returns an updated cache, the
+port writes the new rows into the given tensors in place and returns them.
+
+Not ported here: ``loss_fn`` (training the dense family) and the tensor- and
+sequence-parallel paths (``core/sp.py``), ROADMAP slice 4; the moe, hybrid
+and ssm families and cross attention, ROADMAP slice 6.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.core import embedding as emb
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (ParamSpec, ParamTree, flatten_specs,
+                                       rms_norm, stack_tree, swiglu)
+
+_LAYERS = "layers."
+
+
+@functools.lru_cache(maxsize=32)
+def _qmap(n_heads: int, n_kv: int, padded: int, device: torch.device):
+    """``make_qmap`` once per shape and device: the map is a host list, and
+    building it as a device tensor in every layer of every step would be a
+    host-to-device copy each time. Nothing mutates the cached tensor."""
+    return attn_mod.make_qmap(n_heads, n_kv, padded, device=device)
+
+
+def _refuse(what: str, where: str):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {where}")
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+def attn_specs(cfg, rt) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    hp = rt.pad_heads(cfg.n_heads)
+    kv = cfg.n_kv_heads
+    return {
+        "wq": ParamSpec((d, hp * hd), (None, "heads_hd"), fan_in_axes=(0,),
+                        init="normal"),
+        "wk": ParamSpec((d, kv * hd), (None, "kv_heads"), fan_in_axes=(0,)),
+        "wv": ParamSpec((d, kv * hd), (None, "kv_heads"), fan_in_axes=(0,)),
+        "wo": ParamSpec((hp * hd, d), ("heads_hd", None), fan_in_axes=(0,)),
+    }
+
+
+def mlp_specs(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": ParamSpec((d, f), (None, "mlp"), fan_in_axes=(0,)),
+        "w_up": ParamSpec((d, f), (None, "mlp"), fan_in_axes=(0,)),
+        "w_down": ParamSpec((f, d), ("mlp", None), fan_in_axes=(0,)),
+    }
+
+
+def layer_specs(cfg, rt) -> dict:
+    if cfg.family != "dense":
+        _refuse(f"the {cfg.family} family's layers", "slice 6 (the other "
+                "families)")
+    d = cfg.d_model
+    return {
+        "ln1": ParamSpec((d,), (None,), init="ones"),
+        "attn": attn_specs(cfg, rt),
+        "ln2": ParamSpec((d,), (None,), init="ones"),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def model_specs(cfg, rt) -> dict:
+    d = cfg.d_model
+    vp = rt.padded_vocab
+    specs = {
+        "embed": ParamSpec((vp, d), ("vocab", "embed"), init="embed",
+                           sparse=True),
+        "layers": stack_tree(layer_specs(cfg, rt), cfg.n_layers),
+        "final_norm": ParamSpec((d,), (None,), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = ParamSpec((vp, d), ("vocab", "embed"), scale=0.02)
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_len) -> None:
+    """Write this step's K or V rows into one layer's (B, S, KV, hd) cache,
+    in place.
+
+    Per-slot ``cache_len`` (a (B,) tensor): row b lands at position
+    cache_len[b], and a slot with cache_len outside [0, S) writes nowhere
+    (the reference's one-hot select). Computed without a host sync: the
+    position is clamped into range and an out-of-range slot writes back
+    the bits it read. Scalar ``cache_len``: the rows land at cache_len,
+    with the start clamped into [0, S - s] as ``dynamic_update_slice``
+    clamps it."""
+    b, s_cache = cache.shape[:2]
+    new = new.to(cache.dtype)
+    cl = cache_len
+    if isinstance(cl, torch.Tensor) and cl.dim() == 1:
+        if new.shape[1] != 1:
+            raise ValueError("a per-slot cache write takes one token per "
+                             f"slot, got {new.shape[1]}")
+        rows = torch.arange(b, device=cache.device)
+        cl = cl.to(cache.device).long()
+        pos = cl.clamp(0, s_cache - 1)
+        hit = ((cl >= 0) & (cl < s_cache))[:, None, None]
+        cache[rows, pos] = torch.where(hit, new[:, 0], cache[rows, pos])
+        return
+    s = new.shape[1]
+    start = max(0, min(int(cl), s_cache - s))
+    cache[:, start:start + s] = new
+
+
+def attn_block(p: dict, x: torch.Tensor, *, cfg, rt, positions,
+               layer_cache: Optional[tuple] = None, cache_len=None,
+               causal: bool = True, return_kv: bool = False) -> tuple:
+    """Self-attention sub-block. Returns (out, new_cache).
+
+    ``return_kv``: on the cache-less path, hand back this layer's (K, V) at
+    the compute dtype — the serving engine's batched prefill collects them
+    across layers and inserts the rows into the live decode cache."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    hp = rt.pad_heads(cfg.n_heads)
+    kv = cfg.n_kv_heads
+    qmap = _qmap(cfg.n_heads, kv, hp, x.device)
+
+    q = (x @ p["wq"]).reshape(b, s, hp, hd)
+    k = (x @ p["wk"]).reshape(b, s, kv, hd)
+    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    if cfg.rope_theta:
+        q = attn_mod.rope(q, positions, cfg.rope_theta)
+        k = attn_mod.rope(k, positions, cfg.rope_theta)
+
+    if layer_cache is not None:
+        k_cache, v_cache = layer_cache
+        _write_cache(k_cache, k, cache_len)
+        _write_cache(v_cache, v, cache_len)
+        out = attn_mod.decode_attention(q, k_cache, v_cache, cache_len + 1,
+                                        qmap=qmap)
+        new_cache = (k_cache, v_cache)
+    else:
+        out = attn_mod.attention(
+            q, k, v, impl=rt.run_cfg.attention_impl, causal=causal,
+            chunk=rt.run_cfg.attention_chunk, qmap=qmap)
+        new_cache = (k.to(rt.dtype), v.to(rt.dtype)) if return_kv else None
+    out =out.reshape(b, s, hp * hd) @ p["wo"]
+    return out, new_cache
+
+
+def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
+                  layer_cache=None, cache_len=None,
+                  collect_kv: bool = False) -> tuple:
+    """Pre-norm decoder layer; returns (x, new_cache, metrics)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, new_cache = attn_block(
+        p["attn"], h, cfg=cfg, rt=rt, positions=positions,
+        layer_cache=layer_cache, cache_len=cache_len, return_kv=collect_kv)
+    x = x + attn_out
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    mlp = p["mlp"]
+    x = x + swiglu(h2, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+    return x, new_cache, {}
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, rt, batch: int, cache_seq: int,
+               dtype: Optional[torch.dtype] = None) -> tuple:
+    """Zeroed decode cache: (k, v), each (n_layers, B, S, KV, hd)."""
+    shape = (cfg.n_layers, batch, cache_seq, cfg.n_kv_heads, cfg.head_dim)
+    dtype = dtype or rt.dtype
+    return (torch.zeros(shape, dtype=dtype, device=rt.device),
+            torch.zeros(shape, dtype=dtype, device=rt.device))
+
+
+def _layer_params(params: dict, i: int) -> dict:
+    """Layer i of the stacked ``layers.*`` parameters as the nested dict the
+    blocks read (``p["attn"]["wq"]``); each leaf is a view."""
+    out: dict = {}
+    for name, t in params.items():
+        if not name.startswith(_LAYERS):
+            continue
+        *path, leaf = name[len(_LAYERS):].split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t[i]
+    return out
+
+
+def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
+            cache_len=None, collect_kv: bool = False) -> tuple:
+    """tokens (B, S) -> logits (B, S, Vp), new cache, metrics.
+
+    ``params``: {dotted_name: tensor}. ``cache_len`` may be a scalar
+    (homogeneous batch) or a per-slot (B,) tensor (the serving engine's
+    slot-paged decode). ``collect_kv`` makes the cache-less (prefill) path
+    return the per-layer K/V stack, (n_layers, B, S, KV, hd) each, instead
+    of None."""
+    b, s = tokens.shape
+    x, metrics = emb.lookup(params["embed"], tokens, ctx=rt.embed_ctx(),
+                            capacity=rt.embed_capacity_for("embed"))
+    x = x.to(rt.dtype)
+    dev = tokens.device
+
+    if cache_len is None and cache is None:
+        positions = torch.arange(s, device=dev)
+    else:
+        base = torch.as_tensor(0 if cache_len is None else cache_len,
+                               device=dev)
+        if base.dim() == 1:
+            positions = base[:, None] + torch.arange(s, device=dev)[None, :]
+        else:
+            positions = base + torch.arange(s, device=dev)
+
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        layer_cache = None if cache is None else (cache[0][i], cache[1][i])
+        x, new_c, _ = decoder_layer(
+            _layer_params(params, i), x, cfg=cfg, rt=rt, positions=positions,
+            layer_cache=layer_cache, cache_len=cache_len,
+            collect_kv=collect_kv)
+        if cache is None and collect_kv:
+            ks.append(new_c[0])
+            vs.append(new_c[1])
+    if cache is not None:
+        new_cache = cache
+    elif collect_kv:
+        new_cache = (torch.stack(ks), torch.stack(vs))
+    else:
+        new_cache = None
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    logits = torch.matmul(x, head.to(x.dtype).t())
+    return logits, new_cache, metrics
+
+
+def decode_step(params: dict, cache: tuple, tokens: torch.Tensor, cache_len,
+                *, cfg, rt) -> tuple:
+    """One serving step: tokens (B, 1) + caches -> logits (B, 1, Vp),
+    cache (written in place), metrics."""
+    return forward(params, tokens, cfg=cfg, rt=rt, cache=cache,
+                   cache_len=cache_len)
+
+
+class DenseLM(ParamTree):
+    """A dense-family decoder LM (``phi3-medium-14b`` and kin). Its
+    ``named_parameters()`` carry the reference's dotted names (embed, head,
+    final_norm, layers.ln1, layers.attn.wq, ..., layers.mlp.w_up).
+    Parameters are allocated uninitialized; core/transform.py fills them
+    (a seeded init or loaded weights)."""
+
+    def __init__(self, cfg, rt):
+        super().__init__(model_specs(cfg, rt), rt.param_dtype, rt.device)
+        self.cfg, self.rt = cfg, rt
+
+    def specs(self) -> dict:
+        return model_specs(self.cfg, self.rt)
+
+    def param_specs(self) -> list:
+        """[(dotted_name, ParamSpec)] in JAX's flatten order."""
+        return flatten_specs(self.specs())
+
+    def params(self) -> dict:
+        return dict(self.named_parameters())
+
+    def input_specs(self, shape=None) -> dict:
+        """{name: (shape, dtype)} of one step's inputs."""
+        shape = shape or self.rt.shape_cfg
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": ((b, 1), torch.int32),
+                    "cache_len": ((), torch.int32)}
+        return {"tokens": ((b, s), torch.int32)}
+
+    def loss_fn(self, batch: dict):
+        _refuse("training the dense family", "slice 4 (the dense "
+                "transformer)")
+
+    @torch.no_grad()
+    def prefill_fn(self, batch: dict) -> tuple:
+        """-> (logits, None, metrics) over a whole prompt batch."""
+        return forward(self.params(), batch["tokens"], cfg=self.cfg,
+                       rt=self.rt)
+
+    @torch.no_grad()
+    def prefill_cache_fn(self, tokens: torch.Tensor) -> tuple:
+        """tokens (B, S) -> (logits, (k, v)) with the per-layer K/V in the
+        decode-cache layout, for slot insertion."""
+        logits, kv, _ = forward(self.params(), tokens, cfg=self.cfg,
+                                rt=self.rt, collect_kv=True)
+        return logits, kv
+
+    @torch.no_grad()
+    def decode_fn(self, cache: tuple, tokens: torch.Tensor,
+                  cache_len) -> tuple:
+        """-> (logits (B, 1, Vp), cache written in place)."""
+        logits, new_cache, _ = decode_step(self.params(), cache, tokens,
+                                           cache_len, cfg=self.cfg,
+                                           rt=self.rt)
+        return logits, new_cache
+
+    def init_cache(self, batch: int, cache_seq: int) -> tuple:
+        return init_cache(self.cfg, self.rt, batch, cache_seq)
