@@ -7,18 +7,23 @@ Phases, one JSON line each; any failure raises, so the script exits non-zero
 and never prints the final line:
 
   1. banner   torch/CUDA versions, the card and its power limit; TF32 off.
-  2. build    nvcc builds the three kernels from src/repro_torch/kernels/
+  2. build    nvcc builds the four kernels from src/repro_torch/kernels/
               csrc (one process per source, in parallel) into
               build/repro_torch/.
   3. kernels  each kernel against its plain version on the card at the main
               paths' shapes and at edge cases: the embedding kernels bit for
               bit (torch.equal; embed_gather at parallax-lm's table and at
-              phi3-medium-14b's, with the ids of a 2,048-token prefill and
-              of a 4-slot decode step), flash_attention within 2e-5 at
-              f32 and 2e-2 at bf16 (absolute and relative; the reference's
-              own bars, the difference being summation order). Kernel,
-              plain and library-call times (CUDA events, median of 50 runs,
-              L2 flushed before each) beside the bound.
+              phi3-medium-14b's and rwkv6-7b's, with the ids of a
+              2,048-token prefill and of a 4-slot decode step),
+              flash_attention within 2e-5 at f32 and 2e-2 at bf16, wkv
+              within 1e-4 at f32 and 5e-2 at bf16 of both its plain
+              versions (chunked and sequential) at rwkv6-7b's prefill and
+              decode shapes, the reference's sweep, chunk 16 against 48,
+              and a clamped case (chunk * |lw| > 80, held against the
+              chunked version only). Tolerances are absolute and relative,
+              the reference's own bars; the difference is summation order.
+              Kernel, plain and library-call times (CUDA events, median of
+              50 runs, L2 flushed before each) beside the bound.
   4. parity   reduced parallax-lm at f32, the same parameters and batches,
               3 steps on the CPU and on the card: losses within rtol 1e-4
               (GEMM and index_add_ summation order differ on the card), the
@@ -28,12 +33,21 @@ and never prints the final line:
               Server(device="cuda"): prefill logits within rtol 1e-4, greedy
               tokens equal (at most 2 may differ, the reference's own
               allowance for argmax near-ties; any difference is printed).
-  6. main     full-width parallax-lm, ShapeConfig("lm1b", 20, 128) and the
+  6. rwkv_parity  reduced rwkv6-7b at f32, the same parameters on the CPU
+              and on the card: make_prefill_step logits and final carry
+              within rtol 1e-4 (and 1e-4 of the max-abs scale), ToyServer
+              greedy tokens equal (at most 2 may differ).
+  7. rwkv_recurrence  rwkv6-7b at full width with n_layers cut to 2, f32,
+              one 300-token prompt (9 chunks and a ragged 12): the chunked
+              make_prefill_step and 300 one-token make_decode_step calls
+              give the same last logits and every layer's carry within 1e-4
+              of their max-abs scale.
+  8. main     full-width parallax-lm, ShapeConfig("lm1b", 20, 128) and the
               default RunConfig (bf16): get_runner(..., device="cuda"), 10
               steps of SyntheticLM batches. Every loss finite, the last below
               the first, each embedding kernel launched exactly once per
               step.
-  7. serve    full-width phi3-medium-14b (40 layers, nothing cut), bf16,
+  9. serve    full-width phi3-medium-14b (40 layers, nothing cut), bf16,
               Server(..., RunConfig(attention_impl="pallas"),
               ServerConfig(max_batch=4, max_seq=2048)) on the card: 8
               requests with prompts of 200..1800 tokens, 16 new tokens each.
@@ -42,9 +56,18 @@ and never prints the final line:
               decode step. TTFT, inter-token gaps and decode tokens/s over
               the run's window, prefill ms per bucket, one synthetic decode
               step (lens 1024), peak memory, clocks and power.
+ 10. rwkv_serve  full-width rwkv6-7b (32 layers, nothing cut), bf16,
+              ToyServer(..., ServerConfig(max_batch=4, max_seq=2048)) on
+              the card: 8 requests with prompts of 16..64 tokens (an
+              unsourced smoke mix), 16 new tokens each, greedy. All
+              complete; wkv launched n_layers times per device step (decode
+              steps plus the teacher-forced prompt steps), embed_gather once
+              per device step. TTFT, inter-token gaps and tokens/s over the
+              run's window, one decode step over 4 slots, one 2,048-token
+              make_prefill_step (its ms; 32 wkv launches), peak memory.
 
-Each path (main, serve) runs with every launch count set to 0 just before
-it and read just after.
+Each path (main, serve, rwkv_serve) runs with every launch count set to 0
+just before it and read just after.
 
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels' numbers, and last {"ok": true, "device": {...}}.
@@ -59,6 +82,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -71,11 +95,15 @@ from repro_torch import compat  # noqa: E402
 from repro_torch.configs import (RunConfig, ShapeConfig, get_config,  # noqa: E402
                                  reduced)
 from repro_torch.core.embedding import dedupe  # noqa: E402
-from repro_torch.core.transform import get_runner  # noqa: E402
+from repro_torch.core.runtime import Runtime  # noqa: E402
+from repro_torch.core.transform import (analyze, get_runner,  # noqa: E402
+                                        init_params_, make_decode_step,
+                                        make_prefill_step)
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime.server import (Request, Server,  # noqa: E402
-                                        ServerConfig, bucket_len)
+                                        ServerConfig, ToyServer, bucket_len)
 from repro_torch.utils.roofline import HW  # noqa: E402
 from repro_torch.utils.tree import named_parameters  # noqa: E402
 
@@ -97,13 +125,29 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:67",
     },
+    "wkv": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/wkv.py:68",
+    },
 }
 # the kernels each path must launch (embed_scatter_add is a backward kernel;
 # serving has no backward)
 PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
-                "serve": ("embed_gather", "flash_attention")}
+                "serve": ("embed_gather", "flash_attention"),
+                "rwkv_serve": ("embed_gather", "wkv")}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-SERVE_BATCH, SERVE_MAX_SEQ = 4, 2048                # phase_serve's engine
+WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+SERVE_BATCH, SERVE_MAX_SEQ = 4, 2048                # both serve phases
+RWKV, RWKV_PREFILL = "rwkv6-7b", 2048
+F32_CORE_FLOPS = 67e12      # f32 FMA rate of the CUDA cores (H100 SXM sheet)
+# rwkv6 parameters that the seeded init leaves constant (zero mixes, zero
+# decay LoRA factor, w0 and bonus): the parity phases draw them, so the
+# data-dependent decay and the bonus are exercised. (scale, offset) of a
+# normal draw; decays stay where chunk * |lw| <= 80 (the exact regime).
+RWKV_DRAWN = {"tm.mu": (0.3, 0.0), "cm.mu": (0.3, 0.0),
+              "tm.w_lora_b": (0.01, 0.0), "tm.w0": (0.3, -0.5),
+              "tm.bonus": (0.3, 0.0)}
 
 
 def emit(obj: dict) -> None:
@@ -313,12 +357,18 @@ def phase_kernels(dev) -> dict:
     gather["shape"] = (f"parallax-lm: table ({VOCAB}, {E}) bf16, {n} ids "
                        "(one training step's dedupe buffer)")
     scatter["shape"] = gather["shape"]
-    gather_serve = _serve_gather(dev, gen, timer, hold)
+    gather_serve = _serve_gather(dev, gen, timer, hold, "phi3-medium-14b",
+                                 _serve_ids(dev), "serve")
+    gather_rwkv = _serve_gather(dev, gen, timer, hold, RWKV, _rwkv_ids(dev),
+                                "rwkv")
     flash = _flash_kernels(dev, gen, timer, errs, cases)
+    wkv = _wkv_kernels(dev, gen, timer, errs, cases)
     res = {"phase": "kernels", "cases": cases, "n_ids": n, "owned": owned,
            "max_abs_err": errs, "launches": ops.launch_counts(),
            "embed_gather": gather, "embed_gather_serve": gather_serve,
-           "embed_scatter_add": scatter, "flash_attention": flash}
+           "embed_gather_rwkv": gather_rwkv,
+           "embed_scatter_add": scatter, "flash_attention": flash,
+           "wkv": wkv}
     emit(res)
     return res
 
@@ -341,19 +391,39 @@ def _serve_ids(dev) -> dict:
     return out
 
 
-def _serve_gather(dev, gen, timer: Timer, hold) -> dict:
-    """embed_gather at the serve path's shapes: phi3-medium-14b's (100,352,
-    5,120) table in bf16 (the served dtype) and f32, held bit for bit
-    against its plain version; kernel, plain and library times of the
-    bf16 prefill and decode lookups beside their byte bounds."""
-    cfg = get_config("phi3-medium-14b")
+def _rwkv_prompt(vocab: int) -> np.ndarray:
+    """The 2,048-token prompt of rwkv_serve's make_prefill_step."""
+    return np.random.default_rng(1).integers(
+        0, vocab, size=(1, RWKV_PREFILL)).astype(np.int32)
+
+
+def _rwkv_ids(dev) -> dict:
+    """The ids the rwkv6 path hands embed_gather (exact capacity): the
+    dedupe buffer of a 2,048-token prompt and of one 4-slot decode step."""
+    vs = get_config(RWKV).vocab_size
+    step = np.random.default_rng(2).integers(0, vs, size=SERVE_BATCH)
+    out = {}
+    for case, flat in (("prefill", _rwkv_prompt(vs)[0]),
+                       ("decode", step.astype(np.int32))):
+        ids = torch.from_numpy(flat).to(dev)
+        out[case], _, _ = dedupe(ids, min(ids.numel(), vs), vs, True)
+    return out
+
+
+def _serve_gather(dev, gen, timer: Timer, hold, arch: str, ids: dict,
+                  tag: str) -> dict:
+    """embed_gather at a serve path's shapes: ``arch``'s table (phi3-
+    medium-14b's (100,352, 5,120), rwkv6-7b's (65,536, 4,096)) in bf16 (the
+    served dtype) and f32, held bit for bit against its plain version;
+    kernel, plain and library times of the bf16 prefill and decode lookups
+    beside their byte bounds."""
+    cfg = get_config(arch)
     vs, d = cfg.vocab_size, cfg.d_model
     t32 = torch.randn((vs, d), generator=gen, device=dev)
     t16 = t32.to(torch.bfloat16)
-    ids = _serve_ids(dev)
     for case, uids in ids.items():
         for tname, table in (("bf16", t16), ("f32", t32)):
-            hold("embed_gather", f"serve_{case}_{tname}",
+            hold("embed_gather", f"{tag}_{case}_{tname}",
                  ops.embed_gather(table, uids, 0),
                  ref.embed_gather_ref(table, uids, 0))
     del t32
@@ -364,7 +434,7 @@ def _serve_gather(dev, gen, timer: Timer, hold) -> dict:
         clamped = uids.long().clamp(0, vs - 1)
         nbytes = (owned + n) * d * 2 + 4 * n
         res[case] = {
-            "shape": f"phi3-medium-14b: table ({vs}, {d}) bf16, {n} ids "
+            "shape": f"{arch}: table ({vs}, {d}) bf16, {n} ids "
                      f"({owned} owned)",
             "kernel_ms": timer.ms(lambda: ops.embed_gather(t16, uids, 0)),
             "plain_ms": timer.ms(lambda: ref.embed_gather_ref(t16, uids, 0)),
@@ -439,6 +509,123 @@ def _flash_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
     }
 
 
+def _wkv_inputs(gen, b, s, h, e, dtype, lw_dtype=None, *, decay=(0.5, -1.0),
+                bonus=0.1, state=0.1) -> list:
+    """r, k, v (0.5 N), lw = -exp(a N + c), bonus and state (scaled N), as
+    test_wkv_sweep draws them; r/k/v in ``dtype``, lw in ``lw_dtype``
+    (default ``dtype``), bonus and state f32."""
+    dev = gen.device
+    rkv = [(torch.randn((b, s, h, e), generator=gen, device=dev) * 0.5)
+           .to(dtype) for _ in range(3)]
+    a, c = decay
+    lw = -torch.exp(torch.randn((b, s, h, e), generator=gen, device=dev) * a
+                    + c)
+    u = torch.randn((h, e), generator=gen, device=dev) * bonus
+    st = torch.randn((b, h, e, e), generator=gen, device=dev) * state
+    return rkv + [lw.to(lw_dtype or dtype), u, st]
+
+
+def _wkv_work(b, s, h, e, chunk, itemsize, lw_itemsize) -> tuple:
+    """(bytes, FLOP) of one wkv call: r, k, v, lw read and out written
+    once, bonus read, the state read and written; per (b, h) and chunk of
+    n tokens, the products this data needs — the strictly lower qf kf^T and
+    its product with v (n(n-1)/2 E MACs each), qf state and kdec^T v (n E^2
+    each), the bonus term (2 n E) — at 2 FLOP per MAC."""
+    n_el = b * s * h * e
+    nbytes = n_el * (4 * itemsize + lw_itemsize) + 2 * b * h * e * e * 4 \
+        + h * e * 4
+    c, macs = min(chunk, s), 0
+    for c0 in range(0, s, c):
+        n = min(c, s - c0)
+        macs += n * (n - 1) * e + 2 * n * e * e + 2 * n * e
+    return nbytes, 2 * macs * b * h
+
+
+def _wkv_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
+    """wkv against both plain versions (chunked: the kernel's own function;
+    sequential: the reference's oracle) at rwkv6-7b's shapes — a 2,048-token
+    prompt and a 4-slot decode step, bf16 r/k/v with f32 lw as the model
+    passes them — and at the reference's sweep, in f32 and bf16; chunk 16
+    against 48; and a clamped case (chunk * |lw| > 80) held against the
+    chunked version only, where the sequential recurrence differs. Times at
+    the prefill and decode shapes in bf16."""
+    worst = {}
+
+    def hold(name, got, want, tol):
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"wkv/{name}: {g.dtype}{tuple(g.shape)} vs "
+                  f"{w.dtype}{tuple(w.shape)}")
+            diff = (g.float() - w.float()).abs()
+            bad = diff > tol + tol * w.float().abs()
+            err = max(err, float(diff.max()))
+            check(not bool(bad.any()) and bool(torch.isfinite(g).all()),
+                  f"wkv/{name}: {int(bad.sum())} elements outside {tol} "
+                  f"(max abs err {float(diff.max())})")
+        errs["wkv"] = max(errs["wkv"], err)
+        worst[name] = err
+        cases.append(f"wkv/{name}")
+
+    h, e = get_config(RWKV).n_heads, get_config(RWKV).head_dim
+    shapes = {"prefill": (1, RWKV_PREFILL, h, e, 32),
+              "decode": (SERVE_BATCH, 1, h, e, 32),
+              "sweep_e16_c16": (1, 64, 2, 16, 16),
+              "sweep_e32_c32": (2, 100, 3, 32, 32),
+              "sweep_e64_c32": (1, 31, 1, 64, 32)}
+    for case, (b, s_, hh, ee, chunk) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            model_shape = case in ("prefill", "decode")
+            args = _wkv_inputs(gen, b, s_, hh, ee, dtype,
+                               torch.float32 if model_shape else dtype)
+            name = f"{case}_{str(dtype).removeprefix('torch.')}"
+            got = ops.wkv(*args, chunk=chunk)
+            hold(f"{name}_vs_chunked", got,
+                 ref.wkv_chunked_ref(*args, chunk=chunk), WKV_TOL[dtype])
+            hold(f"{name}_vs_sequential", got, ref.wkv_ref(*args),
+                 WKV_TOL[dtype])
+    args = _wkv_inputs(gen, 1, 96, 2, 16, torch.float32, decay=(1.0, -1.5),
+                       bonus=0.0, state=0.0)
+    o16 = ops.wkv(*args, chunk=16)
+    hold("chunk16_vs_chunk48_float32", o16, ops.wkv(*args, chunk=48), 1e-4)
+    hold("chunk16_vs_chunked_float32", o16,
+         ref.wkv_chunked_ref(*args, chunk=16), 1e-4)
+    args = _wkv_inputs(gen, 1, 96, 4, 64, torch.float32, decay=(0.1, 1.1),
+                       bonus=0.2)
+    check(float(-args[3][:, :32].sum(dim=1).min()) > 80,
+          "the clamped case does not reach chunk * |lw| > 80")
+    got = ops.wkv(*args, chunk=32)
+    hold("clamped_float32_vs_chunked", got,
+         ref.wkv_chunked_ref(*args, chunk=32), 1e-4)
+    seq_gap = float((got[0] - ref.wkv_ref(*args)[0]).abs().max())
+    check(seq_gap > 1e-2, f"clamped case: the sequential recurrence is only "
+          f"{seq_gap} away, the clamps do not bite")
+
+    res = {"max_abs_err_by_case": worst, "clamped_vs_sequential": seq_gap}
+    for case in ("prefill", "decode"):
+        b, s_, hh, ee, chunk = shapes[case]
+        args = _wkv_inputs(gen, b, s_, hh, ee, torch.bfloat16, torch.float32)
+        nbytes, flops = _wkv_work(b, s_, hh, ee, chunk, 2, 4)
+        t_ops, t_bytes = flops / F32_CORE_FLOPS * 1e3, bound_ms(nbytes)
+        res[case] = {
+            "shape": f"{RWKV} {case}: ({b}, {s_}, {hh}, {ee}) bf16 r/k/v, "
+                     f"f32 lw, chunk {chunk}",
+            "kernel_ms": timer.ms(lambda: ops.wkv(*args, chunk=chunk)),
+            "plain_ms": timer.ms(
+                lambda: ref.wkv_chunked_ref(*args, chunk=chunk), 10),
+            "library_ms": None,        # no single PyTorch call computes WKV
+            "flops": flops, "bytes": nbytes,
+            "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    # the summary row reads the prefill shape's numbers
+    res.update({k: res["prefill"][k] for k in (
+        "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")})
+    return res
+
+
 def phase_parity() -> None:
     cfg = reduced(get_config("parallax-lm"))
     shape = ShapeConfig("parity", 16, 4, "train")
@@ -475,7 +662,8 @@ def _serve_prompts(rng, vocab: int, n: int = 8) -> tuple:
     return lens, _prompts(rng, lens, vocab)
 
 
-def _drain(sv: Server, prompts, new: int) -> dict:
+def _drain(sv, prompts, new: int) -> dict:
+    """Submit ``prompts`` to a Server or ToyServer and serve them all."""
     for i, p in enumerate(prompts):
         sv.submit(Request(i, p, max_new_tokens=new))
     done = sv.run_until_drained()
@@ -527,6 +715,113 @@ def phase_serve_parity() -> None:
           "token_diffs": diffs,
           "tokens": {u: r.out_tokens for u, r in got.items()},
           "flash_launches": flash})
+
+
+def _draw_rwkv_params(params: dict, seed: int = 0) -> None:
+    """Draw the parameters that rwkv6's seeded init leaves constant
+    (RWKV_DRAWN), in place, from a CPU generator, so the same values land
+    on every device."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in params.items():
+            for suffix, (scale, offset) in RWKV_DRAWN.items():
+                if name.endswith(suffix):
+                    x = torch.randn(p.shape, generator=gen) * scale + offset
+                    p.copy_(x.to(p.dtype))
+
+
+def _scaled_close(got, want, tol: float, what: str, rtol: float = 0.0
+                  ) -> float:
+    """|got - want| <= tol * max|want| + rtol * |want| elementwise; returns
+    the max abs difference."""
+    got, want = got.float().cpu(), want.float().cpu()
+    diff = (got - want).abs()
+    scale = float(want.abs().max()) or 1.0
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    check(bool((diff <= tol * scale + rtol * want.abs()).all()),
+          f"{what}: max abs diff {float(diff.max())} at scale {scale}")
+    return float(diff.max())
+
+
+def phase_rwkv_parity() -> None:
+    """Reduced rwkv6-7b at f32 on the CPU and on the card, the same
+    parameters: the prefill step's logits and final carry, then ToyServer's
+    greedy tokens."""
+    cfg = reduced(get_config(RWKV))
+    rc = RunConfig(param_dtype="float32", compute_dtype="float32")
+    scfg = ServerConfig(max_batch=2, max_seq=64)
+    cpu = ToyServer(cfg, rc, scfg, seed=0, device="cpu")
+    _draw_rwkv_params(cpu.params)
+    gpu = ToyServer(cfg, rc, scfg, device="cuda",
+                    params={k: p.to("cuda") for k, p in cpu.params.items()})
+    prompts = _prompts(np.random.default_rng(0), (5, 23, 40, 11),
+                       cfg.vocab_size)
+    diffs = {}
+    for n in (1, 40, 70):
+        toks = torch.from_numpy(np.random.default_rng(n).integers(
+            0, cfg.vocab_size, (2, n)).astype(np.int32))
+        lc, cc = make_prefill_step(cpu.model, cpu.rt, cpu.plan)(
+            {"tokens": toks})
+        lg, cg = make_prefill_step(gpu.model, gpu.rt, gpu.plan)(
+            {"tokens": toks.cuda()})
+        diffs[n] = [_scaled_close(g, c, 1e-4, f"prefill {what} ({n})",
+                                  rtol=1e-4)
+                    for what, g, c in zip(("logits", "tm_x", "state", "cm_x"),
+                                          (lg, *cg), (lc, *cc))]
+    ops.reset_launch_counts()
+    got = _drain(gpu, prompts, 8)
+    wkv_launches = ops.launch_counts()["wkv"]
+    want = _drain(cpu, prompts, 8)
+    steps = gpu.stats["decode_steps"] + sum(len(p) - 1 for p in prompts)
+    check(wkv_launches == cfg.n_layers * steps,
+          f"wkv launched {wkv_launches} times in {steps} device steps")
+    token_diffs = [(u, i, a, b) for u in want
+                   for i, (a, b) in enumerate(zip(got[u].out_tokens,
+                                                  want[u].out_tokens))
+                   if a != b]
+    check(all(len(got[u].out_tokens) == len(want[u].out_tokens) == 8
+              for u in want), "a request did not complete on both devices")
+    check(len(token_diffs) <= 2, f"greedy tokens differ at {token_diffs}")
+    emit({"phase": "rwkv_parity", "prefill_max_abs_diffs": diffs,
+          "prompts": [len(p) for p in prompts], "token_diffs": token_diffs,
+          "tokens": {u: r.out_tokens for u, r in got.items()},
+          "wkv_launches": wkv_launches, "device_steps": steps})
+
+
+def phase_rwkv_recurrence(dev, n_tokens: int = 300) -> None:
+    """rwkv6-7b at full width (d 4,096, 64 heads of 64), n_layers cut to 2
+    so it runs in f32: the chunked prefill over one prompt and one-token
+    decode steps over the same prompt compute one recurrence."""
+    cfg = replace(get_config(RWKV), n_layers=2)
+    rc = RunConfig(param_dtype="float32", compute_dtype="float32")
+    rt = Runtime(cfg, rc, ShapeConfig("recurrence", n_tokens, 1, "decode"),
+                 device=dev)
+    model = build_model(cfg, rt)
+    rt.plan = analyze(model, rt)
+    init_params_(model, 0)
+    model.requires_grad_(False)
+    _draw_rwkv_params(named_parameters(model))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, n_tokens)).astype(np.int32)).to(dev)
+    ops.reset_launch_counts()
+    logits, carry = make_prefill_step(model, rt, rt.plan)({"tokens": toks})
+    check(ops.launch_counts()["wkv"] == cfg.n_layers,
+          f"prefill launched wkv {ops.launch_counts()['wkv']} times")
+    cache = model.init_cache(1, n_tokens)
+    step = make_decode_step(model, rt, rt.plan)
+    for t in range(n_tokens):
+        last, cache = step(cache, toks[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    diffs = {"last_logits": _scaled_close(last[:, 0], logits[:, -1], 1e-4,
+                                          "last logits")}
+    for name, a, b in zip(("tm_x", "state", "cm_x"), carry, cache):
+        for i in range(cfg.n_layers):
+            diffs[f"{name}_{i}"] = _scaled_close(b[i], a[i], 1e-4,
+                                                 f"layer {i} {name}")
+    emit({"phase": "rwkv_recurrence", "tokens": n_tokens,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "max_abs_diffs": diffs,
+          "logit_scale": float(logits[:, -1].abs().max())})
 
 
 def phase_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
@@ -618,6 +913,98 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     return res
 
 
+def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
+    """Full-width rwkv6-7b served on the card through ToyServer."""
+    cfg = get_config(RWKV)
+    scfg = ServerConfig(max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sv = ToyServer(cfg, RunConfig(), scfg, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    check(sv.rt.device.type == "cuda", f"served on {sv.rt.device}")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 65, size=n_requests)
+    prompts = _prompts(rng, lens, cfg.vocab_size)
+    # the first call of each GEMM shape pays cuBLAS's heuristics: one short
+    # request first, outside the counted run
+    _drain(sv, _prompts(rng, (4,), cfg.vocab_size), 2)
+    before = sv.stats["decode_steps"]
+    sv.completed.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    done = _drain(sv, prompts, new)
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+
+    steps = sv.stats["decode_steps"] - before
+    device_steps = steps + sum(len(p) - 1 for p in prompts)
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    check(len(done) == n_requests, f"{len(done)} of {n_requests} completed")
+    check(all(len(r.out_tokens) == new for r in done.values()),
+          f"token counts {[len(r.out_tokens) for r in done.values()]}")
+    check(counts["wkv"] == cfg.n_layers * device_steps,
+          f"wkv launched {counts['wkv']} times in {device_steps} device "
+          "steps")
+    check(counts["embed_gather"] == device_steps,
+          f"embed_gather launched {counts['embed_gather']} times in "
+          f"{device_steps} device steps")
+    ttft = sorted(r.ttft for r in done.values())
+    tokens = sum(len(r.out_tokens) for r in done.values())
+    window_s = (max(r.token_times[-1] for r in done.values())
+                - min(r.t_first for r in done.values()))
+    gaps = sorted(b - a for r in done.values()
+                  for a, b in zip(r.token_times, r.token_times[1:]))
+
+    # device times of one decode step over the 4 slots and of one
+    # 2,048-token prefill (after the counted run)
+    timer = Timer(dev)
+    step_toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        SERVE_BATCH, 1)).astype(np.int32)).to(dev)
+    decode_ms = timer.ms(lambda: sv.decode_step(sv.cache, step_toks, 0), 10)
+    prefill = make_prefill_step(sv.model, sv.rt, sv.plan)
+    ptoks = torch.from_numpy(_rwkv_prompt(cfg.vocab_size)).to(dev)
+    ops.reset_launch_counts()
+    logits, carry = prefill({"tokens": ptoks})
+    torch.cuda.synchronize()
+    prefill_counts = ops.launch_counts()
+    check(prefill_counts["wkv"] == cfg.n_layers,
+          f"a {RWKV_PREFILL}-token prefill launched wkv "
+          f"{prefill_counts['wkv']} times")
+    check(tuple(logits.shape) == (1, RWKV_PREFILL, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and all(bool(torch.isfinite(c).all()) for c in carry),
+          "prefill logits or carry not finite, or of the wrong shape")
+    del logits, carry
+    prefill_ms = timer.ms(lambda: prefill({"tokens": ptoks}), 3)
+    res = {"phase": "rwkv_serve", "arch": cfg.name, "requests": n_requests,
+           "prompt_lens": [int(x) for x in lens],
+           "decode_steps": steps, "device_steps": device_steps,
+           "launches": counts,
+           "ttft_ms_p50": ttft[len(ttft) // 2] * 1e3,
+           "ttft_ms_max": ttft[-1] * 1e3,
+           "window_decode_tokens": tokens - n_requests,
+           "window_decode_s": window_s,
+           "window_decode_tokens_per_s": (tokens - n_requests) / window_s,
+           "itl_ms_p50": gaps[len(gaps) // 2] * 1e3,
+           "itl_ms_max": gaps[-1] * 1e3,
+           "run_s": wall, "run_tokens_per_s": tokens / wall,
+           "decode_step_ms_median": decode_ms,
+           "decode_step_tokens_per_s": scfg.max_batch / (decode_ms / 1e3),
+           "prefill_tokens": RWKV_PREFILL, "prefill_ms_median": prefill_ms,
+           "prefill_launches": prefill_counts,
+           "setup_s": setup_s, "init_peak_bytes": init_peak,
+           "max_memory_allocated": serve_peak,
+           "first_tokens": {u: r.out_tokens[:4] for u, r in done.items()},
+           "nvidia_smi": nvidia_smi(
+               "clocks.sm,power.draw,power.limit,temperature.gpu")}
+    emit(res)
+    return res
+
+
 def phase_main(dev, steps: int = 10) -> dict:
     cfg = get_config("parallax-lm")
     shape = ShapeConfig("lm1b", seq_len=SEQ, global_batch=BATCH, kind="train")
@@ -664,9 +1051,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_parity()
     phase_serve_parity()
+    phase_rwkv_parity()
+    phase_rwkv_recurrence(dev)
+    torch.cuda.empty_cache()
     paths = {"main": phase_main(dev)["launches"]}
     torch.cuda.empty_cache()
     paths["serve"] = phase_serve(dev)["launches"]
+    torch.cuda.empty_cache()         # phi3's server is gone: free its blocks
+    paths["rwkv_serve"] = phase_rwkv_serve(dev)["launches"]
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} not launched on {path}")
@@ -688,6 +1080,9 @@ def main() -> None:
                      "timed_at": k["shape"]})
         if name == "embed_gather":
             rows[-1]["serve_shapes"] = kern["embed_gather_serve"]
+            rows[-1]["rwkv_shapes"] = kern["embed_gather_rwkv"]
+        if name == "wkv":
+            rows[-1]["decode_shape"] = kern["wkv"]["decode"]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,9 @@ KERNELS = {
     # q, k, v, o; b, sq, sk, h, d, itemsize, causal; 12 strides; scale; stream
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         (_P, _P, _P, _P) + (_I,) * 19 + (_F, _P)),
+    # r, k, v, lw, bonus, state, out, state out; b, s, h, e, chunk,
+    # itemsize, lw itemsize; 15 strides; stream
+    "wkv": ("wkv.cu", "repro_wkv", (_P,) * 8 + (_I,) * 22 + (_P,)),
 }
 
 _loaded: dict = {}

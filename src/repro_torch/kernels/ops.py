@@ -1,5 +1,5 @@
 """Public wrappers of the kernels (the port of ``repro/kernels/ops.py``):
-the embedding pull and push, and flash attention.
+the embedding pull and push, flash attention and the RWKV6 WKV recurrence.
 
 Dispatch is by the tensor's device, never by a flag:
   * a CPU tensor takes the plain version (kernels/ref.py);
@@ -21,18 +21,22 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 _FLASH_DIMS = (16, 32, 64, 128)
+_WKV_DIMS = (16, 32, 64)
+_WKV_MAX_CHUNK = 64
 
 
 def reset_launch_counts() -> None:
     embed_gather.launches = 0
     embed_scatter_add.launches = 0
     flash_attention.launches = 0
+    wkv.launches = 0
 
 
 def launch_counts() -> dict:
     return {"embed_gather": embed_gather.launches,
             "embed_scatter_add": embed_scatter_add.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "wkv": wkv.launches}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -175,6 +179,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
+        bonus: torch.Tensor, state: torch.Tensor, *,
+        chunk: int = 32) -> tuple:
+    """The RWKV6 WKV recurrence in the TPU kernel's chunk form: r, k, v
+    (B, S, H, E) bf16|f32 sharing a dtype, lw (B, S, H, E) log-decay
+    bf16|f32, bonus (H, E) f32, state (B, H, E, E) f32 [key x value] ->
+    (out (B, S, H, E) in r's dtype, final state (B, H, E, E) f32). Chunks
+    of min(chunk, S) tokens, 1 <= chunk <= 64. The kernel reads the four
+    inputs through their strides (E must be contiguous) and takes E in
+    {16, 32, 64}."""
+    _check(r.dim() == 4 and r.shape[1] >= 1,
+           f"r must be (B, S >= 1, H, E), got {tuple(r.shape)}")
+    b, s, h, e = r.shape
+    _check(k.shape == r.shape and v.shape == r.shape and lw.shape == r.shape,
+           f"r, k, v, lw must share a shape, got {tuple(r.shape)}, "
+           f"{tuple(k.shape)}, {tuple(v.shape)}, {tuple(lw.shape)}")
+    _check(r.dtype in _DTYPES and k.dtype == r.dtype and v.dtype == r.dtype,
+           f"r, k, v must share a dtype in {_DTYPES}, got {r.dtype}, "
+           f"{k.dtype}, {v.dtype}")
+    _check(lw.dtype in _DTYPES, f"lw dtype {lw.dtype} not in {_DTYPES}")
+    _check(tuple(bonus.shape) == (h, e) and bonus.dtype == torch.float32,
+           f"bonus must be ({h}, {e}) f32, got {bonus.dtype} "
+           f"{tuple(bonus.shape)}")
+    _check(tuple(state.shape) == (b, h, e, e) and state.dtype == torch.float32,
+           f"state must be ({b}, {h}, {e}, {e}) f32, got {state.dtype} "
+           f"{tuple(state.shape)}")
+    _check(1 <= chunk <= _WKV_MAX_CHUNK,
+           f"chunk must be in [1, {_WKV_MAX_CHUNK}], got {chunk}")
+    _check(all(t.device == r.device for t in (k, v, lw, bonus, state)),
+           "r, k, v, lw, bonus, state must lie on one device")
+    if r.device.type == "cpu":
+        return ref.wkv_chunked_ref(r, k, v, lw, bonus, state, chunk=chunk)
+    if r.device.type != "cuda":
+        raise NotImplementedError(f"wkv: no kernel for device {r.device}")
+    _check(e in _WKV_DIMS, f"wkv: head size {e} not in {_WKV_DIMS}")
+    _check(all(t.stride(-1) == 1 for t in (r, k, v, lw)),
+           "wkv needs a contiguous head dimension")
+    _check(bonus.is_contiguous() and state.is_contiguous(),
+           "wkv takes a contiguous bonus and state")
+    out = torch.empty((b, s, h, e), dtype=r.dtype, device=r.device)
+    s_out = torch.empty_like(state)
+    fn = _build.load("wkv")
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    strides = [x for t in (r, k, v, lw, out) for x in t.stride()[:3]]
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+             bonus.data_ptr(), state.data_ptr(), out.data_ptr(),
+             s_out.data_ptr(), b, s, h, e, int(chunk), r.element_size(),
+             lw.element_size(), *strides, stream)
+    _raise_on(err, "wkv")
+    wkv.launches += 1
+    return out, s_out
+
+
 embed_gather.launches = 0
 embed_scatter_add.launches = 0
 flash_attention.launches = 0
+wkv.launches = 0

@@ -1,14 +1,19 @@
 """Where the time of serving goes, on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch ARCH]
 
-Builds the serve path of chip_smoke.py (full-width phi3-medium-14b, bf16,
-RunConfig(attention_impl="pallas"), ServerConfig(max_batch=4,
-max_seq=2048), seed 0), warms every prefill bucket, then runs
-torch.profiler over
+Builds a serve path of chip_smoke.py at full width, bf16,
+ServerConfig(max_batch=4, max_seq=2048), seed 0, and runs torch.profiler
+over
 
-  prefill   one engine prefill step per bucket (256 ... 2048 tokens);
-  decode    10 engine decode steps over the full batch of 4;
+  phi3-medium-14b (default; the paged engine, RunConfig(attention_impl=
+            "pallas")), after warming every prefill bucket:
+    prefill   one engine prefill step per bucket (256 ... 2048 tokens);
+    decode    10 engine decode steps over the full batch of 4;
+  rwkv6-7b (ToyServer, the loop of the recurrent family), after one warm
+            call of each:
+    prefill   one 2,048-token make_prefill_step;
+    decode    10 ToyServer decode steps over the full batch of 4;
 
 and prints one JSON line each from ``profile_step.profiled``: per step,
 device time by kernel class, the top kernels by name, the device's idle
@@ -19,6 +24,7 @@ exits non-zero.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 from pathlib import Path
@@ -27,8 +33,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import RunConfig, get_config
+from repro_torch.core.transform import make_prefill_step
 from repro_torch.launch.profile_step import profiled
-from repro_torch.runtime.server import Server, ServerConfig, prefill_buckets
+from repro_torch.runtime.server import (Server, ServerConfig, ToyServer,
+                                        prefill_buckets)
 
 OUT = Path(__file__).resolve().parents[3] / "results" / "profile_serve"
 DECODE_STEPS = 10
@@ -38,12 +46,47 @@ def _emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def main() -> None:
+def _toy(cfg, scfg: ServerConfig) -> None:
+    """The recurrent family's path: ToyServer's decode step and the
+    whole-prompt prefill step."""
+    sv = ToyServer(cfg, RunConfig(), scfg, seed=0)
+    dev = sv.rt.device
+    rng = np.random.default_rng(0)
+    lb = scfg.max_seq
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, lb))
+                            .astype(np.int32)).to(dev)
+    step_toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (scfg.max_batch, 1)).astype(np.int32)).to(dev)
+    prefill_step = make_prefill_step(sv.model, sv.rt, sv.plan)
+
+    def prefill():
+        prefill_step({"tokens": toks})
+
+    def decode():
+        for _ in range(DECODE_STEPS):
+            sv.decode_step(sv.cache, step_toks, 0)
+
+    prefill()                               # warm every GEMM shape
+    decode()
+    _emit({"phase": "prefill", "arch": cfg.name, "tokens": lb,
+           "device": torch.cuda.get_device_name(0),
+           **profiled(prefill, 1, OUT / f"{cfg.name}_prefill_{lb}.json")})
+    _emit({"phase": "decode", "arch": cfg.name, "batch": scfg.max_batch,
+           **profiled(decode, DECODE_STEPS, OUT / f"{cfg.name}_decode.json")})
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi3-medium-14b",
+                    choices=("phi3-medium-14b", "rwkv6-7b"))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_serve: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("phi3-medium-14b")
+    cfg = get_config(args.arch)
     scfg = ServerConfig(max_batch=4, max_seq=2048)
+    if cfg.family == "ssm":
+        return _toy(cfg, scfg)
     sv = Server(cfg, RunConfig(attention_impl="pallas"), scfg, seed=0)
     dev = sv.rt.device
     rng = np.random.default_rng(0)

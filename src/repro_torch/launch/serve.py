@@ -3,12 +3,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-medium-14b \
       --reduced --requests 16 --max-new 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --engine toy --full
 
 It runs on the card. ``--engine paged`` (default) runs the engine: one
 prefill step per admission, slot-paged decode, device-side sampling;
 ``--engine toy`` the teacher-forced baseline loop (also the loop for
-recurrent families). As in the reference, the launcher serves with
-``RunConfig(attention_impl="naive")``. ``--devices`` and ``--mesh`` belong
+recurrent families such as rwkv6-7b, which the engine refuses). As in the
+reference, the launcher serves with ``RunConfig(attention_impl="naive")``. ``--devices`` and ``--mesh`` belong
 to the distributed port (ROADMAP slice 2) and are refused.
 """
 from __future__ import annotations

@@ -5,20 +5,20 @@ parameters, with ``specs()``, ``param_specs()``, ``input_specs()``,
 ``loss_fn(batch)``, ``prefill_fn(batch)``, ``decode_fn(cache, tokens,
 cache_len)``, ``init_cache(batch, seq)`` and ``prefill_cache_fn(tokens)``
 (None for a family whose recurrent state cannot be bucket-prefilled under
-padding). Ported families: ``lstm`` (the paper's decoder-only LM) and
-``dense`` (serving; its training is ROADMAP slice 4). The others are
-refused by name.
+padding). Ported families: ``lstm`` (the paper's decoder-only LM),
+``dense`` (serving; its training is ROADMAP slice 4) and ``ssm`` (rwkv6,
+serving; its training waits for slice 4 and a WKV backward). The others
+are refused by name.
 """
 from __future__ import annotations
 
 from repro_torch.models.lstm import LSTMLM
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import DenseLM, RwkvLM
 
 # family -> the ROADMAP slice that ports it
 _LATER = {
     "vlm": "slice 6 (the other families)",
     "moe": "slice 6 (the other families)",
-    "ssm": "slice 6 (the other families)",
     "hybrid": "slice 6 (the other families)",
     "audio": "slice 6 (the other families)",
 }
@@ -29,6 +29,8 @@ def build_model(cfg, rt):
         return LSTMLM(cfg, rt)
     if cfg.family == "dense":
         return DenseLM(cfg, rt)
+    if cfg.family == "ssm":
+        return RwkvLM(cfg, rt)
     where = _LATER.get(cfg.family, "a later slice")
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP "

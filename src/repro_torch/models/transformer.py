@@ -1,5 +1,5 @@
-"""Decoder LM of the dense family (the port of the dense path of
-``repro/models/transformer.py``), single device.
+"""Decoder LM of the dense and ssm families (the port of the dense and ssm
+paths of ``repro/models/transformer.py``), single device.
 
 Parameters stay stacked over layers, under the reference's dotted names
 (``layers.attn.wq`` is (n_layers, d, H*hd), and so on), so
@@ -10,13 +10,18 @@ PS lookup (core/embedding.py, the ``embed_gather`` kernel on the card); with
 ``attention_impl="pallas"`` the cache-less attention goes to the
 ``flash_attention`` kernel.
 
-The decode cache is the reference's tuple ``(k, v)`` of
-(n_layers, B, S, KV, hd) tensors. Where JAX returns an updated cache, the
-port writes the new rows into the given tensors in place and returns them.
+The ssm family (``rwkv6-7b``) swaps the decoder layer for
+``models/rwkv.py``'s block, whose WKV goes to the ``wkv`` kernel.
 
-Not ported here: ``loss_fn`` (training the dense family) and the tensor- and
-sequence-parallel paths (``core/sp.py``), ROADMAP slice 4; the moe, hybrid
-and ssm families and cross attention, ROADMAP slice 6.
+The dense decode cache is the reference's tuple ``(k, v)`` of
+(n_layers, B, S, KV, hd) tensors; the ssm cache is its recurrent carry
+``(tm_x (n_layers, B, D), state (n_layers, B, H, E, E) f32, cm_x
+(n_layers, B, D))``. Where JAX returns an updated cache, the port writes the
+new rows (or carry) into the given tensors in place and returns them.
+
+Not ported here: ``loss_fn`` (training the dense and ssm families) and the
+tensor- and sequence-parallel paths (``core/sp.py``), ROADMAP slice 4; the
+moe and hybrid families and cross attention, ROADMAP slice 6.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.core import embedding as emb
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (ParamSpec, ParamTree, flatten_specs,
                                        rms_norm, stack_tree, swiglu)
 
@@ -72,6 +78,8 @@ def mlp_specs(cfg) -> dict:
 
 
 def layer_specs(cfg, rt) -> dict:
+    if cfg.family == "ssm":
+        return rwkv_mod.rwkv_block_specs(cfg)
     if cfg.family != "dense":
         _refuse(f"the {cfg.family} family's layers", "slice 6 (the other "
                 "families)")
@@ -164,7 +172,7 @@ def attn_block(p: dict, x: torch.Tensor, *, cfg, rt, positions,
             q, k, v, impl=rt.run_cfg.attention_impl, causal=causal,
             chunk=rt.run_cfg.attention_chunk, qmap=qmap)
         new_cache = (k.to(rt.dtype), v.to(rt.dtype)) if return_kv else None
-    out =out.reshape(b, s, hp * hd) @ p["wo"]
+    out = out.reshape(b, s, hp * hd) @ p["wo"]
     return out, new_cache
 
 
@@ -189,9 +197,15 @@ def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
 
 def init_cache(cfg, rt, batch: int, cache_seq: int,
                dtype: Optional[torch.dtype] = None) -> tuple:
-    """Zeroed decode cache: (k, v), each (n_layers, B, S, KV, hd)."""
-    shape = (cfg.n_layers, batch, cache_seq, cfg.n_kv_heads, cfg.head_dim)
+    """Zeroed decode cache: (k, v), each (n_layers, B, S, KV, hd); for the
+    ssm family the carry (tm_x, state, cm_x) of every layer, whatever
+    ``cache_seq``."""
     dtype = dtype or rt.dtype
+    if cfg.family == "ssm":
+        one = rwkv_mod.init_rwkv_carry(cfg, batch, dtype, rt.device)
+        return tuple(a[None].repeat(cfg.n_layers, *([1] * a.dim()))
+                     for a in one)
+    shape = (cfg.n_layers, batch, cache_seq, cfg.n_kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=rt.device),
             torch.zeros(shape, dtype=dtype, device=rt.device))
 
@@ -219,11 +233,23 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
     (homogeneous batch) or a per-slot (B,) tensor (the serving engine's
     slot-paged decode). ``collect_kv`` makes the cache-less (prefill) path
     return the per-layer K/V stack, (n_layers, B, S, KV, hd) each, instead
-    of None."""
+    of None. The ssm family always carries state: without a cache it starts
+    a fresh carry and returns it as the new cache, and it ignores
+    ``cache_len``."""
     b, s = tokens.shape
     x, metrics = emb.lookup(params["embed"], tokens, ctx=rt.embed_ctx(),
                             capacity=rt.embed_capacity_for("embed"))
     x = x.to(rt.dtype)
+    if cfg.family == "ssm":
+        if cache is None:
+            cache = init_cache(cfg, rt, b, 1)
+        for i in range(cfg.n_layers):
+            x, new_carry = rwkv_mod.rwkv_block(
+                _layer_params(params, i), x, tuple(c[i] for c in cache),
+                cfg=cfg)
+            for c, new in zip(cache, new_carry):
+                c[i].copy_(new)
+        return _head(params, x, cfg), cache, metrics
     dev = tokens.device
 
     if cache_len is None and cache is None:
@@ -252,11 +278,14 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
         new_cache = (torch.stack(ks), torch.stack(vs))
     else:
         new_cache = None
+    return _head(params, x, cfg), new_cache, metrics
 
+
+def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The final norm and the vocab projection."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    logits = torch.matmul(x, head.to(x.dtype).t())
-    return logits, new_cache, metrics
+    return torch.matmul(x, head.to(x.dtype).t())
 
 
 def decode_step(params: dict, cache: tuple, tokens: torch.Tensor, cache_len,
@@ -326,3 +355,19 @@ class DenseLM(ParamTree):
 
     def init_cache(self, batch: int, cache_seq: int) -> tuple:
         return init_cache(self.cfg, self.rt, batch, cache_seq)
+
+
+class RwkvLM(DenseLM):
+    """An ssm-family LM (``rwkv6-7b``): the parameters under the
+    reference's dotted names (layers.tm.mu, layers.tm.w_lora_a, ...,
+    layers.cm.w_recv, layers.ln1, layers.ln2). It serves through
+    ``ToyServer``'s decode loop and ``make_prefill_step``; ``prefill_fn``
+    returns the final carry as its cache."""
+
+    # the recurrent carry cannot be bucket-prefilled exactly under padding:
+    # serving runs it through ToyServer's decode loop
+    prefill_cache_fn = None
+
+    def loss_fn(self, batch: dict):
+        _refuse("training the ssm family (rwkv6)", "slice 6 (after slice "
+                "4's dense training, with a port-only WKV backward)")

@@ -35,6 +35,7 @@ def _forbidden(name: str) -> bool:
 def test_importing_the_port_pulls_in_no_jax():
     mods = _port_modules()
     assert "repro_torch.core.transform" in mods and len(mods) > 20
+    assert "repro_torch.models.rwkv" in mods
     code = textwrap.dedent(f"""
         import importlib.util, json, sys
         sys.path.insert(0, {os.path.join(ROOT, "src")!r})

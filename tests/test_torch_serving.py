@@ -2,7 +2,8 @@
 the same parameters and prompts give the same greedy tokens; the bucket
 helpers, slot reuse, the per-bucket first-call count, the refusal of
 recurrent families, the serve pricing and the serve-time plan match the
-reference. Reduced phi3-medium-14b at f32, sequences of 32 or less."""
+reference. Reduced phi3-medium-14b at f32, sequences of 32 or less; the
+toy loop also on reduced rwkv6."""
 import numpy as np
 import pytest
 import torch
@@ -141,15 +142,48 @@ def test_temperature_sampling_is_seeded_and_in_range():
 
 
 def test_recurrent_families_are_refused():
-    """The lstm LM is ported but has no positional KV cache: the engine
-    refuses it as the reference does; rwkv6 is not ported at all."""
+    """The lstm and rwkv6 LMs are ported but have no positional KV cache:
+    the engine refuses both with the reference's ValueError naming
+    ToyServer."""
     rc = tc.RunConfig()
-    with pytest.raises(ValueError, match="ToyServer"):
-        Server(tc.reduced(tc.get_config("parallax-lm")), rc,
-               ServerConfig(max_batch=2, max_seq=16), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Server(tc.reduced(tc.get_config("rwkv6-7b"), layers=1), rc,
-               ServerConfig(max_batch=2, max_seq=16), device="cpu")
+    for arch in ("parallax-lm", "rwkv6-7b"):
+        with pytest.raises(ValueError, match="ToyServer"):
+            Server(tc.reduced(tc.get_config(arch), layers=1), rc,
+                   ServerConfig(max_batch=2, max_seq=16), device="cpu")
+
+
+def test_toy_server_greedy_tokens_match_reference_on_rwkv6():
+    """Reduced rwkv6 at f32, two slots, three requests: the third is
+    admitted into a reused slot while the other slot decodes, so admission
+    during decode (the other slot stepping with token 0) and a carry that
+    is not reset are covered, as the reference does them."""
+    from repro.runtime.server import ToyServer as JToyServer
+    scfg = dict(max_batch=2, max_seq=32)
+    prompts = _prompts([4, 9, 6], seed=2)
+    jsv = JToyServer(reduced(get_config("rwkv6-7b")), RunConfig(**F32),
+                     JServerConfig(**scfg), seed=0)
+    for i, p in enumerate(prompts):
+        jsv.submit(JRequest(i, p, max_new_tokens=6))
+    jsv.run_until_drained()
+    want = {r.uid: r.out_tokens for r in jsv.completed}
+    named = {n: np.asarray(a) for n, a in named_leaves(jsv.params)}
+    sv = ToyServer(tc.reduced(tc.get_config("rwkv6-7b")), tc.RunConfig(**F32),
+                   ServerConfig(**scfg), device="cpu",
+                   params=load_reference_params(named, "cpu"))
+    for i, p in enumerate(prompts):
+        sv.submit(Request(i, p, max_new_tokens=6))
+    sv.run_until_drained()
+    assert {r.uid: r.out_tokens for r in sv.completed} == want
+    assert sv.stats == jsv.stats
+    assert [r.uid for r in sv.completed] == [r.uid for r in jsv.completed]
+
+
+def test_toy_server_for_rwkv6_defaults_to_the_card():
+    """Without a device the rwkv6 ToyServer's runtime is the card's (its
+    parameters are allocated there, so only the runtime is built here)."""
+    rt = Runtime(tc.reduced(tc.get_config("rwkv6-7b"), layers=1),
+                 tc.RunConfig(), tc.ShapeConfig("serve", 16, 2, "decode"))
+    assert rt.device == torch.device("cuda")
 
 
 def test_toy_server_serves_the_lstm_family():
@@ -229,6 +263,19 @@ def test_launcher_serves_on_the_cpu(engine, capsys):
     assert f"[{engine}] served 3 requests" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="slice 2"):
         serve_cli.main(["--mesh", "2x2"], device="cpu")
+
+
+def test_launcher_serves_rwkv6_through_the_toy_loop(capsys):
+    """``--arch rwkv6-7b --engine toy`` serves; the default paged engine
+    refuses the recurrent family as the reference's does."""
+    done = serve_cli.main(["--arch", "rwkv6-7b", "--engine", "toy",
+                           "--requests", "3", "--max-new", "2",
+                           "--max-seq", "32"], device="cpu")
+    assert len(done) == 3 and all(len(r.out_tokens) == 2 for r in done)
+    assert "[toy] served 3 requests" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="ToyServer"):
+        serve_cli.main(["--arch", "rwkv6-7b", "--requests", "1"],
+                       device="cpu")
 
 
 def test_plain_prefill_and_decode_steps_match_the_model():
