@@ -7,15 +7,20 @@ Phases, one JSON line each; any failure raises, so the script exits non-zero
 and never prints the final line:
 
   1. banner   torch/CUDA versions, the card and its power limit; TF32 off.
-  2. build    nvcc builds the four kernels from src/repro_torch/kernels/
-              csrc (one process per source, in parallel) into
-              build/repro_torch/.
+  2. build    nvcc builds the five kernel libraries from src/repro_torch/
+              kernels/csrc (one process per source, in parallel) into
+              build/repro_torch/; -Xptxas -v's registers and spills.
   3. kernels  each kernel against its plain version on the card at the main
               paths' shapes and at edge cases: the embedding kernels bit for
               bit (torch.equal; embed_gather at parallax-lm's table and at
               phi3-medium-14b's and rwkv6-7b's, with the ids of a
               2,048-token prefill and of a 4-slot decode step),
-              flash_attention within 2e-5 at f32 and 2e-2 at bf16, wkv
+              flash_attention within 2e-5 at f32 and 2e-2 at bf16 on the
+              route ops.flash_route gives each case (bf16 at D 64/128:
+              the tensor-core kernel, also at Sq 96/Sk 160 and 160/96
+              causal, B 4 with Sq 200, an 8-row q tile and strided views;
+              f32 and D 16/32: the scalar kernel), timed at the engine's
+              prefill buckets 256..2,048 beside SDPA, wkv
               within 1e-4 at f32 and 5e-2 at bf16 of both its plain
               versions (chunked and sequential) at rwkv6-7b's prefill and
               decode shapes, the reference's sweep, chunk 16 against 48,
@@ -52,10 +57,11 @@ and never prints the final line:
               ServerConfig(max_batch=4, max_seq=2048)) on the card: 8
               requests with prompts of 200..1800 tokens, 16 new tokens each.
               All complete, no cross-slot mismatch, flash_attention launched
-              40 times per prefill, embed_gather once per prefill and per
-              decode step. TTFT, inter-token gaps and decode tokens/s over
-              the run's window, prefill ms per bucket, one synthetic decode
-              step (lens 1024), peak memory, clocks and power.
+              40 times per prefill, every launch on the tensor-core route,
+              embed_gather once per prefill and per decode step. TTFT,
+              inter-token gaps and decode tokens/s over the run's window,
+              prefill ms per bucket, one synthetic decode step (lens 1024),
+              peak memory, clocks and power.
  10. rwkv_serve  full-width rwkv6-7b (32 layers, nothing cut), bf16,
               ToyServer(..., ServerConfig(max_batch=4, max_seq=2048)) on
               the card: 8 requests with prompts of 16..64 tokens (an
@@ -122,8 +128,15 @@ KERNELS = {
     },
     "flash_attention": {
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        # bf16 with D in {64, 128}, the full-width path's route
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:67",
+        "design": ("bf16, D 64/128: wgmma m64n128k16 (S from shared "
+                   "memory, P.V with P in registers), TMA 4-D tensor maps "
+                   "with the 128 B swizzle, a 2-stage K/V mbarrier ring, "
+                   "one producer thread and two consumer warpgroups "
+                   "(setmaxnreg 24/240); f32 and D 16/32: scalar f32 FMAs"),
+        "scalar_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
     },
     "wkv": {
         "route": "cuda",
@@ -194,6 +207,20 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time to enqueue one call: ``calls`` back to back, timed before
+    the synchronise, so a call whose device work is shorter than its host
+    work is measured by the latter."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
 
 
 def bound_ms(nbytes: int) -> float:
@@ -445,67 +472,134 @@ def _serve_gather(dev, gen, timer: Timer, hold, arch: str, ids: dict,
     return res
 
 
+def _flash_work(b, sq, h, d, itemsize) -> dict:
+    """Operations and bytes of one causal self-attention call: QK^T and P.V
+    over the unmasked (q, k) pairs, 2 per FMA; q, k, v read and o written
+    once."""
+    flops = 4 * d * b * h * sq * (sq + 1) // 2
+    nbytes = 4 * b * sq * h * d * itemsize
+    t_ops, t_bytes = ops_ms(flops), bound_ms(nbytes)
+    return {"flops": flops, "bytes": nbytes, "ops_bound_ms": t_ops,
+            "bytes_bound_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def _flash_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
     """flash_attention against its plain version at the serve path's main
     shape (one 2,048-token prefill of phi3-medium-14b: B 1, H 40, D 128,
-    causal) and at edge cases, in f32 and bf16; times at the main bf16
-    shape."""
+    causal) and at edge cases, in f32 and bf16, each case on the route
+    ``ops.flash_route`` gives it (bf16 at D 64 and 128: the tensor-core
+    kernel; f32 and the narrow heads: the scalar one); times at the engine's
+    prefill buckets (B 1, H 40, D 128, causal, bf16) beside SDPA's, and the
+    f32 route's at the main shape."""
     def qkv(b, sq, sk, h, d, dtype):
         return [torch.randn((b, s_, h, d), generator=gen, device=dev)
                 .to(dtype) for s_ in (sq, sk, sk)]
 
+    def strided(b, s_, h, d, dtype):
+        """q, k, v as non-contiguous (B, S, H, D) views, each a half of
+        the last dimension of a (B, H, S, 2D) buffer."""
+        base = torch.randn((3, b, h, s_, 2 * d), generator=gen,
+                           device=dev).to(dtype)
+        q = base[0, ..., :d].transpose(1, 2)
+        return [q] + [base[i, ..., d:].transpose(1, 2) for i in (1, 2)]
+
+    def hold(name, q, k, v, causal):
+        route = ops.flash_route(q.dtype, q.shape[-1])
+        tc0 = ops.flash_attention.launches_tc
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(ops.flash_attention.launches_tc - tc0 == (route == "tc"),
+              f"flash_attention/{name}: not launched on its {route} route")
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"flash_attention/{name}: {got.dtype}{tuple(got.shape)} vs "
+              f"{want.dtype}{tuple(want.shape)}")
+        diff = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[q.dtype]
+        bad = diff > tol + tol * want.float().abs()
+        err = float(diff.max())
+        check(not bool(bad.any()) and bool(torch.isfinite(got).all()),
+              f"flash_attention/{name}: {int(bad.sum())} elements outside "
+              f"{tol} (max abs err {err})")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        worst[name] = {"route": route, "max_abs_err": err}
+        cases.append(f"flash_attention/{name}")
+
     worst = {}
-    for case, (b, sq, sk, h, d), causals in (
-            ("main", (1, 2048, 2048, 40, 128), (True,)),
-            ("ragged", (1, 200, 200, 4, 64), (True, False)),
-            ("cross_lengths", (2, 96, 160, 2, 64), (False,)),
-            ("b2_d32", (2, 64, 64, 8, 32), (True, False)),
-            ("b2_d16", (2, 16, 16, 4, 16), (True, False))):
-        for dtype in (torch.bfloat16, torch.float32):
+    for case, (b, sq, sk, h, d), causals, dtypes in (
+            ("main", (1, 2048, 2048, 40, 128), (True,), None),
+            ("ragged", (1, 200, 200, 4, 64), (True, False), None),
+            ("cross_lengths", (2, 96, 160, 2, 64), (False,), None),
+            ("b2_d32", (2, 64, 64, 8, 32), (True, False), None),
+            ("b2_d16", (2, 16, 16, 4, 16), (True, False), None),
+            # the tensor-core route's edges, at phi3's head width
+            ("sq96_sk160_d128", (2, 96, 160, 4, 128), (True, False),
+             (torch.bfloat16,)),
+            ("sq160_sk96_d128", (2, 160, 96, 4, 128), (True, False),
+             (torch.bfloat16,)),
+            ("b4_sq200_d128", (4, 200, 200, 40, 128), (True,),
+             (torch.bfloat16,)),
+            # one q tile of 8 rows: the engine's smallest prefill bucket
+            ("sq8_d128", (1, 8, 8, 40, 128), (True, False),
+             (torch.bfloat16,))):
+        for dtype in dtypes or (torch.bfloat16, torch.float32):
             q, k, v = qkv(b, sq, sk, h, d, dtype)
             for causal in causals:
-                name = (f"{case}_{'causal' if causal else 'full'}_"
-                        f"{str(dtype).removeprefix('torch.')}")
-                got = ops.flash_attention(q, k, v, causal=causal)
-                want = ref.flash_attention_ref(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                check(got.dtype == want.dtype and got.shape == want.shape,
-                      f"flash_attention/{name}: {got.dtype}"
-                      f"{tuple(got.shape)} vs {want.dtype}"
-                      f"{tuple(want.shape)}")
-                diff = (got.float() - want.float()).abs()
-                tol = FLASH_TOL[dtype]
-                bad = diff > tol + tol * want.float().abs()
-                err = float(diff.max())
-                check(not bool(bad.any()) and bool(torch.isfinite(got)
-                                                   .all()),
-                      f"flash_attention/{name}: {int(bad.sum())} elements "
-                      f"outside {tol} (max abs err {err})")
-                errs["flash_attention"] = max(errs["flash_attention"], err)
-                worst[name] = err
-                cases.append(f"flash_attention/{name}")
+                hold(f"{case}_{'causal' if causal else 'full'}_"
+                     f"{str(dtype).removeprefix('torch.')}", q, k, v, causal)
+    for d, dtype in ((128, torch.bfloat16), (64, torch.bfloat16),
+                     (64, torch.float32)):
+        q, k, v = strided(2, 300, 8, d, dtype)
+        check(not q.is_contiguous() and not k.is_contiguous(),
+              "strided case made contiguous views")
+        hold(f"strided_d{d}_causal_{str(dtype).removeprefix('torch.')}", q,
+             k, v, True)
 
-    # ---- timing at the main bf16 shape: a 2,048-token causal prefill ----
-    b, s_, h, d = 1, 2048, 40, 128
-    q, k, v = qkv(b, s_, s_, h, d, torch.bfloat16)
-    shape = f"phi3-medium-14b prefill: ({b}, {s_}, {h}, {d}) bf16, causal"
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))    # (B, H, S, D)
+    # ---- timing at the engine's prefill buckets, bf16, causal ----
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    pairs = b * h * s_ * (s_ + 1) // 2          # unmasked (q, k) pairs
-    flops = 4 * d * pairs                       # QK^T and P.V, 2 per FMA
-    nbytes = 4 * b * s_ * h * d * q.element_size()   # q, k, v read; o written
-    t_ops, t_bytes = ops_ms(flops), bound_ms(nbytes)
+    b, h, d = 1, 40, 128
+    by_len = {}
+    for s_ in (256, 512, 1024, 2048):
+        q, k, v = qkv(b, s_, s_, h, d, torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
+        work = _flash_work(b, s_, h, d, 2)
+        t = timer.ms(lambda: ops.flash_attention(q, k, v))
+        by_len[s_] = {
+            "kernel_ms": t,
+            # cuDNN / flash SDPA on a (B, H, S, D) view: timed only, never
+            # called by the port
+            "library_ms": timer.ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+            "tflops": work["flops"] / t / 1e9,
+            "share_of_bound": work["bound_ms"] / t, **work}
+    main = by_len[2048]
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    # host time per call at the 128-token bucket, where a prefill is
+    # host-bound: the tensor-core route encodes three tensor maps a call
+    s_ = 128
+    q_, k_, v_ = qkv(b, s_, s_, h, d, torch.bfloat16)
+    qt_, kt_, vt_ = (x.transpose(1, 2) for x in (q_, k_, v_))
+    q32_, k32_, v32_ = (x.float() for x in (q_, k_, v_))
+    host = {"shape": f"({b}, {s_}, {h}, {d}), causal",
+            "tc_bf16": host_ms(lambda: ops.flash_attention(q_, k_, v_)),
+            "scalar_f32": host_ms(
+                lambda: ops.flash_attention(q32_, k32_, v32_)),
+            "library_bf16": host_ms(
+                lambda: sdpa(qt_, kt_, vt_, is_causal=True))}
     return {
-        "shape": shape, "max_abs_err_by_case": worst,
-        "kernel_ms": timer.ms(lambda: ops.flash_attention(q, k, v)),
+        "shape": (f"phi3-medium-14b prefill: ({b}, 2048, {h}, {d}) bf16, "
+                  "causal"),
+        "max_abs_err_by_case": worst, "by_len": by_len,
+        "host_ms_per_call": host,
+        "kernel_ms": main["kernel_ms"],
         "plain_ms": timer.ms(lambda: ref.flash_attention_ref(q, k, v)),
-        # cuDNN / flash SDPA on a (B, H, S, D) view: timed only, never
-        # called by the port
-        "library_ms": timer.ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
-        "flops": flops, "bytes": nbytes,
-        "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": main["library_ms"],
+        # the f32 route (the scalar kernel) at the main shape
+        "f32_ms": timer.ms(lambda: ops.flash_attention(q32, k32, v32)),
+        **{key: main[key] for key in ("flops", "bytes", "ops_bound_ms",
+                                      "bytes_bound_ms", "bound_ms",
+                                      "bound_by", "tflops",
+                                      "share_of_bound")},
     }
 
 
@@ -849,6 +943,7 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     done = _drain(sv, prompts, new)
     wall = time.perf_counter() - t
     counts = ops.launch_counts()
+    flash_tc = ops.flash_attention.launches_tc
 
     prefills = sv.stats["prefill_calls"] - before["prefill_calls"]
     steps = sv.stats["decode_steps"] - before["decode_steps"]
@@ -861,6 +956,10 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     check(counts["flash_attention"] == cfg.n_layers * prefills,
           f"flash_attention launched {counts['flash_attention']} times in "
           f"{prefills} prefills")
+    check(flash_tc == counts["flash_attention"],
+          f"{counts['flash_attention'] - flash_tc} of "
+          f"{counts['flash_attention']} prefill launches of flash_attention "
+          "missed the tensor-core route")
     check(counts["embed_gather"] == prefills + steps,
           f"embed_gather launched {counts['embed_gather']} times in "
           f"{prefills} prefills + {steps} decode steps")
@@ -892,7 +991,7 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
            "prompt_lens": [int(x) for x in lens],
            "buckets": sorted(sv.stats["buckets"]),
            "prefill_calls": prefills, "decode_steps": steps,
-           "launches": counts,
+           "launches": counts, "flash_attention_launches_tc": flash_tc,
            "ttft_ms_p50": ttft[len(ttft) // 2] * 1e3,
            "ttft_ms_max": ttft[-1] * 1e3,
            "prefill_ms_by_bucket": prefill_ms,
@@ -1056,7 +1155,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths = {"main": phase_main(dev)["launches"]}
     torch.cuda.empty_cache()
-    paths["serve"] = phase_serve(dev)["launches"]
+    serve = phase_serve(dev)
+    paths["serve"] = serve["launches"]
     torch.cuda.empty_cache()         # phi3's server is gone: free its blocks
     paths["rwkv_serve"] = phase_rwkv_serve(dev)["launches"]
     for path, names in PATH_KERNELS.items():
@@ -1083,6 +1183,15 @@ def main() -> None:
             rows[-1]["rwkv_shapes"] = kern["embed_gather_rwkv"]
         if name == "wkv":
             rows[-1]["decode_shape"] = kern["wkv"]["decode"]
+        if name == "flash_attention":
+            rows[-1]["launches_tc"] = serve["flash_attention_launches_tc"]
+            rows[-1]["by_len"] = {
+                n: {key: r[key] for key in ("kernel_ms", "library_ms",
+                                            "bound_ms", "tflops",
+                                            "share_of_bound")}
+                for n, r in k["by_len"].items()}
+            rows[-1]["f32_ms"] = k["f32_ms"]
+            rows[-1]["host_ms_per_call"] = k["host_ms_per_call"]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,15 +7,19 @@ a plain C interface:
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
 
 into ``build/repro_torch/`` at the repository root (listed in .gitignore).
-The file name carries a hash of the source and the flags, so a second run
-skips the build. Builds happen at first use — never at import — and
-``build_all`` starts one ``nvcc`` per source, all together.
+The file name carries a hash of the source, of every local header it
+includes (``#include "..."``, followed recursively) and of the flags, so a
+second run skips the build. The tensor-core kernel reaches the driver's
+``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``, so no
+library links ``-lcuda``. Builds happen at first use — never at import —
+and ``build_all`` starts one ``nvcc`` per source, all together.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -40,6 +44,10 @@ KERNELS = {
     # q, k, v, o; b, sq, sk, h, d, itemsize, causal; 12 strides; scale; stream
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         (_P, _P, _P, _P) + (_I,) * 19 + (_F, _P)),
+    # q, k, v, o; b, sq, sk, h, d, causal; 12 strides; scale; stream
+    "flash_attention_tc": ("flash_attention_tc.cu",
+                           "repro_flash_attention_tc",
+                           (_P, _P, _P, _P) + (_I,) * 18 + (_F, _P)),
     # r, k, v, lw, bonus, state, out, state out; b, s, h, e, chunk,
     # itemsize, lw itemsize; 15 strides; stream
     "wkv": ("wkv.cu", "repro_wkv", (_P,) * 8 + (_I,) * 22 + (_P,)),
@@ -49,9 +57,29 @@ _loaded: dict = {}
 _lock = threading.Lock()
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """The kernel's source and every local header it includes, in the order
+    first reached."""
+    seen, todo = [], [CSRC / KERNELS[name][0]]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -21,6 +21,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 _FLASH_DIMS = (16, 32, 64, 128)
+_FLASH_TC_DIMS = (64, 128)
 _WKV_DIMS = (16, 32, 64)
 _WKV_MAX_CHUNK = 64
 
@@ -29,6 +30,7 @@ def reset_launch_counts() -> None:
     embed_gather.launches = 0
     embed_scatter_add.launches = 0
     flash_attention.launches = 0
+    flash_attention.launches_tc = 0
     wkv.launches = 0
 
 
@@ -136,13 +138,38 @@ def scatter_into(ids: torch.Tensor, rows: torch.Tensor, out: torch.Tensor,
     embed_scatter_add.launches += 1
 
 
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """Which CUDA kernel ``flash_attention`` launches, from dtype and head
+    dim alone: "tc" (csrc/flash_attention_tc.cu: wgmma, TMA) for bf16 with
+    D in {64, 128}; "scalar" (csrc/flash_attention.cu: f32 FMAs) for f32,
+    whose 2e-6 bar the TF32 tensor cores cannot meet, and for the narrow
+    bf16 heads."""
+    return "tc" if dtype == torch.bfloat16 and d in _FLASH_TC_DIMS \
+        else "scalar"
+
+
+def _tma_strides(t: torch.Tensor) -> list:
+    """The b, s, h strides of a (B, S, H, D) tensor as a TMA map takes them:
+    a dimension of size 1 is never stepped, so its stride is replaced by
+    the packed one."""
+    b, s, h, d = t.shape
+    sb, ss, sh = t.stride()[:3]
+    sh = sh if h > 1 else d
+    ss = ss if s > 1 else h * sh
+    sb = sb if b > 1 else s * ss
+    return [sb, ss, sh]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B, Sq, H, D), k/v (B, Sk, H, D) with KV pre-expanded to H heads,
     bf16|f32 -> (B, Sq, H, D) in q's dtype: softmax(q k^T D^-0.5) v, causal
-    positions counted from 0 on both sides. The kernel reads the tensors
-    through their strides (the head dimension must be contiguous) and
-    takes D in {16, 32, 64, 128}."""
+    positions counted from 0 on both sides. The kernels read the tensors
+    through their strides (the head dimension must be contiguous) and take
+    D in {16, 32, 64, 128}; ``flash_route`` picks the kernel. The
+    tensor-core route also needs 16-byte aligned base pointers and b, s, h
+    strides. Both routes count in ``flash_attention.launches``, the
+    tensor-core route also in ``flash_attention.launches_tc``."""
     _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
            f"q, k, v must be (B, S, H, D), got {tuple(q.shape)}, "
            f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -168,13 +195,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if q.numel() == 0:
         return out
-    fn = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-             k.shape[1], h, d, q.element_size(), int(bool(causal)), *strides,
-             d ** -0.5, stream)
-    _raise_on(err, "flash_attention")
+    if flash_route(q.dtype, d) == "tc":
+        strides = [x for t in (q, k, v) for x in _tma_strides(t)]
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+               and all(x % 8 == 0 for x in strides),
+               "flash_attention (bf16 tensor-core route) needs 16-byte "
+               "aligned q, k, v and b, s, h strides that are multiples of "
+               f"8 elements, got strides {strides}")
+        fn = _build.load("flash_attention_tc")
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, sq, k.shape[1], h, d, int(bool(causal)), *strides,
+                 *out.stride()[:3], d ** -0.5, stream)
+        _raise_on(err, "flash_attention (tensor-core route)")
+        flash_attention.launches_tc += 1
+    else:
+        fn = _build.load("flash_attention")
+        strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, sq, k.shape[1], h, d, q.element_size(),
+                 int(bool(causal)), *strides, d ** -0.5, stream)
+        _raise_on(err, "flash_attention")
     flash_attention.launches += 1
     return out
 
@@ -235,4 +276,5 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
 embed_gather.launches = 0
 embed_scatter_add.launches = 0
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 wkv.launches = 0
