@@ -7,7 +7,7 @@ Phases, one JSON line each; any failure raises, so the script exits non-zero
 and never prints the final line:
 
   1. banner   torch/CUDA versions, the card and its power limit; TF32 off.
-  2. build    nvcc builds the five kernel libraries from src/repro_torch/
+  2. build    nvcc builds the seven kernel libraries from src/repro_torch/
               kernels/csrc (one process per source, in parallel) into
               build/repro_torch/; -Xptxas -v's registers and spills.
   3. kernels  each kernel against its plain version on the card at the main
@@ -22,10 +22,16 @@ and never prints the final line:
               f32 and D 16/32: the scalar kernel), timed at the engine's
               prefill buckets 256..2,048 beside SDPA, wkv
               within 1e-4 at f32 and 5e-2 at bf16 of both its plain
-              versions (chunked and sequential) at rwkv6-7b's prefill and
-              decode shapes, the reference's sweep, chunk 16 against 48,
-              and a clamped case (chunk * |lw| > 80, held against the
-              chunked version only). Tolerances are absolute and relative,
+              versions (chunked and sequential) on the route
+              ops.wkv_route gives each case (bf16 with E 64 and S > 1:
+              the tensor-core kernel; S = 1: the step kernel; else the
+              scalar one) at rwkv6-7b's prefill (f32 and bf16 lw) and
+              decode shapes, the reference's sweep, chunk 1/16/20/48/64,
+              ragged S 2,047 and 100, a strided view, the step route at
+              B 1 and 4, a tc prefill continued by 8 step tokens, chunk 16
+              against 48, and clamped cases (chunk * |lw| > 80, held
+              against the chunked version only); a misaligned view must
+              raise on the tc route. Tolerances are absolute and relative,
               the reference's own bars; the difference is summation order.
               Kernel, plain and library-call times (CUDA events, median of
               50 runs, L2 flushed before each) beside the bound.
@@ -67,13 +73,16 @@ and never prints the final line:
               the card: 8 requests with prompts of 16..64 tokens (an
               unsourced smoke mix), 16 new tokens each, greedy. All
               complete; wkv launched n_layers times per device step (decode
-              steps plus the teacher-forced prompt steps), embed_gather once
-              per device step. TTFT, inter-token gaps and tokens/s over the
-              run's window, one decode step over 4 slots, one 2,048-token
-              make_prefill_step (its ms; 32 wkv launches), peak memory.
+              steps plus the teacher-forced prompt steps), every one on the
+              step route, embed_gather once per device step. TTFT,
+              inter-token gaps and tokens/s over the run's window, one
+              decode step over 4 slots, one 2,048-token make_prefill_step
+              (its ms; 32 wkv launches, all on the tensor-core route), peak
+              memory.
 
 Each path (main, serve, rwkv_serve) runs with every launch count set to 0
-just before it and read just after.
+just before it and read just after (rwkv_serve's serve loop and its
+2,048-token prefill each so, the path's launches their sum).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels' numbers, and last {"ok": true, "device": {...}}.
@@ -138,17 +147,40 @@ KERNELS = {
                    "(setmaxnreg 24/240); f32 and D 16/32: scalar f32 FMAs"),
         "scalar_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
     },
+    # the three routes of ops.wkv (ops.wkv_route), one row each; "wkv" is
+    # the scalar route (f32, narrow heads), which no full-width path takes
     "wkv": {
         "route": "cuda",
+        "wkv_route": "scalar",
         "source": "src/repro_torch/kernels/csrc/wkv.cu",
         "replaces": "src/repro/kernels/wkv.py:68",
+        "design": "f32 and E 16/32, S > 1: scalar f32 FMAs, state in shared "
+                  "memory",
+    },
+    "wkv_tc": {
+        "route": "cuda",
+        "wkv_route": "tc",
+        "source": "src/repro_torch/kernels/csrc/wkv_tc.cu",
+        "replaces": "src/repro/kernels/wkv.py:68",
+        "design": "bf16, E 64, S > 1: mma.sync m16n8k16 with bf16 hi/lo "
+                  "operands, a TMA ring of chunk tiles, factor / product / "
+                  "state warpgroups pipelined over chunks",
+    },
+    "wkv_step": {
+        "route": "cuda",
+        "wkv_route": "step",
+        "source": "src/repro_torch/kernels/csrc/wkv_step.cu",
+        "replaces": "src/repro/kernels/wkv.py:68",
+        "design": "S = 1, f32 and bf16: one pass over the state, 16-byte "
+                  "loads, warp-shuffle sums",
     },
 }
 # the kernels each path must launch (embed_scatter_add is a backward kernel;
-# serving has no backward)
+# serving has no backward); rwkv_serve's wkv launches by route
 PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 "serve": ("embed_gather", "flash_attention"),
-                "rwkv_serve": ("embed_gather", "wkv")}
+                "rwkv_serve": ("embed_gather", "wkv_tc", "wkv_step")}
+WKV_ROWS = {"scalar": "wkv", "tc": "wkv_tc", "step": "wkv_step"}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 SERVE_BATCH, SERVE_MAX_SEQ = 4, 2048                # both serve phases
@@ -394,8 +426,7 @@ def phase_kernels(dev) -> dict:
            "max_abs_err": errs, "launches": ops.launch_counts(),
            "embed_gather": gather, "embed_gather_serve": gather_serve,
            "embed_gather_rwkv": gather_rwkv,
-           "embed_scatter_add": scatter, "flash_attention": flash,
-           "wkv": wkv}
+           "embed_scatter_add": scatter, "flash_attention": flash, **wkv}
     emit(res)
     return res
 
@@ -635,17 +666,56 @@ def _wkv_work(b, s, h, e, chunk, itemsize, lw_itemsize) -> tuple:
     return nbytes, 2 * macs * b * h
 
 
+def _wkv_bound(route, b, s, h, e, chunk, itemsize, lw_itemsize) -> dict:
+    """The least time of one wkv call on its route: the larger of its bytes
+    at the memory rate and its FLOP at the rate of the units the route's
+    kernel computes on — the bf16 tensor cores (tc, 989 TFLOP/s) or the f32
+    CUDA cores (scalar and step, 67 TFLOP/s)."""
+    nbytes, flops = _wkv_work(b, s, h, e, chunk, itemsize, lw_itemsize)
+    rate = HW.peak_flops if route == "tc" else F32_CORE_FLOPS
+    t_ops, t_bytes = flops / rate * 1e3, bound_ms(nbytes)
+    return {"flops": flops, "bytes": nbytes, "flop_rate": rate,
+            "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _scalar_wkv(args, chunk: int):
+    """The scalar route's kernel (csrc/wkv.cu, the one kernel wkv had
+    before the tc and step routes) launched directly, whatever the dtype:
+    the in-call yardstick of the routes that replaced it at these shapes.
+    Not counted as a launch of ops.wkv."""
+    r, k, v, lw, u, st = args
+    b, s, h, e = r.shape
+    out = torch.empty_like(r)
+    s_out = torch.empty_like(st)
+    strides = [x for t in (r, k, v, lw, out) for x in t.stride()[:3]]
+    err = _build.load("wkv")(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
+        st.data_ptr(), out.data_ptr(), s_out.data_ptr(), b, s, h, e, chunk,
+        r.element_size(), lw.element_size(), *strides,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"wkv.cu launch failed with cudaError {err}")
+    return out, s_out
+
+
 def _wkv_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
-    """wkv against both plain versions (chunked: the kernel's own function;
-    sequential: the reference's oracle) at rwkv6-7b's shapes — a 2,048-token
-    prompt and a 4-slot decode step, bf16 r/k/v with f32 lw as the model
-    passes them — and at the reference's sweep, in f32 and bf16; chunk 16
-    against 48; and a clamped case (chunk * |lw| > 80) held against the
-    chunked version only, where the sequential recurrence differs. Times at
-    the prefill and decode shapes in bf16."""
+    """wkv against both plain versions (chunked: the kernels' own function;
+    sequential: the reference's oracle) on the route ops.wkv_route gives
+    each case, which its name carries: rwkv6-7b's 2,048-token prompt (bf16
+    r/k/v with f32 lw as the model passes them, and with bf16 lw) and 4-slot
+    decode step; the reference's sweep in f32 and bf16; chunk 1/16/20/48/64
+    at E = 64; ragged S 2,047 and 100; a strided (B, H, S, E)-laid view; the
+    step route at B 1 and 4; a tc prefill continued by 8 step-route tokens
+    from its final state, against the sequential version over all of them;
+    chunk 16 against 48; and clamped cases (chunk * |lw| > 80, f32 and bf16)
+    held against the chunked version only, where the sequential recurrence
+    differs. A misaligned view must raise on the tc route. Times of each
+    route at the shape the main path gives it, beside the scalar kernel's
+    (csrc/wkv.cu) at the same shape."""
     worst = {}
 
-    def hold(name, got, want, tol):
+    def hold(name, got, want, tol, route):
         torch.cuda.synchronize()
         err = 0.0
         for g, w in zip(got, want):
@@ -658,65 +728,128 @@ def _wkv_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
             check(not bool(bad.any()) and bool(torch.isfinite(g).all()),
                   f"wkv/{name}: {int(bad.sum())} elements outside {tol} "
                   f"(max abs err {float(diff.max())})")
-        errs["wkv"] = max(errs["wkv"], err)
+        errs[WKV_ROWS[route]] = max(errs[WKV_ROWS[route]], err)
         worst[name] = err
         cases.append(f"wkv/{name}")
 
+    def run(case, args, chunk, sequential=True):
+        """ops.wkv on ``args`` against the chunked (and sequential) plain
+        version; the case's name gets its dtype and route."""
+        r, lw = args[0], args[3]
+        route = ops.wkv_route(r.dtype, r.shape[3], r.shape[1])
+        tol = WKV_TOL[r.dtype]
+        lw_name = ("" if lw.dtype == r.dtype else
+                   "_lw_" + str(lw.dtype).removeprefix("torch."))
+        name = (f"{case}_{str(r.dtype).removeprefix('torch.')}{lw_name}"
+                f"_{route}")
+        got = ops.wkv(*args, chunk=chunk)
+        hold(f"{name}_vs_chunked", got,
+             ref.wkv_chunked_ref(*args, chunk=chunk), tol, route)
+        if sequential:
+            hold(f"{name}_vs_sequential", got, ref.wkv_ref(*args), tol,
+                 route)
+        return got
+
     h, e = get_config(RWKV).n_heads, get_config(RWKV).head_dim
+    bf16, f32 = torch.bfloat16, torch.float32
     shapes = {"prefill": (1, RWKV_PREFILL, h, e, 32),
               "decode": (SERVE_BATCH, 1, h, e, 32),
               "sweep_e16_c16": (1, 64, 2, 16, 16),
               "sweep_e32_c32": (2, 100, 3, 32, 32),
               "sweep_e64_c32": (1, 31, 1, 64, 32)}
     for case, (b, s_, hh, ee, chunk) in shapes.items():
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (bf16, f32):
             model_shape = case in ("prefill", "decode")
-            args = _wkv_inputs(gen, b, s_, hh, ee, dtype,
-                               torch.float32 if model_shape else dtype)
-            name = f"{case}_{str(dtype).removeprefix('torch.')}"
-            got = ops.wkv(*args, chunk=chunk)
-            hold(f"{name}_vs_chunked", got,
-                 ref.wkv_chunked_ref(*args, chunk=chunk), WKV_TOL[dtype])
-            hold(f"{name}_vs_sequential", got, ref.wkv_ref(*args),
-                 WKV_TOL[dtype])
-    args = _wkv_inputs(gen, 1, 96, 2, 16, torch.float32, decay=(1.0, -1.5),
+            run(case, _wkv_inputs(gen, b, s_, hh, ee, dtype,
+                                  f32 if model_shape else dtype), chunk)
+    # the tc route: bf16 lw at the prompt, every chunk size, ragged lengths
+    run("prefill", _wkv_inputs(gen, 1, RWKV_PREFILL, h, e, bf16, bf16), 32)
+    for chunk in (16, 48, 64):
+        run(f"chunk{chunk}", _wkv_inputs(gen, 2, 300, 4, 64, bf16, f32),
+            chunk)
+    # chunks that are not a multiple of the 16-row tile
+    for chunk in (1, 20):
+        run(f"chunk{chunk}", _wkv_inputs(gen, 2, 150, 4, 64, bf16, f32),
+            chunk)
+    run("ragged_s2047", _wkv_inputs(gen, 1, 2047, 8, 64, bf16, f32), 32)
+    run("ragged_s100", _wkv_inputs(gen, 2, 100, 4, 64, bf16, f32), 32)
+    # a view laid out (B, H, S, E), as strided in s and h as it gets
+    args = _wkv_inputs(gen, 2, 200, 4, 64, bf16, f32)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in args[:4]]
+    check(not views[0].is_contiguous(), "the strided case is contiguous")
+    got = run("strided", views + args[4:], 32)
+    want = ops.wkv(*args, chunk=32)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "wkv/strided: a strided view and its contiguous copy differ")
+    # the step route at B 1 and 4 (decode above) in both dtypes
+    for dtype in (bf16, f32):
+        run("step_b1", _wkv_inputs(gen, 1, 1, h, e, dtype, f32), 32)
+    # a tc prefill continued by 8 step-route tokens from its final state
+    args = _wkv_inputs(gen, 1, 308, 8, 64, bf16, f32)
+    o, st = ops.wkv(*[t[:, :300] for t in args[:4]], *args[4:], chunk=32)
+    outs = [o]
+    for t in range(300, 308):
+        o, st = ops.wkv(*[x[:, t:t + 1] for x in args[:4]], args[4], st)
+        outs.append(o)
+    hold("continuity_tc_then_8_step_bf16_vs_sequential",
+         (torch.cat(outs, dim=1), st), ref.wkv_ref(*args), WKV_TOL[bf16],
+         "step")
+    # chunk invariance and the clamped cases (the chunked version only)
+    args = _wkv_inputs(gen, 1, 96, 2, 16, f32, decay=(1.0, -1.5),
                        bonus=0.0, state=0.0)
     o16 = ops.wkv(*args, chunk=16)
-    hold("chunk16_vs_chunk48_float32", o16, ops.wkv(*args, chunk=48), 1e-4)
-    hold("chunk16_vs_chunked_float32", o16,
-         ref.wkv_chunked_ref(*args, chunk=16), 1e-4)
-    args = _wkv_inputs(gen, 1, 96, 4, 64, torch.float32, decay=(0.1, 1.1),
-                       bonus=0.2)
-    check(float(-args[3][:, :32].sum(dim=1).min()) > 80,
-          "the clamped case does not reach chunk * |lw| > 80")
-    got = ops.wkv(*args, chunk=32)
-    hold("clamped_float32_vs_chunked", got,
-         ref.wkv_chunked_ref(*args, chunk=32), 1e-4)
-    seq_gap = float((got[0] - ref.wkv_ref(*args)[0]).abs().max())
-    check(seq_gap > 1e-2, f"clamped case: the sequential recurrence is only "
-          f"{seq_gap} away, the clamps do not bite")
+    hold("chunk16_vs_chunk48_float32_scalar", o16, ops.wkv(*args, chunk=48),
+         1e-4, "scalar")
+    hold("chunk16_vs_chunked_float32_scalar", o16,
+         ref.wkv_chunked_ref(*args, chunk=16), 1e-4, "scalar")
+    seq_gap = {}
+    for dtype in (f32, bf16):
+        args = _wkv_inputs(gen, 1, 96, 4, 64, dtype, f32, decay=(0.1, 1.1),
+                           bonus=0.2)
+        check(float(-args[3][:, :32].sum(dim=1).min()) > 80,
+              "the clamped case does not reach chunk * |lw| > 80")
+        got = run("clamped", args, 32, sequential=False)
+        seq_gap[str(dtype)] = float(
+            (got[0].float() - ref.wkv_ref(*args)[0].float()).abs().max())
+        check(seq_gap[str(dtype)] > 1e-1,
+              f"clamped case: the sequential recurrence is only "
+              f"{seq_gap[str(dtype)]} away, the clamps do not bite")
+    # the tc route refuses a view its TMA maps cannot take
+    args = _wkv_inputs(gen, 1, 64, 2, 64, bf16, f32)
+    flat = torch.empty(args[0].numel() + 1, dtype=bf16, device=dev)
+    odd = flat[1:].view(args[0].shape)
+    try:
+        ops.wkv(odd, *args[1:], chunk=32)
+        check(False, "wkv/tc took a base pointer 2 bytes off alignment")
+    except ValueError:
+        cases.append("wkv/misaligned_bfloat16_tc_raises")
 
-    res = {"max_abs_err_by_case": worst, "clamped_vs_sequential": seq_gap}
-    for case in ("prefill", "decode"):
-        b, s_, hh, ee, chunk = shapes[case]
-        args = _wkv_inputs(gen, b, s_, hh, ee, torch.bfloat16, torch.float32)
-        nbytes, flops = _wkv_work(b, s_, hh, ee, chunk, 2, 4)
-        t_ops, t_bytes = flops / F32_CORE_FLOPS * 1e3, bound_ms(nbytes)
-        res[case] = {
-            "shape": f"{RWKV} {case}: ({b}, {s_}, {hh}, {ee}) bf16 r/k/v, "
-                     f"f32 lw, chunk {chunk}",
+    res = {"wkv_max_abs_err_by_case": worst,
+           "wkv_clamped_vs_sequential": seq_gap}
+    timed = {"wkv_tc": ("prefill", (1, RWKV_PREFILL, h, e, 32), bf16, f32),
+             "wkv_step": ("decode", (SERVE_BATCH, 1, h, e, 32), bf16, f32),
+             "wkv": ("prefill", (1, RWKV_PREFILL, h, e, 32), f32, f32)}
+    for row, (case, (b, s_, hh, ee, chunk), dtype, lw_dtype) in timed.items():
+        args = _wkv_inputs(gen, b, s_, hh, ee, dtype, lw_dtype)
+        route = ops.wkv_route(dtype, ee, s_)
+        item = torch.tensor([], dtype=dtype).element_size()
+        res[row] = {
+            "shape": f"{RWKV} {case}: ({b}, {s_}, {hh}, {ee}) "
+                     f"{str(dtype).removeprefix('torch.')} r/k/v, "
+                     f"{str(lw_dtype).removeprefix('torch.')} lw, chunk "
+                     f"{chunk}; route {route}",
             "kernel_ms": timer.ms(lambda: ops.wkv(*args, chunk=chunk)),
             "plain_ms": timer.ms(
                 lambda: ref.wkv_chunked_ref(*args, chunk=chunk), 10),
             "library_ms": None,        # no single PyTorch call computes WKV
-            "flops": flops, "bytes": nbytes,
-            "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    # the summary row reads the prefill shape's numbers
-    res.update({k: res["prefill"][k] for k in (
-        "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by")})
+            "host_ms_per_call": host_ms(lambda: ops.wkv(*args, chunk=chunk)),
+            **_wkv_bound(route, b, s_, hh, ee, chunk, item, 4)}
+        if route != "scalar":
+            # the scalar kernel at the same shape, in the same call
+            res[row]["scalar_kernel_ms"] = timer.ms(
+                lambda: _scalar_wkv(args, chunk))
     return res
 
 
@@ -1048,6 +1181,9 @@ def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     check(counts["wkv"] == cfg.n_layers * device_steps,
           f"wkv launched {counts['wkv']} times in {device_steps} device "
           "steps")
+    check(counts["wkv_step"] == counts["wkv"],
+          f"{counts['wkv'] - counts['wkv_step']} of {counts['wkv']} wkv "
+          "launches of the serve loop missed the step route")
     check(counts["embed_gather"] == device_steps,
           f"embed_gather launched {counts['embed_gather']} times in "
           f"{device_steps} device steps")
@@ -1070,9 +1206,11 @@ def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     logits, carry = prefill({"tokens": ptoks})
     torch.cuda.synchronize()
     prefill_counts = ops.launch_counts()
-    check(prefill_counts["wkv"] == cfg.n_layers,
+    check(prefill_counts["wkv"] == cfg.n_layers
+          and prefill_counts["wkv_tc"] == cfg.n_layers,
           f"a {RWKV_PREFILL}-token prefill launched wkv "
-          f"{prefill_counts['wkv']} times")
+          f"{prefill_counts['wkv']} times, {prefill_counts['wkv_tc']} on "
+          "the tensor-core route")
     check(tuple(logits.shape) == (1, RWKV_PREFILL, cfg.vocab_size)
           and bool(torch.isfinite(logits).all())
           and all(bool(torch.isfinite(c).all()) for c in carry),
@@ -1082,7 +1220,9 @@ def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     res = {"phase": "rwkv_serve", "arch": cfg.name, "requests": n_requests,
            "prompt_lens": [int(x) for x in lens],
            "decode_steps": steps, "device_steps": device_steps,
-           "launches": counts,
+           # the path's launches: the serve loop's and the prefill's
+           "launches": {k: counts[k] + prefill_counts[k] for k in counts},
+           "serve_loop_launches": counts,
            "ttft_ms_p50": ttft[len(ttft) // 2] * 1e3,
            "ttft_ms_max": ttft[-1] * 1e3,
            "window_decode_tokens": tokens - n_requests,
@@ -1167,8 +1307,12 @@ def main() -> None:
     rows = []
     for name, meta in KERNELS.items():
         k = kern[name]
-        by_path = {p: c[name] for p, c in paths.items()
-                   if name in PATH_KERNELS[p]}
+        if name == "wkv":           # the scalar route: no path takes it
+            by_path = {p: c["wkv"] - c["wkv_tc"] - c["wkv_step"]
+                       for p, c in paths.items()}
+        else:
+            by_path = {p: c[name] for p, c in paths.items()
+                       if name in PATH_KERNELS[p]}
         rows.append({"name": name, **meta,
                      "launches": sum(by_path.values()),
                      "launches_by_path": by_path,
@@ -1181,8 +1325,10 @@ def main() -> None:
         if name == "embed_gather":
             rows[-1]["serve_shapes"] = kern["embed_gather_serve"]
             rows[-1]["rwkv_shapes"] = kern["embed_gather_rwkv"]
-        if name == "wkv":
-            rows[-1]["decode_shape"] = kern["wkv"]["decode"]
+        if name in ("wkv", "wkv_tc", "wkv_step"):
+            rows[-1].update({key: k[key] for key in (
+                "host_ms_per_call", "scalar_kernel_ms", "ops_bound_ms",
+                "bytes_bound_ms") if key in k})
         if name == "flash_attention":
             rows[-1]["launches_tc"] = serve["flash_attention_launches_tc"]
             rows[-1]["by_len"] = {

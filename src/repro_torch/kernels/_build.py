@@ -11,7 +11,8 @@ The file name carries a hash of the source, of every local header it
 includes (``#include "..."``, followed recursively) and of the flags, so a
 second run skips the build. The tensor-core kernel reaches the driver's
 ``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``, so no
-library links ``-lcuda``. Builds happen at first use — never at import —
+library links ``-lcuda`` (``wkv_tc`` copies rows with bulk copies and needs
+no tensor map). Builds happen at first use — never at import —
 and ``build_all`` starts one ``nvcc`` per source, all together.
 """
 from __future__ import annotations
@@ -51,6 +52,13 @@ KERNELS = {
     # r, k, v, lw, bonus, state, out, state out; b, s, h, e, chunk,
     # itemsize, lw itemsize; 15 strides; stream
     "wkv": ("wkv.cu", "repro_wkv", (_P,) * 8 + (_I,) * 22 + (_P,)),
+    # r, k, v, lw, bonus, state, out, state out; b, s, h, e, chunk,
+    # lw itemsize; 15 strides; stream
+    "wkv_tc": ("wkv_tc.cu", "repro_wkv_tc", (_P,) * 8 + (_I,) * 21 + (_P,)),
+    # r, k, v, lw, bonus, state, out, state out; b, h, e, itemsize,
+    # lw itemsize; 10 strides (b, h); stream
+    "wkv_step": ("wkv_step.cu", "repro_wkv_step",
+                 (_P,) * 8 + (_I,) * 15 + (_P,)),
 }
 
 _loaded: dict = {}

@@ -285,33 +285,6 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
 
 // ---- host side ---------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, found through the runtime (so the
-// library needs no -lcuda)
-EncodeTiled encode_fn() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // (B, S, H, D) bf16 seen as the 4-D map (D, H, S, B), boxes of 64 x 1 x 128
 // x 1 with the 128-byte swizzle; strides in elements, d contiguous.
 CUresult make_map(CUtensorMap* map, const void* ptr, int64_t b, int64_t s,
@@ -322,11 +295,11 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int64_t b, int64_t s,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)kBN, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                     const_cast<void*>(ptr), dims, strides, box, estr,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return sm90::encode_fn()(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // The kernel's registers at launch must be the 168 that setmaxnreg's 24 +
@@ -353,7 +326,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
            int64_t sq, int64_t sk, int64_t h, const int64_t* st, int causal,
            float scale, cudaStream_t stream) {
-  if (encode_fn() == nullptr) return (int)cudaErrorNotSupported;
+  if (sm90::encode_fn() == nullptr) return (int)cudaErrorNotSupported;
   const cudaError_t ready = prepare<D>();
   if (ready != cudaSuccess) return (int)ready;
   CUtensorMap mq, mk, mv;

@@ -1,6 +1,8 @@
 // sm90.cuh — the Hopper (sm_90a) building blocks of the port's tensor-core
-// kernels, as inline PTX: mbarriers, TMA tile loads, wgmma descriptors and
-// the two wgmma shapes flash_attention_tc.cu issues, and setmaxnreg.
+// kernels, as inline PTX: mbarriers, TMA tile loads (and the host's
+// tensor-map encoder), wgmma descriptors and the two wgmma shapes
+// flash_attention_tc.cu issues, setmaxnreg, and the warp-level ldmatrix,
+// mma.sync m16n8k16 and named barriers that wkv_tc.cu uses.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows of 64 bf16 (128 B each) is stored in 1,024-byte atoms of 8 rows,
@@ -10,6 +12,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -77,6 +80,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
 __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(
                    reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// orders this thread's earlier generic-proxy writes of shared memory before
+// later async-proxy (TMA) writes of it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// a barrier of ``count`` threads (a multiple of 32) under ``id`` (1..15;
+// 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------
@@ -183,6 +198,47 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
 
 #undef SM90_D8
 
+// ---- ldmatrix and mma.sync (a warp's 16 x 8 x 16 bf16 product) -------------
+//
+// Fragments of mma.sync.m16n8k16 (g = lane / 4, q = lane % 4): A (16 x 16) in
+// 4 registers of 2 bf16, a0 (row g, cols 2q, 2q+1), a1 (row g + 8), a2 (cols
+// + 8), a3 (both); B (16 x 8, K x N) in 2, b0 (rows 2q, 2q+1 of col g), b1
+// (rows + 8); C (16 x 8 f32) in 4 floats, (row g, cols 2q, 2q+1) and (row
+// g + 8, the same cols). ldmatrix loads four (x4) or two (x2) 8 x 8 bf16
+// matrices whose rows' addresses lanes 8i..8i+7 give for matrix i; .trans
+// hands each thread the transposed elements.
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&d)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+      : "=r"(d[0]), "=r"(d[1])
+      : "r"(addr) : "memory");
+}
+
+// C (16 x 8, f32) += A (16 x 16, bf16) B (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // ---- register budget of a warpgroup -----------------------------------------
 
 template <int R>
@@ -192,6 +248,35 @@ __device__ __forceinline__ void regs_release() {
 template <int R>
 __device__ __forceinline__ void regs_claim() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+// ---- host: the tensor-map encoder -------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime (so a
+// library needs no -lcuda); nullptr where the driver has none
+inline EncodeTiled encode_fn() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
 }  // namespace sm90

@@ -23,6 +23,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _FLASH_DIMS = (16, 32, 64, 128)
 _FLASH_TC_DIMS = (64, 128)
 _WKV_DIMS = (16, 32, 64)
+_WKV_TC_DIM = 64
 _WKV_MAX_CHUNK = 64
 
 
@@ -32,13 +33,21 @@ def reset_launch_counts() -> None:
     flash_attention.launches = 0
     flash_attention.launches_tc = 0
     wkv.launches = 0
+    wkv.launches_tc = 0
+    wkv.launches_step = 0
 
 
 def launch_counts() -> dict:
+    """Launches per kernel, and per route where a wrapper has several
+    (``flash_attention_tc``; ``wkv_tc`` and ``wkv_step``, each also counted
+    in its wrapper's total)."""
     return {"embed_gather": embed_gather.launches,
             "embed_scatter_add": embed_scatter_add.launches,
             "flash_attention": flash_attention.launches,
-            "wkv": wkv.launches}
+            "flash_attention_tc": flash_attention.launches_tc,
+            "wkv": wkv.launches,
+            "wkv_tc": wkv.launches_tc,
+            "wkv_step": wkv.launches_step}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -220,6 +229,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def wkv_route(dtype: torch.dtype, e: int, s: int) -> str:
+    """Which CUDA kernel ``wkv`` launches, from the dtype of r/k/v, the
+    head size and the sequence length alone: "step" (csrc/wkv_step.cu, one
+    pass over the state) for one token, in either dtype; "tc"
+    (csrc/wkv_tc.cu: mma.sync bf16 behind a TMA ring) for bf16
+    with E = 64 and S > 1; "scalar" (csrc/wkv.cu: f32 FMAs) otherwise — f32,
+    whose 1e-4 bar that kernel keeps by staying in f32, and the narrow
+    heads."""
+    if s == 1:
+        return "step"
+    return "tc" if dtype == torch.bfloat16 and e == _WKV_TC_DIM else "scalar"
+
+
+def _wkv_tc_misaligned(tensors) -> list:
+    """Indices of the (B, S, H, E) tensors among ``tensors`` that the tc
+    route's TMA maps cannot take: a base pointer, or a b, s or h stride as
+    ``_tma_strides`` gives it, that is not a multiple of 16 bytes."""
+    return [i for i, t in enumerate(tensors)
+            if t.data_ptr() % 16
+            or any(x * t.element_size() % 16 for x in _tma_strides(t))]
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
         bonus: torch.Tensor, state: torch.Tensor, *,
         chunk: int = 32) -> tuple:
@@ -227,9 +258,12 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
     (B, S, H, E) bf16|f32 sharing a dtype, lw (B, S, H, E) log-decay
     bf16|f32, bonus (H, E) f32, state (B, H, E, E) f32 [key x value] ->
     (out (B, S, H, E) in r's dtype, final state (B, H, E, E) f32). Chunks
-    of min(chunk, S) tokens, 1 <= chunk <= 64. The kernel reads the four
-    inputs through their strides (E must be contiguous) and takes E in
-    {16, 32, 64}."""
+    of min(chunk, S) tokens, 1 <= chunk <= 64. The kernels read the four
+    inputs through their strides (E must be contiguous) and take E in
+    {16, 32, 64}; ``wkv_route`` picks the kernel. The tc and step routes
+    also need a 16-byte aligned state, the tc route 16-byte aligned rows
+    of r, k, v and lw. Every route counts in ``wkv.launches``, the tc and
+    step routes also in ``wkv.launches_tc`` and ``wkv.launches_step``."""
     _check(r.dim() == 4 and r.shape[1] >= 1,
            f"r must be (B, S >= 1, H, E), got {tuple(r.shape)}")
     b, s, h, e = r.shape
@@ -261,14 +295,38 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
            "wkv takes a contiguous bonus and state")
     out = torch.empty((b, s, h, e), dtype=r.dtype, device=r.device)
     s_out = torch.empty_like(state)
-    fn = _build.load("wkv")
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    strides = [x for t in (r, k, v, lw, out) for x in t.stride()[:3]]
-    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-             bonus.data_ptr(), state.data_ptr(), out.data_ptr(),
-             s_out.data_ptr(), b, s, h, e, int(chunk), r.element_size(),
-             lw.element_size(), *strides, stream)
-    _raise_on(err, "wkv")
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            bonus.data_ptr(), state.data_ptr(), out.data_ptr(),
+            s_out.data_ptr())
+    route = wkv_route(r.dtype, e, s)
+    _check(route == "scalar" or state.data_ptr() % 16 == 0,
+           f"wkv ({route} route) needs a 16-byte aligned state")
+    if route == "step":
+        strides = [x for t in (r, k, v, lw, out)
+                   for x in (t.stride(0), t.stride(2))]
+        err = _build.load("wkv_step")(*ptrs, b, h, e, r.element_size(),
+                                      lw.element_size(), *strides, stream)
+        _raise_on(err, "wkv (step route)")
+        wkv.launches_step += 1
+    elif route == "tc":
+        bad = _wkv_tc_misaligned((r, k, v, lw))
+        _check(not bad, "wkv (bf16 tensor-core route) needs 16-byte aligned "
+               "rows: base pointers and b, s, h strides that are multiples "
+               f"of 16 bytes; {[('r', 'k', 'v', 'lw')[i] for i in bad]} "
+               "are not")
+        strides = [x for t in (r, k, v, lw) for x in _tma_strides(t)]
+        strides += list(out.stride()[:3])
+        err = _build.load("wkv_tc")(*ptrs, b, s, h, e, int(chunk),
+                                    lw.element_size(), *strides, stream)
+        _raise_on(err, "wkv (tensor-core route)")
+        wkv.launches_tc += 1
+    else:
+        strides = [x for t in (r, k, v, lw, out) for x in t.stride()[:3]]
+        err = _build.load("wkv")(*ptrs, b, s, h, e, int(chunk),
+                                 r.element_size(), lw.element_size(),
+                                 *strides, stream)
+        _raise_on(err, "wkv")
     wkv.launches += 1
     return out, s_out
 
@@ -278,3 +336,5 @@ embed_scatter_add.launches = 0
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 wkv.launches = 0
+wkv.launches_tc = 0
+wkv.launches_step = 0

@@ -41,7 +41,7 @@ CLASSES = (
     ("gather_rows", "embed_gather"),
     ("scatter_rows", "embed_scatter_add"),
     ("flash_fwd", "flash_attention"),
-    ("wkv_fwd", "wkv"),
+    ("wkv_fwd", "wkv"), ("wkv_tc", "wkv"), ("wkv_step", "wkv"),
     ("nvjet", "gemm"), ("gemm", "gemm"), ("xmma", "gemm"),
     ("cutlass", "gemm"),
     ("reduce_kernel", "reduction"),

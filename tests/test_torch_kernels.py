@@ -98,7 +98,9 @@ def test_cpu_path_does_not_count_launches():
     ops.embed_gather(t, ids)
     ops.embed_scatter_add(ids, torch.ones((3, 8)), 4)
     assert ops.launch_counts() == {"embed_gather": 0, "embed_scatter_add": 0,
-                                   "flash_attention": 0, "wkv": 0}
+                                   "flash_attention": 0,
+                                   "flash_attention_tc": 0, "wkv": 0,
+                                   "wkv_tc": 0, "wkv_step": 0}
 
 
 @pytest.mark.parametrize("bad", ["ids_dtype", "ids_rank", "table_dtype",
