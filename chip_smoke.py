@@ -7,14 +7,23 @@ Phases, one JSON line each; any failure raises, so the script exits non-zero
 and never prints the final line:
 
   1. banner   torch/CUDA versions, the card and its power limit; TF32 off.
-  2. build    nvcc builds the seven kernel libraries from src/repro_torch/
+  2. build    nvcc builds the ten kernel libraries from src/repro_torch/
               kernels/csrc (one process per source, in parallel) into
               build/repro_torch/; -Xptxas -v's registers and spills.
   3. kernels  each kernel against its plain version on the card at the main
               paths' shapes and at edge cases: the embedding kernels bit for
-              bit (torch.equal; embed_gather at parallax-lm's table and at
-              phi3-medium-14b's and rwkv6-7b's, with the ids of a
-              2,048-token prefill and of a 4-slot decode step),
+              bit (torch.equal of the raw bits; embed_gather on the route
+              ops.gather_route gives each case — the bulk kernel at
+              parallax-lm's table and at phi3-medium-14b's and rwkv6-7b's,
+              with the ids of a 2,048-token prefill and of a 4-slot decode
+              step; the element kernel at E = 100 bf16 and at tables off a
+              16-byte boundary — and the one-pass embed_scatter_add at the
+              main shapes, a shard owning none of the ids (M = 8), one
+              owning half (M = 2), ids out of order, -0.0 rows, Vs below
+              one block and E = 100), the gather timed beside its element
+              kernel and the scatter beside PR 11's zero fill + dump-row
+              kernel and the library's zeros + index_copy_, an empty
+              kernel's launch floor under the same timer,
               flash_attention within 2e-5 at f32 and 2e-2 at bf16 on the
               route ops.flash_route gives each case (bf16 at D 64/128:
               the tensor-core kernel, also at Sq 96/Sk 160 and 160/96
@@ -36,9 +45,12 @@ and never prints the final line:
               Kernel, plain and library-call times (CUDA events, median of
               50 runs, L2 flushed before each) beside the bound.
   4. parity   reduced parallax-lm at f32, the same parameters and batches,
-              3 steps on the CPU and on the card: losses within rtol 1e-4
-              (GEMM and index_add_ summation order differ on the card), the
-              embed_* census metrics equal.
+              3 steps on the CPU and on the card, with the default RunConfig
+              and with local_agg=False: losses within rtol 1e-4 (GEMM and
+              index_add_ summation order differ on the card, and without
+              local aggregation index_add_ adds repeated ids with atomics),
+              the embed_* census metrics equal, the no-LA push through the
+              plain scatter (no kernel launch).
   5. serve_parity  reduced phi3-medium-14b at f32, attention "pallas": the
               same parameters and prompts through Server(device="cpu") and
               Server(device="cuda"): prefill logits within rtol 1e-4, greedy
@@ -57,15 +69,19 @@ and never prints the final line:
               default RunConfig (bf16): get_runner(..., device="cuda"), 10
               steps of SyntheticLM batches. Every loss finite, the last below
               the first, each embedding kernel launched exactly once per
-              step.
+              step, the gather on the bulk route and the scatter on the
+              one-pass kernel. Then main_no_la: 3 such steps under
+              RunConfig(local_agg=False), their pushes through the plain
+              scatter (no embed_scatter_add launch), step ms and losses.
   9. serve    full-width phi3-medium-14b (40 layers, nothing cut), bf16,
               Server(..., RunConfig(attention_impl="pallas"),
               ServerConfig(max_batch=4, max_seq=2048)) on the card: 8
               requests with prompts of 200..1800 tokens, 16 new tokens each.
               All complete, no cross-slot mismatch, flash_attention launched
               40 times per prefill, every launch on the tensor-core route,
-              embed_gather once per prefill and per decode step. TTFT,
-              inter-token gaps and decode tokens/s over the run's window,
+              embed_gather once per prefill and per decode step, all on the
+              bulk route. TTFT, inter-token gaps and decode tokens/s over
+              the run's window,
               prefill ms per bucket, one synthetic decode step (lens 1024),
               peak memory, clocks and power.
  10. rwkv_serve  full-width rwkv6-7b (32 layers, nothing cut), bf16,
@@ -74,15 +90,16 @@ and never prints the final line:
               unsourced smoke mix), 16 new tokens each, greedy. All
               complete; wkv launched n_layers times per device step (decode
               steps plus the teacher-forced prompt steps), every one on the
-              step route, embed_gather once per device step. TTFT,
-              inter-token gaps and tokens/s over the run's window, one
+              step route, embed_gather once per device step (and once in
+              the prefill below), all on the bulk route. TTFT, inter-token
+              gaps and tokens/s over the run's window, one
               decode step over 4 slots, one 2,048-token make_prefill_step
               (its ms; 32 wkv launches, all on the tensor-core route), peak
               memory.
 
-Each path (main, serve, rwkv_serve) runs with every launch count set to 0
-just before it and read just after (rwkv_serve's serve loop and its
-2,048-token prefill each so, the path's launches their sum).
+Each path (main, main_no_la, serve, rwkv_serve) runs with every launch
+count set to 0 just before it and read just after (rwkv_serve's serve loop
+and its 2,048-token prefill each so, the path's launches their sum).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels' numbers, and last {"ok": true, "device": {...}}.
@@ -127,13 +144,25 @@ TIMED_RUNS, WARMUP = 50, 5
 KERNELS = {
     "embed_gather": {
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/embed_gather.cu",
+        # rows of whole 16-byte units, every full-width path's route
+        "source": "src/repro_torch/kernels/csrc/embed_gather_bulk.cu",
         "replaces": "src/repro/kernels/embed_gather.py:29",
+        "design": ("bulk route: warps of independent copiers, each row one "
+                   "cp.async.bulk into a lane's shared-memory slot "
+                   "(mbarrier complete_tx) and one bulk store out; unowned "
+                   "rows a bulk store of a zero tile; other rows: the "
+                   "element route, a thread per 16 B or element"),
+        "element_source": "src/repro_torch/kernels/csrc/embed_gather.cu",
     },
     "embed_scatter_add": {
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/embed_scatter.cu",
+        "source": "src/repro_torch/kernels/csrc/embed_scatter_fused.cu",
         "replaces": "src/repro/kernels/embed_scatter.py:36",
+        "design": ("one pass: short blocks of ~64 KB of output in launch "
+                   "order, each mapping its rows to source ids in shared "
+                   "memory and writing every row once (zeros or the "
+                   "widened pushed row); no fill, no dump row"),
+        "dump_row_source": "src/repro_torch/kernels/csrc/embed_scatter.cu",
     },
     "flash_attention": {
         "route": "cuda",
@@ -178,6 +207,8 @@ KERNELS = {
 # the kernels each path must launch (embed_scatter_add is a backward kernel;
 # serving has no backward); rwkv_serve's wkv launches by route
 PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
+                # local_agg=False: repeated ids take the plain scatter
+                "main_no_la": ("embed_gather",),
                 "serve": ("embed_gather", "flash_attention"),
                 "rwkv_serve": ("embed_gather", "wkv_tc", "wkv_step")}
 WKV_ROWS = {"scalar": "wkv", "tc": "wkv_tc", "step": "wkv_step"}
@@ -320,6 +351,45 @@ def _unique_sorted(rng, n: int, lo: int, hi: int, dev) -> torch.Tensor:
     return torch.from_numpy(ids).to(dev)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a bf16 or f32 tensor, so that torch.equal tells
+    -0.0 from +0.0."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _misaligned(table: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``table`` whose base lies one element past a
+    16-byte boundary (the element route's case)."""
+    flat = torch.empty(table.numel() + 1, dtype=table.dtype,
+                       device=table.device)
+    view = flat[1:].view(table.shape)
+    view.copy_(table)
+    return view
+
+
+def _scatter_fns(ids, rows, vs: int, e: int) -> dict:
+    """The push's function three ways on the same inputs: the one-pass
+    kernel; PR 11's function (a zeroed (Vs + 1, E) buffer, the dump-row
+    kernel, the slice); and the library's same function, timed whole
+    (torch.zeros, index_copy_ of the widened rows with unowned ids sent to
+    row Vs, the slice)."""
+    dev = rows.device
+
+    def dump_row():
+        out = torch.zeros((vs + 1, e), dtype=torch.float32, device=dev)
+        ops.scatter_into(ids, rows, out, vs)
+        return out[:vs]
+
+    def library():
+        owned = (ids >= 0) & (ids < vs)
+        dst = torch.where(owned, ids.long(), vs)
+        out = torch.zeros((vs + 1, e), dtype=torch.float32, device=dev)
+        return out.index_copy_(0, dst, rows.float())[:vs]
+
+    return {"kernel": lambda: ops.embed_scatter_add(ids, rows, vs),
+            "dump_row": dump_row, "library": library}
+
+
 def phase_kernels(dev) -> dict:
     ops.reset_launch_counts()
     gen = torch.Generator(device=dev)
@@ -346,80 +416,132 @@ def phase_kernels(dev) -> dict:
               f"{want.dtype}{tuple(want.shape)}")
         err = float((got.float() - want.float()).abs().max()) \
             if got.numel() else 0.0
-        check(torch.equal(got, want), f"{kernel}/{case}: not bitwise equal "
-              f"to the plain version (max abs err {err})")
+        check(torch.equal(_bits(got), _bits(want)),
+              f"{kernel}/{case}: not bitwise equal to the plain version "
+              f"(max abs err {err})")
         errs[kernel] = max(errs[kernel], err)
         cases.append(f"{kernel}/{case}")
+
+    def hold_gather(case, table, ids, off):
+        route = ops.gather_route(table.shape[1] * table.element_size(),
+                                 table.data_ptr())
+        bulk0 = ops.embed_gather.launches_bulk
+        got = ops.embed_gather(table, ids, off)
+        check(ops.embed_gather.launches_bulk - bulk0 == (route == "bulk"),
+              f"embed_gather/{case}: not launched on its {route} route")
+        hold("embed_gather", f"{case}_{route}", got,
+             ref.embed_gather_ref(table, ids, off))
 
     for case, table, ids, off in (
             ("main_bf16", t16, uids, 0), ("main_f32", t32, uids, 0),
             ("row_offset_bf16", t16, off_ids, 400_000),
             ("row_offset_f32", t32, off_ids, 400_000),
             ("narrow_e100_bf16", small16, small_ids, 0),
-            ("narrow_e100_f32", small32, small_ids, 0)):
-        hold("embed_gather", case, ops.embed_gather(table, ids, off),
-             ref.embed_gather_ref(table, ids, off))
+            ("narrow_e100_f32", small32, small_ids, 0),
+            ("misaligned_bf16", _misaligned(t16), uids, 0),
+            ("misaligned_f32", _misaligned(t32), uids, 0)):
+        hold_gather(case, table, ids, off)
+    # E = 100 in bf16 and the two misaligned tables; E = 100 in f32 (400 B
+    # rows) is whole 16-byte units
+    check(sum(c.endswith("_element") for c in cases) == 3,
+          f"embed_gather: the element route took {cases}")
+    torch.cuda.empty_cache()
 
     rows32 = torch.randn((n, E), generator=gen, device=dev)
     edge_ids = _unique_sorted(rng, n, -VOCAB // 4, VOCAB + VOCAB // 4, dev)
     small_rows32 = torch.randn((300, 100), generator=gen, device=dev)
     small_sc_ids = _unique_sorted(rng, 300, -100, 1100, dev)
+    shuffled = uids[torch.randperm(n, generator=gen, device=dev)]
+    signed_zero = rows32.clone()
+    signed_zero[::3, ::5] = -0.0
+    few = torch.from_numpy(rng.permutation(np.arange(-4, 12))
+                           .astype(np.int32)).to(dev)
     for case, ids, rows, vs in (
             ("main_bf16", uids, rows32.to(torch.bfloat16), VOCAB),
             ("main_f32", uids, rows32, VOCAB),
             ("unowned_bf16", edge_ids, rows32.to(torch.bfloat16), VOCAB),
             ("unowned_f32", edge_ids, rows32, VOCAB),
+            # a ps shard at M = 8 that owns none of the ids
+            ("no_owned_id_m8", uids + VOCAB // 8, rows32, VOCAB // 8),
+            # a shard at M = 2 owning about half of 2,560 spread ids
+            ("half_owned_m2", _unique_sorted(rng, n, 0, VOCAB, dev),
+             rows32.to(torch.bfloat16), VOCAB // 2),
+            ("out_of_order_bf16", shuffled, rows32.to(torch.bfloat16),
+             VOCAB),
+            ("negative_zero_f32", uids, signed_zero, VOCAB),
+            ("vs_below_a_block", few, rows32[:16], 5),
             ("narrow_e100_bf16", small_sc_ids,
              small_rows32.to(torch.bfloat16), 1000),
             ("narrow_e100_f32", small_sc_ids, small_rows32, 1000)):
-        hold("embed_scatter_add", case, ops.embed_scatter_add(ids, rows, vs),
+        fused0 = ops.embed_scatter_add.launches_fused
+        got = ops.embed_scatter_add(ids, rows, vs)
+        check(ops.embed_scatter_add.launches_fused - fused0 == 1,
+              f"embed_scatter_add/{case}: not on the one-pass kernel")
+        hold("embed_scatter_add", case, got,
              ref.embed_scatter_add_ref(ids, rows, vs))
-    del t32, rows32
+    del t32, rows32, signed_zero
+    torch.cuda.empty_cache()
 
     # ---- timing at the main path's shapes: bf16 table, bf16 wire rows ----
     timer = Timer(dev)
+    floor = _build.load("launch_floor")
+    floor_ms = timer.ms(
+        lambda: floor(torch.cuda.current_stream(dev).cuda_stream))
     owned = int(((uids >= 0) & (uids < VOCAB)).sum())
     clamped = uids.long().clamp(0, VOCAB - 1)
     g_bytes = (owned + n) * E * 2 + 4 * n
     gather = {
         "kernel_ms": timer.ms(lambda: ops.embed_gather(t16, uids, 0)),
+        # PR 11's kernel, the element route, on the same inputs
+        "element_ms": timer.ms(lambda: ops.gather_element(t16, uids, 0)),
         "plain_ms": timer.ms(lambda: ref.embed_gather_ref(t16, uids, 0)),
         # index_select reads a (clamped) row for every id and zeroes none:
         # the nearest single PyTorch call, timed only
         "library_ms": timer.ms(lambda: torch.index_select(t16, 0, clamped)),
+        "floor_ms": floor_ms,
         "bytes": g_bytes, "bound_ms": bound_ms(g_bytes),
     }
     rows16 = torch.randn((n, E), generator=gen, device=dev).to(torch.bfloat16)
-    out = torch.zeros((VOCAB + 1, E), dtype=torch.float32, device=dev)
-    dst = torch.where((uids >= 0) & (uids < VOCAB), uids.long(),
-                      torch.full_like(uids, VOCAB, dtype=torch.long))
-    rows16_f32 = rows16.float()
-    s_bytes = n * E * 2 + 4 * n + owned * E * 4
+    fns = _scatter_fns(uids, rows16, VOCAB, E)
+    # the function's bytes: every output byte written once, rows and ids
+    # read once
+    s_bytes = VOCAB * E * 4 + n * E * 2 + 4 * n
+    all_owned = torch.from_numpy(rng.permutation(VOCAB)[:n]
+                                 .astype(np.int32)).to(dev)
+    none_owned = all_owned + VOCAB
+    dump_buf = torch.zeros((VOCAB + 1, E), dtype=torch.float32, device=dev)
     scatter = {
-        # the kernel alone, into a zeroed (Vs + 1, E) buffer (its bound
-        # excludes the wrapper's 1.64 GB zero fill)
-        "kernel_ms": timer.ms(
-            lambda: ops.scatter_into(uids, rows16, out, VOCAB)),
-        # the wrapper as the main path calls it: zero fill + kernel
-        "wrapper_ms": timer.ms(
-            lambda: ops.embed_scatter_add(uids, rows16, VOCAB)),
+        "kernel_ms": timer.ms(fns["kernel"]),
+        # PR 11's function: zero fill, dump-row kernel, slice
+        "dump_row_ms": timer.ms(fns["dump_row"]),
+        # the dump-row kernel alone, into a buffer zeroed outside the timing
+        "dump_row_kernel_ms": timer.ms(
+            lambda: ops.scatter_into(uids, rows16, dump_buf, VOCAB)),
         "plain_ms": timer.ms(
             lambda: ref.embed_scatter_add_ref(uids, rows16, VOCAB)),
-        # index_copy_ into the same zeroed buffer, rows pre-widened: timed
-        # only
-        "library_ms": timer.ms(lambda: out.index_copy_(0, dst, rows16_f32)),
+        "library_ms": timer.ms(fns["library"]),
+        # the write rate the card gives a plain fill of the same output
+        "fill_ms": timer.ms(
+            lambda: torch.zeros((VOCAB, E), dtype=torch.float32,
+                                device=dev)),
+        # the dump-row test: 2,560 ids all owned, then none
+        "all_owned_ms": timer.ms(
+            lambda: ops.embed_scatter_add(all_owned, rows16, VOCAB)),
+        "none_owned_ms": timer.ms(
+            lambda: ops.embed_scatter_add(none_owned, rows16, VOCAB)),
+        "floor_ms": floor_ms,
         "bytes": s_bytes, "bound_ms": bound_ms(s_bytes),
-        "fill_bytes": (VOCAB + 1) * E * 4,
-        "fill_bound_ms": bound_ms((VOCAB + 1) * E * 4),
     }
-    del t16, out, rows16, rows16_f32
+    del t16, dump_buf, rows16
+    torch.cuda.empty_cache()
     gather["shape"] = (f"parallax-lm: table ({VOCAB}, {E}) bf16, {n} ids "
-                       "(one training step's dedupe buffer)")
-    scatter["shape"] = gather["shape"]
-    gather_serve = _serve_gather(dev, gen, timer, hold, "phi3-medium-14b",
-                                 _serve_ids(dev), "serve")
-    gather_rwkv = _serve_gather(dev, gen, timer, hold, RWKV, _rwkv_ids(dev),
-                                "rwkv")
+                       f"({owned} owned; one training step's dedupe buffer)")
+    scatter["shape"] = (f"parallax-lm: ({VOCAB}, {E}) f32 gradient from "
+                        f"{n} bf16 rows ({owned} owned)")
+    gather_serve = _serve_gather(dev, gen, timer, hold_gather,
+                                 "phi3-medium-14b", _serve_ids(dev), "serve")
+    gather_rwkv = _serve_gather(dev, gen, timer, hold_gather, RWKV,
+                                _rwkv_ids(dev), "rwkv")
     flash = _flash_kernels(dev, gen, timer, errs, cases)
     wkv = _wkv_kernels(dev, gen, timer, errs, cases)
     res = {"phase": "kernels", "cases": cases, "n_ids": n, "owned": owned,
@@ -468,22 +590,21 @@ def _rwkv_ids(dev) -> dict:
     return out
 
 
-def _serve_gather(dev, gen, timer: Timer, hold, arch: str, ids: dict,
-                  tag: str) -> dict:
+def _serve_gather(dev, gen, timer: Timer, hold_gather, arch: str,
+                  ids: dict, tag: str) -> dict:
     """embed_gather at a serve path's shapes: ``arch``'s table (phi3-
     medium-14b's (100,352, 5,120), rwkv6-7b's (65,536, 4,096)) in bf16 (the
-    served dtype) and f32, held bit for bit against its plain version;
-    kernel, plain and library times of the bf16 prefill and decode lookups
-    beside their byte bounds."""
+    served dtype) and f32, held bit for bit against its plain version on
+    the route ``ops.gather_route`` gives it; kernel, element-route, plain
+    and library times of the bf16 prefill and decode lookups beside their
+    byte bounds."""
     cfg = get_config(arch)
     vs, d = cfg.vocab_size, cfg.d_model
     t32 = torch.randn((vs, d), generator=gen, device=dev)
     t16 = t32.to(torch.bfloat16)
     for case, uids in ids.items():
         for tname, table in (("bf16", t16), ("f32", t32)):
-            hold("embed_gather", f"{tag}_{case}_{tname}",
-                 ops.embed_gather(table, uids, 0),
-                 ref.embed_gather_ref(table, uids, 0))
+            hold_gather(f"{tag}_{case}_{tname}", table, uids, 0)
     del t32
     res = {}
     for case, uids in ids.items():
@@ -495,6 +616,8 @@ def _serve_gather(dev, gen, timer: Timer, hold, arch: str, ids: dict,
             "shape": f"{arch}: table ({vs}, {d}) bf16, {n} ids "
                      f"({owned} owned)",
             "kernel_ms": timer.ms(lambda: ops.embed_gather(t16, uids, 0)),
+            "element_ms": timer.ms(
+                lambda: ops.gather_element(t16, uids, 0)),
             "plain_ms": timer.ms(lambda: ref.embed_gather_ref(t16, uids, 0)),
             "library_ms": timer.ms(
                 lambda: torch.index_select(t16, 0, clamped)),
@@ -854,28 +977,42 @@ def _wkv_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
 
 
 def phase_parity() -> None:
+    """Reduced parallax-lm at f32 on the CPU and on the card, the default
+    RunConfig and local_agg=False (the no-LA ablation: the raw token stream
+    is pushed through the plain accumulating scatter on both devices)."""
     cfg = reduced(get_config("parallax-lm"))
     shape = ShapeConfig("parity", 16, 4, "train")
-    rc = RunConfig(param_dtype="float32", compute_dtype="float32")
-    cpu = get_runner(cfg, shape, rc, seed=0, device="cpu")
-    params = {k: p.detach().clone()
-              for k, p in named_parameters(cpu.model).items()}
-    gpu = get_runner(cfg, shape, rc, device="cuda",
-                     params={k: p.to("cuda") for k, p in params.items()})
     ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch)
-    rows = []
-    for i in range(3):
-        b = ds.batch(i)
-        mc, mg = cpu.run(b), gpu.run(b)
-        lc, lg = float(mc["loss"]), float(mg["loss"])
-        check(math.isclose(lc, lg, rel_tol=1e-4),
-              f"step {i}: cpu loss {lc} vs card {lg}")
-        for k in ("embed_rows", "embed_unique", "embed_dropped"):
-            check(float(mc[k]) == float(mg[k]),
-                  f"step {i}: {k} cpu {float(mc[k])} vs card {float(mg[k])}")
-        rows.append({"cpu": lc, "cuda": lg, "rel": abs(lc - lg) / abs(lc),
-                     "embed_unique": float(mg["embed_unique"])})
-    emit({"phase": "parity", "steps": rows})
+    out = {}
+    for name, la in (("local_agg", True), ("no_local_agg", False)):
+        rc = RunConfig(param_dtype="float32", compute_dtype="float32",
+                       local_agg=la)
+        cpu = get_runner(cfg, shape, rc, seed=0, device="cpu")
+        params = {k: p.detach().clone()
+                  for k, p in named_parameters(cpu.model).items()}
+        gpu = get_runner(cfg, shape, rc, device="cuda",
+                         params={k: p.to("cuda") for k, p in params.items()})
+        rows = []
+        ops.reset_launch_counts()
+        for i in range(3):
+            b = ds.batch(i)
+            mc, mg = cpu.run(b), gpu.run(b)
+            lc, lg = float(mc["loss"]), float(mg["loss"])
+            check(math.isclose(lc, lg, rel_tol=1e-4),
+                  f"{name} step {i}: cpu loss {lc} vs card {lg}")
+            for k in ("embed_rows", "embed_unique", "embed_dropped"):
+                check(float(mc[k]) == float(mg[k]),
+                      f"{name} step {i}: {k} cpu {float(mc[k])} vs card "
+                      f"{float(mg[k])}")
+            rows.append({"cpu": lc, "cuda": lg, "rel": abs(lc - lg) / abs(lc),
+                         "embed_unique": float(mg["embed_unique"])})
+        counts = ops.launch_counts()
+        want = 3 if la else 0      # no-LA pushes through the plain scatter
+        check(counts["embed_scatter_add"] == want
+              and counts["embed_gather"] == 3,
+              f"{name}: launches {counts}")
+        out[name] = rows
+    emit({"phase": "parity", **out})
 
 
 def _prompts(rng, lens, vocab: int) -> list:
@@ -1096,6 +1233,9 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     check(counts["embed_gather"] == prefills + steps,
           f"embed_gather launched {counts['embed_gather']} times in "
           f"{prefills} prefills + {steps} decode steps")
+    check(counts["embed_gather_bulk"] == counts["embed_gather"],
+          f"{counts['embed_gather'] - counts['embed_gather_bulk']} of "
+          f"{counts['embed_gather']} gathers missed the bulk route")
     ttft = sorted(r.ttft for r in done.values())
     # decode over the counted window: every token after a request's first
     # comes from a decode step, with later requests' prefills interleaved
@@ -1187,6 +1327,9 @@ def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     check(counts["embed_gather"] == device_steps,
           f"embed_gather launched {counts['embed_gather']} times in "
           f"{device_steps} device steps")
+    check(counts["embed_gather_bulk"] == counts["embed_gather"],
+          f"{counts['embed_gather'] - counts['embed_gather_bulk']} of "
+          f"{counts['embed_gather']} gathers missed the bulk route")
     ttft = sorted(r.ttft for r in done.values())
     tokens = sum(len(r.out_tokens) for r in done.values())
     window_s = (max(r.token_times[-1] for r in done.values())
@@ -1211,6 +1354,11 @@ def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
           f"a {RWKV_PREFILL}-token prefill launched wkv "
           f"{prefill_counts['wkv']} times, {prefill_counts['wkv_tc']} on "
           "the tensor-core route")
+    check(prefill_counts["embed_gather"] == 1
+          and prefill_counts["embed_gather_bulk"] == 1,
+          f"a {RWKV_PREFILL}-token prefill gathered "
+          f"{prefill_counts['embed_gather']} times, "
+          f"{prefill_counts['embed_gather_bulk']} on the bulk route")
     check(tuple(logits.shape) == (1, RWKV_PREFILL, cfg.vocab_size)
           and bool(torch.isfinite(logits).all())
           and all(bool(torch.isfinite(c).all()) for c in carry),
@@ -1244,11 +1392,13 @@ def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     return res
 
 
-def phase_main(dev, steps: int = 10) -> dict:
+def _train(dev, rc: RunConfig, steps: int) -> dict:
+    """``steps`` full-width parallax-lm steps on the card under ``rc``, the
+    launch counts set to 0 just before them and read just after."""
     cfg = get_config("parallax-lm")
     shape = ShapeConfig("lm1b", seq_len=SEQ, global_batch=BATCH, kind="train")
     t0 = time.perf_counter()
-    runner = get_runner(cfg, shape, RunConfig(), device="cuda")
+    runner = get_runner(cfg, shape, rc, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     ds = SyntheticLM(cfg.vocab_size, SEQ, BATCH)
@@ -1265,18 +1415,48 @@ def phase_main(dev, steps: int = 10) -> dict:
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    med = statistics.median(step_ms)
+    return {"arch": cfg.name, "tokens_per_step": shape.tokens,
+            "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+            "tokens_per_s": shape.tokens / (med / 1e3),
+            "max_memory_allocated": peak, "launches": counts,
+            "setup_s": build_s,
+            "nvidia_smi": nvidia_smi(
+                "clocks.sm,power.draw,power.limit,temperature.gpu")}
+
+
+def phase_main(dev, steps: int = 10) -> dict:
+    res = {"phase": "main", **_train(dev, RunConfig(), steps)}
+    losses, counts = res["losses"], res["launches"]
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     for k in PATH_KERNELS["main"]:
         check(counts[k] == steps,
               f"{k} launched {counts[k]} times in {steps} steps")
-    med = statistics.median(step_ms)
-    res = {"phase": "main", "arch": cfg.name, "tokens_per_step": shape.tokens,
-           "losses": losses, "step_ms": step_ms, "median_step_ms": med,
-           "tokens_per_s": shape.tokens / (med / 1e3),
-           "max_memory_allocated": peak, "launches": counts,
-           "setup_s": build_s,
-           "nvidia_smi": nvidia_smi(
-               "clocks.sm,power.draw,power.limit,temperature.gpu")}
+    check(counts["embed_gather_bulk"] == steps
+          and counts["embed_scatter_add_fused"] == steps,
+          f"main: {counts['embed_gather_bulk']} of {steps} gathers on the "
+          f"bulk route, {counts['embed_scatter_add_fused']} of {steps} "
+          "scatters on the one-pass kernel")
+    emit(res)
+    return res
+
+
+def phase_main_no_la(dev, steps: int = 3) -> dict:
+    """The no-LA ablation at full width: RunConfig(local_agg=False) pushes
+    the raw 2,560-token stream, whose ids repeat, through the plain
+    accumulating scatter (no kernel launch); the pull still gathers on the
+    bulk route."""
+    res = {"phase": "main_no_la",
+           **_train(dev, RunConfig(local_agg=False), steps)}
+    counts = res["launches"]
+    check(counts["embed_scatter_add"] == 0,
+          f"no-LA launched embed_scatter_add {counts['embed_scatter_add']} "
+          "times: repeated ids must take the plain scatter")
+    check(counts["embed_gather"] == steps
+          and counts["embed_gather_bulk"] == steps,
+          f"no-LA gathers: {counts['embed_gather']} launches, "
+          f"{counts['embed_gather_bulk']} on the bulk route, in {steps} "
+          "steps")
     emit(res)
     return res
 
@@ -1294,6 +1474,8 @@ def main() -> None:
     phase_rwkv_recurrence(dev)
     torch.cuda.empty_cache()
     paths = {"main": phase_main(dev)["launches"]}
+    torch.cuda.empty_cache()
+    paths["main_no_la"] = phase_main_no_la(dev)["launches"]
     torch.cuda.empty_cache()
     serve = phase_serve(dev)
     paths["serve"] = serve["launches"]
@@ -1323,8 +1505,20 @@ def main() -> None:
                      "library_ms": k["library_ms"],
                      "timed_at": k["shape"]})
         if name == "embed_gather":
+            rows[-1]["launches_bulk"] = {
+                p: c["embed_gather_bulk"] for p, c in paths.items()
+                if name in PATH_KERNELS[p]}
+            rows[-1].update({key: k[key] for key in ("element_ms",
+                                                     "floor_ms")})
             rows[-1]["serve_shapes"] = kern["embed_gather_serve"]
             rows[-1]["rwkv_shapes"] = kern["embed_gather_rwkv"]
+        if name == "embed_scatter_add":
+            rows[-1]["launches_fused"] = {
+                p: c["embed_scatter_add_fused"] for p, c in paths.items()
+                if name in PATH_KERNELS[p]}
+            rows[-1].update({key: k[key] for key in (
+                "dump_row_ms", "dump_row_kernel_ms", "fill_ms",
+                "all_owned_ms", "none_owned_ms", "floor_ms")})
         if name in ("wkv", "wkv_tc", "wkv_step"):
             rows[-1].update({key: k[key] for key in (
                 "host_ms_per_call", "scalar_kernel_ms", "ops_bound_ms",

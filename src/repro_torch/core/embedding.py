@@ -7,7 +7,8 @@ device (the port of ``repro/core/embedding.py``, its ``mesh=None`` path).
   pull (forward): the embed_gather kernel fetches the deduped rows, then a
       take through the inverse map expands them to tokens.
   push (backward): the embed_scatter_add kernel writes the aggregated rows
-      into the (Vs, E) f32 table gradient.
+      into the (Vs, E) f32 table gradient; without local aggregation the
+      repeated ids take the plain accumulating scatter.
 
 Static-shape buffer: the dedupe buffer has ``capacity`` rows; ``exact``
 capacity (the local token count) never drops, ``capped`` may, and overflow
@@ -86,14 +87,13 @@ def dedupe(ids_flat: torch.Tensor, capacity: int, vocab_padded: int,
 def _scatter_rows(local_ids: torch.Tensor, rows: torch.Tensor, vs: int,
                   ctx: EmbedCtx) -> torch.Tensor:
     """Owner-local push into the (Vs, E) f32 gradient. The kernel takes
-    unique ids only (the dedupe buffer); the raw token stream of
-    local_agg=False repeats ids and has no kernel yet."""
+    unique ids only (the dedupe buffer). The raw token stream of
+    local_agg=False repeats ids, so on every device it takes the
+    accumulating plain scatter, as the reference takes its jnp oracle there
+    (``repro/core/embedding.py::_scatter_rows``); on the card its index_add_
+    adds repeats with atomics, in an order that varies from run to run."""
     if ctx.local_agg:
         return ops.embed_scatter_add(local_ids, rows, vs)
-    if rows.device.type != "cpu":
-        raise NotImplementedError(
-            "local_agg=False on the card: the scatter of repeated ids "
-            "comes with ps_gather / mpi_gatherv in ROADMAP slice 2")
     return ref.embed_scatter_add_ref(local_ids, rows, vs)
 
 

@@ -9,11 +9,12 @@ a plain C interface:
 into ``build/repro_torch/`` at the repository root (listed in .gitignore).
 The file name carries a hash of the source, of every local header it
 includes (``#include "..."``, followed recursively) and of the flags, so a
-second run skips the build. The tensor-core kernel reaches the driver's
+second run skips the build. The tensor-core kernels reach the driver's
 ``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``, so no
-library links ``-lcuda`` (``wkv_tc`` copies rows with bulk copies and needs
-no tensor map). Builds happen at first use — never at import —
-and ``build_all`` starts one ``nvcc`` per source, all together.
+library links ``-lcuda`` (``embed_gather_bulk`` copies whole rows with 1-D
+bulk copies and needs no tensor map). Builds happen at first use — never
+at import — and ``build_all`` starts one ``nvcc`` per source, all
+together.
 """
 from __future__ import annotations
 
@@ -40,8 +41,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 KERNELS = {
     "embed_gather": ("embed_gather.cu", "repro_embed_gather",
                      (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # table, ids, out; n, vs, row bytes, row offset; stream
+    "embed_gather_bulk": ("embed_gather_bulk.cu", "repro_embed_gather_bulk",
+                          (_P, _P, _P, _I, _I, _I, _I, _P)),
     "embed_scatter_add": ("embed_scatter.cu", "repro_embed_scatter_add",
                           (_P, _P, _P, _I, _I, _I, _I, _P)),
+    # ids, rows, out; n, vs, e, itemsize, rows per block, blocks; stream
+    "embed_scatter_fused": ("embed_scatter_fused.cu",
+                            "repro_embed_scatter_fused",
+                            (_P, _P, _P) + (_I,) * 6 + (_P,)),
+    # an empty kernel: the launch floor chip_smoke.py times the others by
+    "launch_floor": ("launch_floor.cu", "repro_launch_floor", (_P,)),
     # q, k, v, o; b, sq, sk, h, d, itemsize, causal; 12 strides; scale; stream
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         (_P, _P, _P, _P) + (_I,) * 19 + (_F, _P)),

@@ -1,5 +1,9 @@
-// embed_gather — the PS pull (forward of the sparse embedding lookup) on
-// Hopper (sm_90a).
+// embed_gather, element route — the PS pull (forward of the sparse
+// embedding lookup) on Hopper (sm_90a), a thread per 16-byte unit or per
+// element. kernels/ops.py::gather_route sends rows here that the bulk route
+// (csrc/embed_gather_bulk.cu) does not take: rows that are not whole 16-byte
+// units (E = 100 in bf16), wider than 32 KB, or of a table whose base is off
+// a 16-byte boundary.
 //
 // Replaces the TPU kernel src/repro/kernels/embed_gather.py::embed_gather
 // (pallas_call body _gather_kernel): out[i] = table[ids[i] - row_offset]

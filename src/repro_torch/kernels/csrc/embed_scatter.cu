@@ -1,5 +1,8 @@
-// embed_scatter_add — the PS push (backward of the sparse embedding lookup)
-// on Hopper (sm_90a).
+// embed_scatter_add, dump-row kernel — the first port of the PS push
+// (backward of the sparse embedding lookup) on Hopper (sm_90a). No path
+// launches it any more: csrc/embed_scatter_fused.cu writes the whole
+// gradient in one pass. It stays built so that chip_smoke.py can time it
+// beside that kernel (kernels/ops.py::scatter_into).
 //
 // Replaces the TPU kernel src/repro/kernels/embed_scatter.py::
 // embed_scatter_add (pallas_call body _scatter_kernel): out[ids[i]] =

@@ -2,7 +2,8 @@
 // kernels, as inline PTX: mbarriers, TMA tile loads (and the host's
 // tensor-map encoder), wgmma descriptors and the two wgmma shapes
 // flash_attention_tc.cu issues, setmaxnreg, and the warp-level ldmatrix,
-// mma.sync m16n8k16 and named barriers that wkv_tc.cu uses.
+// mma.sync m16n8k16 and named barriers that wkv_tc.cu uses, and the 1-D
+// bulk copies (no tensor map) that embed_gather_bulk.cu moves rows with.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows of 64 bf16 (128 B each) is stored in 1,024-byte atoms of 8 rows,
@@ -80,6 +81,44 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
 __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(
                    reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- 1-D bulk copies -------------------------------------------------------
+//
+// A contiguous run of bytes between device memory and shared memory through
+// the TMA unit, with no tensor map: both addresses 16-byte aligned, the size
+// a multiple of 16.
+
+// ``bytes`` from global ``src`` into shared ``dst``, completing on ``bar``
+// (announce them first with mbar_expect_tx)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ``bytes`` from shared ``src`` to global ``dst``, in this thread's open
+// bulk group (closed by bulk_commit)
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's newest bulk groups still read their
+// shared memory: the sources of the older ones may be overwritten
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
 }
 
 // orders this thread's earlier generic-proxy writes of shared memory before

@@ -19,6 +19,14 @@ from repro_torch.kernels import _build, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
+# embed_gather's bulk route (csrc/embed_gather_bulk.cu) moves rows of 16 B
+# to 32 KB that are whole 16-byte units; a block of the one-pass scatter
+# (csrc/embed_scatter_fused.cu) writes about 64 KB and maps at most 8,192
+# rows in shared memory
+_GATHER_BULK_MAX_ROW = 32768
+_SCATTER_BLOCK_BYTES = 65536
+_SCATTER_MAX_ROWS = 8192
+
 
 _FLASH_DIMS = (16, 32, 64, 128)
 _FLASH_TC_DIMS = (64, 128)
@@ -29,7 +37,9 @@ _WKV_MAX_CHUNK = 64
 
 def reset_launch_counts() -> None:
     embed_gather.launches = 0
+    embed_gather.launches_bulk = 0
     embed_scatter_add.launches = 0
+    embed_scatter_add.launches_fused = 0
     flash_attention.launches = 0
     flash_attention.launches_tc = 0
     wkv.launches = 0
@@ -39,10 +49,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """Launches per kernel, and per route where a wrapper has several
-    (``flash_attention_tc``; ``wkv_tc`` and ``wkv_step``, each also counted
-    in its wrapper's total)."""
+    (``embed_gather_bulk``; ``embed_scatter_add_fused``;
+    ``flash_attention_tc``; ``wkv_tc`` and ``wkv_step``), each route also
+    counted in its wrapper's total."""
     return {"embed_gather": embed_gather.launches,
+            "embed_gather_bulk": embed_gather.launches_bulk,
             "embed_scatter_add": embed_scatter_add.launches,
+            "embed_scatter_add_fused": embed_scatter_add.launches_fused,
             "flash_attention": flash_attention.launches,
             "flash_attention_tc": flash_attention.launches_tc,
             "wkv": wkv.launches,
@@ -60,11 +73,26 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+def gather_route(row_bytes: int, table_ptr: int) -> str:
+    """Which CUDA kernel ``embed_gather`` launches, from the row's bytes and
+    the table's address alone: "bulk" (csrc/embed_gather_bulk.cu: each row
+    one TMA bulk copy in and one out) for rows of 16 B to 32 KB that are
+    whole 16-byte units of a 16-byte aligned table — every full-width
+    table of the repo's models; "element" (csrc/embed_gather.cu: a thread
+    per 16-byte unit or per element) otherwise, e.g. E = 100 in bf16 or a
+    view whose base is off a 16-byte boundary."""
+    return "bulk" if (row_bytes % 16 == 0
+                      and 16 <= row_bytes <= _GATHER_BULK_MAX_ROW
+                      and table_ptr % 16 == 0) else "element"
+
+
 def embed_gather(table_shard: torch.Tensor, ids: torch.Tensor,
                  row_offset: int = 0) -> torch.Tensor:
     """table_shard (Vs, E) bf16|f32; ids (N,) int32 global ids -> (N, E)
     owned rows in the table dtype, zeros for ids outside
-    [row_offset, row_offset + Vs)."""
+    [row_offset, row_offset + Vs). ``gather_route`` picks the kernel; both
+    count in ``embed_gather.launches``, the bulk route also in
+    ``embed_gather.launches_bulk``."""
     _check(table_shard.dim() == 2, f"table must be 2-D, got "
            f"{tuple(table_shard.shape)}")
     _check(table_shard.dtype in _DTYPES,
@@ -81,6 +109,36 @@ def embed_gather(table_shard: torch.Tensor, ids: torch.Tensor,
     _check(table_shard.is_contiguous() and ids.is_contiguous(),
            "embed_gather takes contiguous tensors")
     vs, e = table_shard.shape
+    row_bytes = e * table_shard.element_size()
+    if gather_route(row_bytes, table_shard.data_ptr()) == "element":
+        return gather_element(table_shard, ids, row_offset)
+    n = ids.shape[0]
+    out = torch.empty((n, e), dtype=table_shard.dtype,
+                      device=table_shard.device)
+    fn = _build.load("embed_gather_bulk")
+    stream = torch.cuda.current_stream(table_shard.device).cuda_stream
+    err = fn(table_shard.data_ptr(), ids.data_ptr(), out.data_ptr(), n, vs,
+             row_bytes, int(row_offset), stream)
+    _raise_on(err, "embed_gather (bulk route)")
+    embed_gather.launches_bulk += 1
+    embed_gather.launches += 1
+    return out
+
+
+def gather_element(table_shard: torch.Tensor, ids: torch.Tensor,
+                   row_offset: int = 0) -> torch.Tensor:
+    """``embed_gather``'s element route on contiguous CUDA tensors, whatever
+    the row's shape: the route for rows the bulk kernel does not take, and
+    the way chip_smoke.py times this kernel beside the bulk one. Counts as
+    a launch of ``embed_gather``."""
+    _check(table_shard.is_cuda and ids.device == table_shard.device
+           and table_shard.dim() == 2 and table_shard.dtype in _DTYPES
+           and table_shard.is_contiguous(),
+           "gather_element takes a contiguous (Vs, E) bf16|f32 CUDA table")
+    _check(ids.dim() == 1 and ids.dtype == torch.int32
+           and ids.is_contiguous(),
+           "gather_element takes contiguous (N,) int32 ids")
+    vs, e = table_shard.shape
     n = ids.shape[0]
     out = torch.empty((n, e), dtype=table_shard.dtype,
                       device=table_shard.device)
@@ -88,16 +146,35 @@ def embed_gather(table_shard: torch.Tensor, ids: torch.Tensor,
     stream = torch.cuda.current_stream(table_shard.device).cuda_stream
     err = fn(table_shard.data_ptr(), ids.data_ptr(), out.data_ptr(), n, vs,
              e, table_shard.element_size(), int(row_offset), stream)
-    _raise_on(err, "embed_gather")
+    _raise_on(err, "embed_gather (element route)")
     embed_gather.launches += 1
     return out
+
+
+def scatter_partition(vs: int, e: int, n: int) -> tuple:
+    """The one-pass scatter's cut of [0, Vs) for (N, E) pushed rows:
+    (rows per block R, grid G). R gives a block about 64 KB of f32 output,
+    or more when N is large, so that no block reads more id bytes than a
+    quarter of what it writes; at most 8,192 rows (the block's map). Block
+    b writes rows [b * R, min((b + 1) * R, Vs)): the ranges cover [0, Vs)
+    once, the last one ragged, and none is empty. G is 0 for Vs = 0."""
+    _check(vs >= 0 and e >= 1 and n >= 0,
+           f"scatter_partition needs vs >= 0, e >= 1, n >= 0, got {vs}, "
+           f"{e}, {n}")
+    row_bytes = 4 * e
+    per_block = max(_SCATTER_BLOCK_BYTES // row_bytes,
+                    -(-16 * n // row_bytes), 1)
+    per_block = min(per_block, _SCATTER_MAX_ROWS)
+    return per_block, -(-vs // per_block)
 
 
 def embed_scatter_add(ids: torch.Tensor, rows: torch.Tensor,
                       vs: int) -> torch.Tensor:
     """ids (N,) int32 local-space ids, unique among owned rows (the dedupe
-    buffer); rows (N, E) bf16|f32 -> (Vs, E) f32 gradient rows, zeros where
-    no id lands. Unowned ids are dropped."""
+    buffer; in any order); rows (N, E) bf16|f32 -> (Vs, E) f32 gradient
+    rows, zeros where no id lands. Unowned ids are dropped. One launch
+    (csrc/embed_scatter_fused.cu) writes every row of the output once;
+    counts in ``embed_scatter_add.launches`` and ``.launches_fused``."""
     _check(rows.dim() == 2, f"rows must be 2-D, got {tuple(rows.shape)}")
     _check(rows.dtype in _DTYPES, f"rows dtype {rows.dtype} not in {_DTYPES}")
     _check(ids.dim() == 1 and ids.dtype == torch.int32
@@ -115,18 +192,26 @@ def embed_scatter_add(ids: torch.Tensor, rows: torch.Tensor,
     _check(rows.is_contiguous() and ids.is_contiguous(),
            "embed_scatter_add takes contiguous tensors")
     n, e = rows.shape
-    # the counterpart of the TPU kernel's aliased zeros buffer; row Vs is
-    # the dump row for unowned ids and is dropped below
-    out = torch.zeros((vs + 1, e), dtype=torch.float32, device=rows.device)
-    scatter_into(ids, rows, out, vs)
-    return out[:vs]
+    out = torch.empty((vs, e), dtype=torch.float32, device=rows.device)
+    if out.numel() == 0:
+        return out
+    per_block, grid = scatter_partition(vs, e, n)
+    fn = _build.load("embed_scatter_fused")
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    err = fn(ids.data_ptr(), rows.data_ptr(), out.data_ptr(), n, vs, e,
+             rows.element_size(), per_block, grid, stream)
+    _raise_on(err, "embed_scatter_add (one-pass route)")
+    embed_scatter_add.launches_fused += 1
+    embed_scatter_add.launches += 1
+    return out
 
 
 def scatter_into(ids: torch.Tensor, rows: torch.Tensor, out: torch.Tensor,
                  vs: int) -> None:
-    """The kernel launch alone, into a caller-zeroed contiguous (Vs + 1, E)
-    f32 CUDA buffer: ``embed_scatter_add`` after its zero fill
-    (chip_smoke.py times it on its own). Counts as a launch of
+    """The dump-row kernel (csrc/embed_scatter.cu, the first port of the
+    push) into a caller-zeroed contiguous (Vs + 1, E) f32 CUDA buffer, whose
+    row Vs takes every unowned id: no path calls it; chip_smoke.py times it
+    beside the one-pass kernel. Counts as a launch of
     ``embed_scatter_add``."""
     n, e = rows.shape
     _check(rows.is_cuda and ids.is_cuda and out.device == rows.device
@@ -143,7 +228,7 @@ def scatter_into(ids: torch.Tensor, rows: torch.Tensor, out: torch.Tensor,
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     err = fn(ids.data_ptr(), rows.data_ptr(), out.data_ptr(), n, vs, e,
              rows.element_size(), stream)
-    _raise_on(err, "embed_scatter_add")
+    _raise_on(err, "embed_scatter_add (dump-row kernel)")
     embed_scatter_add.launches += 1
 
 
@@ -332,7 +417,9 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
 
 
 embed_gather.launches = 0
+embed_gather.launches_bulk = 0
 embed_scatter_add.launches = 0
+embed_scatter_add.launches_fused = 0
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 wkv.launches = 0

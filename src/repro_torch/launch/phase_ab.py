@@ -9,7 +9,8 @@ own process, in the order given — parent, change, change, parent — so two
 versions meet the same card, host and power limit in one run. Each process
 runs the banner and then the named phases of that checkout's own
 chip_smoke.py, and its JSON lines are printed prefixed with the checkout.
-Phases: serve, rwkv_serve, main (the paths), kernels. Needs a card.
+Phases: serve, rwkv_serve, main, main_no_la (the paths), kernels. Needs a
+card.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ dev = torch.device("cuda", 0)
 for name in sys.argv[2:]:
     getattr(smoke, "phase_" + name)(dev)
 """
-PHASES = ("serve", "rwkv_serve", "main", "kernels")
+PHASES = ("serve", "rwkv_serve", "main", "main_no_la", "kernels")
 
 
 def main(argv=None) -> None:

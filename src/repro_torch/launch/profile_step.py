@@ -38,8 +38,9 @@ OUT = Path(__file__).resolve().parents[3] / "results" / "profile_step"
 
 # kernel-name fragment -> class, first match wins
 CLASSES = (
-    ("gather_rows", "embed_gather"),
+    ("gather_rows", "embed_gather"), ("gather_bulk", "embed_gather"),
     ("scatter_rows", "embed_scatter_add"),
+    ("scatter_fused", "embed_scatter_add"),
     ("flash_fwd", "flash_attention"),
     ("wkv_fwd", "wkv"), ("wkv_tc", "wkv"), ("wkv_step", "wkv"),
     ("nvjet", "gemm"), ("gemm", "gemm"), ("xmma", "gemm"),

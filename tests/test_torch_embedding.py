@@ -94,14 +94,29 @@ def test_capped_capacity_drops_and_reports():
     assert (got == 8).sum() == 10 and (got == 0).sum() == 6
 
 
-def test_local_agg_off_on_the_card_is_refused():
-    """Repeated ids have no scatter kernel yet: the CPU takes the plain
-    accumulating scatter, any other device raises (ROADMAP slice 2)."""
+def test_local_agg_off_off_the_cpu_takes_the_plain_scatter(monkeypatch):
+    """Repeated ids (the raw token stream of local_agg=False) take the
+    accumulating plain scatter on every device, as the reference takes its
+    jnp oracle there; the unique-id kernel is never called for them."""
     _, tctx = _ctxs("float32", "float32", False, True)
     ids = torch.tensor([1, 1, 2], dtype=torch.int32, device="meta")
     rows = torch.zeros((3, 4), device="meta")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        temb._scatter_rows(ids, rows, 8, tctx)
+    calls = []
+    plain = temb.ref.embed_scatter_add_ref
+
+    def spy(*args):
+        calls.append(args[0].device)
+        return plain(*args)
+
+    def kernel(*_):
+        raise AssertionError("the unique-id kernel took repeated ids")
+
+    monkeypatch.setattr(temb.ref, "embed_scatter_add_ref", spy)
+    monkeypatch.setattr(temb.ops, "embed_scatter_add", kernel)
+    out = temb._scatter_rows(ids, rows, 8, tctx)
+    assert calls == [torch.device("meta")]
+    assert out.device.type == "meta" and tuple(out.shape) == (8, 4)
+    assert out.dtype == torch.float32
 
 
 def test_mesh_methods_are_refused():

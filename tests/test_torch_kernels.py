@@ -97,7 +97,10 @@ def test_cpu_path_does_not_count_launches():
     ids = torch.tensor([0, 3, 9], dtype=torch.int32)
     ops.embed_gather(t, ids)
     ops.embed_scatter_add(ids, torch.ones((3, 8)), 4)
-    assert ops.launch_counts() == {"embed_gather": 0, "embed_scatter_add": 0,
+    assert ops.launch_counts() == {"embed_gather": 0,
+                                   "embed_gather_bulk": 0,
+                                   "embed_scatter_add": 0,
+                                   "embed_scatter_add_fused": 0,
                                    "flash_attention": 0,
                                    "flash_attention_tc": 0, "wkv": 0,
                                    "wkv_tc": 0, "wkv_step": 0}
