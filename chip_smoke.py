@@ -6,7 +6,8 @@
 Phases, one JSON line each; any failure raises, so the script exits non-zero
 and never prints the final line:
 
-  1. banner   torch/CUDA versions, the card and its power limit; TF32 off.
+  1. banner   torch/CUDA versions, the card and its power limit, the
+              process-group backends this torch has; TF32 off.
   2. build    nvcc builds the ten kernel libraries from src/repro_torch/
               kernels/csrc (one process per source, in parallel) into
               build/repro_torch/; -Xptxas -v's registers and spills.
@@ -73,6 +74,24 @@ and never prints the final line:
               one-pass kernel. Then main_no_la: 3 such steps under
               RunConfig(local_agg=False), their pushes through the plain
               scatter (no embed_scatter_add launch), step ms and losses.
+     Then the mesh path (launch/mesh.py ranks, spawned processes):
+     mesh_one_rank: the same 3 first steps through get_runner(...,
+              mesh=make_mesh((1, 1))) over a one-rank NCCL group: the plan
+              (mpi_gatherv), losses equal to main's bit for bit, step ms,
+              peak memory, launches (3 bulk gathers, the push through the
+              plain scatter). mesh_card: 4 ranks on the one card over gloo
+              (NCCL takes one card per rank; gloo stages what it has no
+              CUDA path for through the host, so no time here is a
+              multi-GPU exchange time): (a) reduced parallax-lm at f32 on a
+              (2, 2) mesh, 3 steps under the six flag sets of the
+              reference's correctness test (hybrid, ps, mpi, no LA, no
+              OPAU, no OPSW), losses within 5e-4 + 1e-4 i of the one-device
+              card run on the same batches and the embed_* census the plan
+              implies; (b) full-width parallax-lm, bf16, RunConfig(
+              comm_mode="ps") on (1, 4): each rank holds 200,000 table rows,
+              pulls at row_offset m * 200,000 on the bulk route and pushes
+              through the one-pass scatter, 3 each in 3 steps; losses
+              within rel 1e-2 of main's; per-rank step ms and peak memory.
   9. serve    full-width phi3-medium-14b (40 layers, nothing cut), bf16,
               Server(..., RunConfig(attention_impl="pallas"),
               ServerConfig(max_batch=4, max_seq=2048)) on the card: 8
@@ -97,9 +116,12 @@ and never prints the final line:
               (its ms; 32 wkv launches, all on the tensor-core route), peak
               memory.
 
-Each path (main, main_no_la, serve, rwkv_serve) runs with every launch
-count set to 0 just before it and read just after (rwkv_serve's serve loop
-and its 2,048-token prefill each so, the path's launches their sum).
+Each path (main, main_no_la, mesh_one_rank, mesh_card, serve,
+rwkv_serve) runs with every launch count set to 0 just before it and read
+just after: the mesh phases in each rank's own process (mesh_card's (a)
+and (b) each so, the path's launches their sum, rank 0's), rwkv_serve's
+serve loop and its 2,048-token prefill each so (the path's launches their
+sum).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels' numbers, and last {"ok": true, "device": {...}}.
@@ -133,11 +155,13 @@ from repro_torch.core.transform import (analyze, get_runner,  # noqa: E402
                                         make_prefill_step)
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime.server import (Request, Server,  # noqa: E402
                                         ServerConfig, ToyServer, bucket_len)
 from repro_torch.utils.roofline import HW  # noqa: E402
 from repro_torch.utils.tree import named_parameters  # noqa: E402
+from repro_torch.weights import load_reference_params  # noqa: E402
 
 VOCAB, E, SEQ, BATCH = 800_000, 512, 20, 128      # parallax-lm, lm1b cell
 TIMED_RUNS, WARMUP = 50, 5
@@ -209,8 +233,14 @@ KERNELS = {
 PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 # local_agg=False: repeated ids take the plain scatter
                 "main_no_la": ("embed_gather",),
+                # the 1 x 1 mesh plans mpi_gatherv: its push (repeats
+                # possible in general) takes the plain scatter
+                "mesh_one_rank": ("embed_gather",),
+                # ps on (1, 4): each rank's owner push is one-pass
+                "mesh_card": ("embed_gather", "embed_scatter_add"),
                 "serve": ("embed_gather", "flash_attention"),
                 "rwkv_serve": ("embed_gather", "wkv_tc", "wkv_step")}
+CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
 WKV_ROWS = {"scalar": "wkv", "tc": "wkv_tc", "step": "wkv_step"}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -315,6 +345,8 @@ def phase_banner() -> dict:
         "count": torch.cuda.device_count(),
         "nvidia_smi": nvidia_smi("name,power.limit"),
         "nvcc": compat.nvcc_path(),
+        "backends": {"nccl": compat.nccl_available(),
+                     "gloo": compat.gloo_available()},
         "tf32": [torch.backends.cuda.matmul.allow_tf32,
                  torch.backends.cudnn.allow_tf32],
     }
@@ -1461,6 +1493,214 @@ def phase_main_no_la(dev, steps: int = 3) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the mesh phases: ranks are spawned processes (launch/mesh.py::spawn)
+# ---------------------------------------------------------------------------
+
+def _main_batches(steps: int) -> list:
+    """The main phase's batches (SyntheticLM, seed 0)."""
+    ds = SyntheticLM(get_config("parallax-lm").vocab_size, SEQ, BATCH)
+    return [ds.batch(i) for i in range(steps)]
+
+
+def _timed_steps(runner, batches, dev) -> dict:
+    """Run ``batches`` through ``runner`` with every launch count set to 0
+    just before and read just after: losses, step ms, launches, peak."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms, census = [], [], []
+    ops.reset_launch_counts()
+    for b in batches:
+        t = time.perf_counter()
+        m = runner.run(b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        census.append({k: float(m[k]) for k in CENSUS})
+    return {"losses": losses, "step_ms": step_ms, "census": census,
+            "median_step_ms": statistics.median(step_ms),
+            "launches": ops.launch_counts(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
+def _one_rank(rank: int, world: int, steps: int) -> dict:
+    """Full-width parallax-lm, default RunConfig, on a (1, 1) mesh over a
+    one-rank NCCL group: the same seed and batches as main."""
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    cfg = get_config("parallax-lm")
+    shape = ShapeConfig("lm1b", seq_len=SEQ, global_batch=BATCH,
+                        kind="train")
+    runner = get_runner(cfg, shape, RunConfig(), mesh=mesh)
+    out = _timed_steps(runner, _main_batches(steps), mesh.device)
+    out["plan"] = runner.plan.tables()
+    out["methods"] = runner.plan.methods()
+    out["bucketed"] = runner.plan.bucket_plan is not None
+    return out
+
+
+def phase_mesh_one_rank(main_losses: list, steps: int = 3) -> dict:
+    """The mesh path through a one-rank NCCL group must reproduce main's
+    first ``steps`` losses bit for bit: every collective over a group of
+    one is the identity, and the plan (mpi_gatherv, as the reference
+    plans a 1 x 1 mesh) pushes through the plain scatter, which gives the
+    one-pass kernel's bits for the unique ids of a dedupe buffer."""
+    (res,) = spawn(_one_rank, 1, "nccl", "cuda", args=(steps,),
+                   timeout=600)
+    check(res["plan"]["embed"]["method"] == "mpi_gatherv",
+          f"mesh_one_rank plan {res['plan']}")
+    check(res["losses"] == main_losses[:steps],
+          f"mesh_one_rank losses {res['losses']} vs main "
+          f"{main_losses[:steps]}")
+    counts = res["launches"]
+    check(counts["embed_gather"] == steps
+          and counts["embed_gather_bulk"] == steps
+          and counts["embed_scatter_add"] == 0,
+          f"mesh_one_rank launches {counts}")
+    res = {"phase": "mesh_one_rank", "backend": "nccl", "world": 1,
+           "mesh": [1, 1], "main_losses": main_losses[:steps], **res}
+    emit(res)
+    return res
+
+
+MESH_FLAGS = {"hybrid": {}, "ps": {"comm_mode": "ps"},
+              "mpi": {"comm_mode": "mpi"}, "no_la": {"local_agg": False},
+              "no_opau": {"opau": False}, "no_opsw": {"opsw": False}}
+MESH_F32 = dict(param_dtype="float32", compute_dtype="float32",
+                wire_dtype="float32")
+
+
+def _reduced():
+    return (reduced(get_config("parallax-lm")),
+            ShapeConfig("mesh", 32, 4, "train"))
+
+
+def _reduced_batches() -> list:
+    cfg, shape = _reduced()
+    ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch)
+    return [ds.batch(i) for i in range(3)]
+
+
+def _card_rank(rank: int, world: int, named: dict, steps: int) -> dict:
+    """One of four ranks on the one card over gloo: (a) reduced
+    parallax-lm at f32 on a (2, 2) mesh under the six flag sets; (b)
+    full-width parallax-lm, bf16, comm_mode ps on a (1, 4) mesh."""
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+    cfg, shape = _reduced()
+    out = {"reduced": {}}
+    total = None
+    for name, flags in MESH_FLAGS.items():
+        runner = get_runner(cfg, shape, RunConfig(**MESH_F32, **flags),
+                            mesh=mesh,
+                            params=load_reference_params(named, dev))
+        r = _timed_steps(runner, _reduced_batches(), dev)
+        out["reduced"][name] = {
+            "losses": r["losses"], "launches": r["launches"],
+            "census": r["census"],
+            "method": runner.plan.table_methods["embed"],
+            "bucketed": runner.plan.bucket_plan is not None,
+            "replicas": runner.rt.replicas}
+        total = r["launches"] if total is None else {
+            k: total[k] + v for k, v in r["launches"].items()}
+    del runner
+    torch.cuda.empty_cache()
+    # (b): a new mesh over the same four ranks
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev)
+    full = get_config("parallax-lm")
+    lm1b = ShapeConfig("lm1b", seq_len=SEQ, global_batch=BATCH, kind="train")
+    runner = get_runner(full, lm1b, RunConfig(comm_mode="ps"), mesh=mesh)
+    r = _timed_steps(runner, _main_batches(steps), dev)
+    out["full_ps"] = {**r, "plan": runner.plan.tables(),
+                      "table_shard": list(runner.model.embed.shape),
+                      "model_index": mesh.coords["model"]}
+    out["launches"] = {k: total[k] + v for k, v in r["launches"].items()}
+    return out
+
+
+def _census(tokens: np.ndarray, method: str, bucketed: bool, n: int,
+            local_agg: bool, vocab: int) -> dict:
+    """The census the plan's exchange implies for one global batch: each
+    replica's unique ids averaged over the replicas (a table on the dense
+    exchange outside buckets: the global batch's)."""
+    blocks = ([tokens] if method == "allreduce" and not bucketed
+              else np.split(tokens, n))
+    uniq = [np.unique(b).size if local_agg else b.size for b in blocks]
+    t = blocks[0].size
+    return {"embed_unique": float(np.mean(uniq)),
+            "embed_rows": float(min(t, vocab) if local_agg else t),
+            "embed_dropped": 0.0}
+
+
+def phase_mesh_card(main_losses: list, steps: int = 3) -> dict:
+    """Four ranks on the one card over gloo (NCCL takes one card per
+    rank): (a) the reduced six flag sets on (2, 2) against the one-device
+    card run on the same batches (the reference test's bar, 5e-4 + 1e-4 i)
+    with the census the plan implies; (b) full-width ps on (1, 4): each
+    rank pulls at row_offset m * 200,000 through the bulk gather and
+    pushes through the one-pass scatter, 3 each, losses within rel 1e-2
+    of main's. Gloo moves CUDA tensors through the host: its times are not
+    a multi-GPU exchange time."""
+    cfg, shape = _reduced()
+    one = get_runner(cfg, shape, RunConfig(**MESH_F32), device="cuda")
+    named = {k: p.detach().cpu().numpy()
+             for k, p in named_parameters(one.model).items()}
+    batches = _reduced_batches()
+    single = []
+    for b in batches:
+        single.append(float(one.run(b)["loss"]))
+    del one
+    ranks = spawn(_card_rank, 4, "gloo", "cuda", args=(named, steps),
+                  timeout=900)
+    reduced_rows = {}
+    for name, flags in MESH_FLAGS.items():
+        rs = [r["reduced"][name] for r in ranks]
+        got = rs[0]["losses"]
+        check(all(r["losses"] == got for r in rs),
+              f"mesh_card {name}: ranks disagree {[r['losses'] for r in rs]}")
+        for i, (a, b) in enumerate(zip(got, single)):
+            check(abs(a - b) < 5e-4 + 1e-4 * i,
+                  f"mesh_card {name} step {i}: {got} vs one device {single}")
+        reduced_rows[name] = {"losses": got, "method": rs[0]["method"],
+                              "bucketed": rs[0]["bucketed"],
+                              "max_abs_diff": max(abs(a - b) for a, b in
+                                                  zip(got, single))}
+        r0 = rs[0]
+        want = [_census(b["tokens"], r0["method"], r0["bucketed"],
+                        r0["replicas"], flags.get("local_agg", True),
+                        cfg.vocab_size) for b in batches]
+        check(all(r["census"] == want for r in rs),
+              f"mesh_card {name}: census {[r['census'] for r in rs]} vs "
+              f"{want}")
+    full = [r["full_ps"] for r in ranks]
+    for m, r in enumerate(sorted(full, key=lambda r: r["model_index"])):
+        c = r["launches"]
+        check(r["plan"]["embed"]["method"] == "ps"
+              and r["table_shard"] == [VOCAB // 4, E],
+              f"mesh_card full: plan {r['plan']}, shard {r['table_shard']}")
+        check(c["embed_gather_bulk"] == steps
+              and c["embed_scatter_add_fused"] == steps,
+              f"mesh_card full, model shard {m}: launches {c}")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"mesh_card full: losses {r['losses']}")
+        for a, b in zip(r["losses"], main_losses):
+            check(abs(a - b) <= 1e-2 * abs(b),
+                  f"mesh_card full: losses {r['losses']} vs main "
+                  f"{main_losses[:steps]}")
+    res = {"phase": "mesh_card", "backend": "gloo", "world": 4,
+           "note": "4 ranks on one card over gloo, not a multi-GPU "
+                   "exchange time",
+           "reduced": {"mesh": [2, 2], "one_device": single,
+                       "flag_sets": reduced_rows},
+           "full_ps": {"mesh": [1, 4], "main_losses": main_losses[:steps],
+                       "ranks": [{k: r[k] for k in (
+                           "model_index", "losses", "step_ms",
+                           "median_step_ms", "max_memory_allocated")}
+                           for r in full]},
+           "launches": ranks[0]["launches"],
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    emit(res)
+    return res
+
+
 def main() -> None:
     t0 = time.perf_counter()
     info = phase_banner()
@@ -1473,9 +1713,14 @@ def main() -> None:
     phase_rwkv_parity()
     phase_rwkv_recurrence(dev)
     torch.cuda.empty_cache()
-    paths = {"main": phase_main(dev)["launches"]}
+    main_res = phase_main(dev)
+    paths = {"main": main_res["launches"]}
     torch.cuda.empty_cache()
     paths["main_no_la"] = phase_main_no_la(dev)["launches"]
+    torch.cuda.empty_cache()
+    paths["mesh_one_rank"] = phase_mesh_one_rank(
+        main_res["losses"])["launches"]
+    paths["mesh_card"] = phase_mesh_card(main_res["losses"])["launches"]
     torch.cuda.empty_cache()
     serve = phase_serve(dev)
     paths["serve"] = serve["launches"]

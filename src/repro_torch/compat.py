@@ -1,10 +1,13 @@
 """Capability probes for the port: is there a card, is it Hopper, where is
-``nvcc``, which torch is this.
+``nvcc``, which torch is this, which ``torch.distributed`` backends exist.
 
 The JAX package's version shims (``repro/compat``) have no counterpart:
 PyTorch has one spelling of everything this port calls. These probes only
 *report*; nothing here switches a path to the CPU — entry points run on the
-card unless the caller asks for ``device="cpu"``.
+card unless the caller asks for ``device="cpu"`` — and nothing picks a
+process-group backend: that is always the caller's explicit choice
+(``launch/mesh.py::spawn``), never probed for and never swapped for
+another.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 # the one target the CUDA kernels are compiled for (sm_90a: H100 / H200)
 HOPPER = (9, 0)
@@ -49,3 +53,14 @@ def nvcc_path() -> Optional[str]:
 def torch_version() -> str:
     return torch.__version__
 
+
+
+def nccl_available() -> bool:
+    """Was this torch built with NCCL (one card per rank)?"""
+    return dist.is_available() and dist.is_nccl_available()
+
+
+def gloo_available() -> bool:
+    """Was this torch built with gloo (CPU tensors; on CUDA tensors only
+    broadcast and all-reduce)?"""
+    return dist.is_available() and dist.is_gloo_available()

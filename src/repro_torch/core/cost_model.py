@@ -56,6 +56,21 @@ def resolve_hw(run_cfg=None, hw: Optional[Hardware] = None) -> Hardware:
     return hw
 
 
+def mesh_hosts(mesh) -> int:
+    """Host count among a mesh's ranks — the H of the two-level schedule:
+    the distinct hosts ``launch/mesh.py::make_mesh`` found (1 on one
+    machine); where every rank is on one host, a "pod" axis stands for the
+    inter-host tier, as in the reference."""
+    if mesh is None:
+        return 1
+    hosts = getattr(mesh, "hosts", 1)
+    if hosts > 1:
+        return hosts
+    if "pod" in mesh.axis_names:
+        return max(int(mesh.shape["pod"]), 1)
+    return 1
+
+
 @dataclass(frozen=True)
 class MeshDims:
     model: int = 1
@@ -179,6 +194,14 @@ def dense_schedule_seconds(b: float, dims: MeshDims,
     return out
 
 
+def choose_dense_schedule(b: float, dims: MeshDims,
+                          hw: Hardware = HW) -> tuple:
+    """The execution schedule of one dense all-reduce (the bucket
+    planner's per-bucket argmin): (schedule, seconds by schedule)."""
+    secs = dense_schedule_seconds(b, dims, hw)
+    return min(secs, key=secs.get), secs
+
+
 def method_seconds(*, b: float, alpha: float, dims: MeshDims,
                    hw: Hardware = HW) -> dict:
     """Per-method step seconds for one parameter (the planner's argmin)."""
@@ -263,3 +286,29 @@ def serve_table_pricing(*, b: float, alpha: float, method: str,
                                 hw=hw)
     return {"pull_bytes": pull_b, "pull_s": pull_s,
             "s_per_token": pull_s / max(int(batch_tokens), 1)}
+
+
+def pick_dense_strategy(cfg, shape, dims: MeshDims, hbm_bytes: float = 16e9,
+                        param_dtype_bytes: int = 2) -> str:
+    """tp(+SP) or dp (ZeRO-3 over every axis) for the dense params.
+
+    Per-chip wire napkin (per layer):
+      tp+sp: ~12 seq-scattered activation units = 12·T_repl·D·w·(m-1)/m
+      dp:    ~3 passes x full layer params      = 3·P_L·w
+    MoE and decode need the model axis (EP / cache sharding) -> tp.
+    """
+    if cfg.n_experts or shape.kind == "decode" or dims.model <= 1:
+        return "tp"
+    chips = dims.chips
+    if shape.global_batch % chips != 0 and \
+            shape.global_batch % (dims.data * dims.model) != 0:
+        return "tp"
+    t_repl = shape.tokens / max(dims.replicas, 1)
+    m = dims.model
+    tp_unit = t_repl * cfg.d_model * param_dtype_bytes * (m - 1) / m
+    layers = cfg.n_layers + (cfg.enc_layers if cfg.is_encdec else 0)
+    p_layer = max((cfg.param_count() - cfg.vocab_size * cfg.d_model *
+                   (1 if cfg.tie_embeddings else 2)) / max(layers, 1), 1)
+    tp_coll = 12 * tp_unit
+    dp_coll = 3 * p_layer * param_dtype_bytes
+    return "dp" if dp_coll < tp_coll else "tp"

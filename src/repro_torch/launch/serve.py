@@ -11,7 +11,7 @@ prefill step per admission, slot-paged decode, device-side sampling;
 ``--engine toy`` the teacher-forced baseline loop (also the loop for
 recurrent families such as rwkv6-7b, which the engine refuses). As in the
 reference, the launcher serves with ``RunConfig(attention_impl="naive")``. ``--devices`` and ``--mesh`` belong
-to the distributed port (ROADMAP slice 2) and are refused.
+to the distributed port (ROADMAP slice 2 item 9) and are refused.
 """
 from __future__ import annotations
 
@@ -51,8 +51,8 @@ def main(argv=None, *, device=None) -> list:
     args = _parse(argv)
     if args.devices > 1 or args.mesh:
         raise NotImplementedError(
-            "--devices / --mesh are not ported yet: ROADMAP slice 2 (the "
-            "distributed main path)")
+            "--devices / --mesh are not ported yet: ROADMAP slice 2 item 9 "
+            "(the launchers' mesh and a serve mesh)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)

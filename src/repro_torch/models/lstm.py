@@ -5,7 +5,7 @@ LSTM-with-projection cell, a Python loop over time. The embedding table
 goes through the PS pull/push (core/embedding.py, the two CUDA kernels on
 the card); the gate, projection and logit products are plain
 ``torch.matmul``, as the reference leaves them to XLA. The encoder-decoder
-branch (``parallax-nmt``) comes with ROADMAP slice 2.
+branch (``parallax-nmt``) comes with ROADMAP slice 2 item 6.
 
 Dtypes follow the reference step for step: the lookup returns rows in the
 table dtype, cast to the compute dtype; gates are summed in the compute
@@ -18,8 +18,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core import collectives as coll
 from repro_torch.core import embedding as emb
-from repro_torch.core.xent import xent
+from repro_torch.core.xent import sharded_xent
 from repro_torch.models.layers import (ParamSpec, ParamTree, flatten_specs,
                                        stack_tree)
 
@@ -36,7 +37,8 @@ def lstm_cell_specs(d_in: int, hidden: int, proj: int) -> dict:
 def model_specs(cfg, rt) -> dict:
     if cfg.is_encdec:
         raise NotImplementedError(
-            "the LSTM encoder-decoder (parallax-nmt) is ROADMAP slice 2")
+            "the LSTM encoder-decoder (parallax-nmt) is ROADMAP slice 2 "
+            "item 6")
     d, hidden = cfg.d_model, cfg.d_ff
     vp = rt.padded_vocab
     return {
@@ -133,6 +135,8 @@ class LSTMLM(nn.Module):
                                 tokens.device)
         layers = dict(self.layers.named_parameters())
         x, new_state = _run_stack(layers, x, state)
+        if rt.vocab_shards > 1:
+            x = coll.copy_to(x, "model", rt.mesh)
         logits = torch.matmul(x, self.head.to(x.dtype).t())
         return logits, new_state, metrics
 
@@ -150,9 +154,19 @@ class LSTMLM(nn.Module):
         return _init_state(self.cfg, batch, self.cfg.n_layers, self.rt.dtype,
                            self.rt.device)
 
-    def loss_fn(self, batch: dict) -> tuple:
-        logits, _, metrics = self(batch)
-        per_tok = xent(logits, batch["labels"], vocab=self.cfg.vocab_size)
+    def loss_fn(self, batch: dict, params: dict = None) -> tuple:
+        """-> (this replica's mean loss, metrics). ``params``: {dotted
+        name: tensor} standing in for parameters in this call (the step's
+        FSDP-gathered weights)."""
+        if params:
+            logits, _, metrics = torch.func.functional_call(
+                self, params, (batch,))
+        else:
+            logits, _, metrics = self(batch)
+        rt = self.rt
+        per_tok = sharded_xent(logits, batch["labels"], mesh=rt.mesh,
+                               model_axis="model", batch_axes=rt.batch_axes,
+                               vocab=self.cfg.vocab_size)
         loss = per_tok.mean()
         metrics["xent"] = loss.detach()
         return loss, metrics

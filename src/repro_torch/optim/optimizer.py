@@ -2,16 +2,18 @@
 per-parameter paths of ``repro/optim/optimizer.py``).
 
   * Gradient clipping happens AFTER aggregation: the gradients handed to
-    ``update`` are already the aggregated ones, and the global norm sums
-    per-parameter partial ‖g‖² in JAX's flatten order (the order of the
-    ``params`` dict) — another order changes the last bits.
+    ``update`` are already the aggregated ones (this rank's shards), and
+    the global norm sums per-parameter partial ‖g‖² in JAX's flatten order
+    (the order of the ``params`` dict) — another order changes the last
+    bits. On a mesh a sharded leaf's partial is first summed over its
+    shards (OPAU: only scalars cross ranks).
   * Moments and EMA shadows live beside their parameter.
 
 Updates run in place under ``torch.no_grad()``: the reference returns new
 arrays, the port overwrites the parameters, moments and shadows it is given
 (the same values; at the paper's LM width a second copy of the tables and
 moments would cost several GB). The fused bucket-apply path
-(``update_fused``) comes with the bucketed exchange, ROADMAP slice 2.
+(``update_fused``) comes with ROADMAP slice 2 item 8.
 """
 from __future__ import annotations
 
@@ -19,6 +21,10 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+
+from repro_torch.core import collectives as coll
+from repro_torch.core.plan import entry_axes
+from repro_torch.weights import gather_tensor
 
 
 @dataclass
@@ -43,16 +49,48 @@ def _f32_scalar(x: torch.Tensor) -> float:
     return float(x.to(torch.float32).item())
 
 
-def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the per-parameter ‖g‖² partial sums, in dict order."""
+def _held_axes(held: tuple, mesh) -> tuple:
+    """The mesh axes (of size > 1) a held placement shards over."""
+    return tuple(a for a in mesh.axis_names
+                 if mesh.shape[a] > 1
+                 and any(a in entry_axes(e) for e in held))
+
+
+def global_norm(grads: dict, rt=None) -> torch.Tensor:
+    """sqrt of the per-parameter ‖g‖² partial sums, in dict order.
+
+    On a mesh (OPAU) each sharded leaf's partial is summed over the axes
+    it is sharded on — one all-reduce per group of leaves sharing those
+    axes, only scalars on the wire — and a replicated leaf counts once.
+    With ``opau=False`` the sharded gradients are gathered whole first,
+    the naive placement the reference forces with a replicated
+    constraint."""
+    mesh = rt.mesh if rt is not None else None
+    held = ({n: p.held for n, p in rt.plan.params.items()}
+            if mesh is not None else {})
+    axes = {n: _held_axes(held[n], mesh) if n in held else ()
+            for n in grads}
+    if mesh is not None and not rt.run_cfg.opau:
+        grads = {n: gather_tensor(g, held[n], mesh) if axes[n] else g
+                 for n, g in grads.items()}
+        axes = {n: () for n in grads}
+    parts = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
+    groups: dict = {}
+    for n, a in axes.items():
+        if a:
+            groups.setdefault(a, []).append(n)
+    for a, names in groups.items():
+        summed = coll.all_reduce(torch.stack([parts[n] for n in names]), a, mesh)
+        for j, n in enumerate(names):
+            parts[n] = summed[j]
     total = 0
-    for g in grads.values():
-        total = total + torch.sum(torch.square(g.float()))
+    for p in parts.values():
+        total = total + p
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> tuple:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: dict, max_norm: float, rt=None) -> tuple:
+    norm = global_norm(grads, rt)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return ({n: (g.float() * scale).to(g.dtype) for n, g in grads.items()},
             norm)
@@ -76,7 +114,7 @@ def _ema_init(params: dict, ema_decay: float) -> Optional[dict]:
 def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.0,
           clip_norm: Optional[float] = 1.0, ema_decay: float = 0.0,
-          wd_mask: Optional[dict] = None) -> Optimizer:
+          wd_mask: Optional[dict] = None, rt=None) -> Optimizer:
     """``wd_mask``: optional {name: float} multiplying ``weight_decay``
     per parameter (0.0 = no decay for that parameter)."""
     lr_fn = lr if callable(lr) else (lambda step: lr)
@@ -93,7 +131,7 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
     def update(state: TrainState, grads: dict) -> tuple:
         metrics = {}
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, rt)
             metrics["grad_norm"] = gnorm
         step = state.step + 1
         # bias corrections in f32, as the reference computes them
@@ -121,7 +159,7 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
 
 def momentum(lr: float | Callable = 1e-2, mu: float = 0.9,
              clip_norm: Optional[float] = None,
-             ema_decay: float = 0.0) -> Optimizer:
+             ema_decay: float = 0.0, rt=None) -> Optimizer:
     lr_fn = lr if callable(lr) else (lambda step: lr)
 
     def init(params: dict) -> TrainState:
@@ -135,7 +173,7 @@ def momentum(lr: float | Callable = 1e-2, mu: float = 0.9,
     def update(state: TrainState, grads: dict) -> tuple:
         metrics = {}
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, rt)
             metrics["grad_norm"] = gnorm
         step = state.step + 1
         lr_t = lr_fn(step)
@@ -151,7 +189,7 @@ def momentum(lr: float | Callable = 1e-2, mu: float = 0.9,
 
 
 def sgd(lr: float | Callable = 1e-2,
-        clip_norm: Optional[float] = None) -> Optimizer:
+        clip_norm: Optional[float] = None, rt=None) -> Optimizer:
     lr_fn = lr if callable(lr) else (lambda step: lr)
 
     def init(params: dict) -> TrainState:
@@ -161,7 +199,7 @@ def sgd(lr: float | Callable = 1e-2,
     def update(state: TrainState, grads: dict) -> tuple:
         metrics = {}
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, rt)
             metrics["grad_norm"] = gnorm
         step = state.step + 1
         lr_t = lr_fn(step)
@@ -177,10 +215,10 @@ def make_optimizer(rt) -> Optimizer:
     rc = rt.run_cfg
     if rc.optimizer == "adamw":
         return adamw(rc.learning_rate, weight_decay=rc.weight_decay,
-                     clip_norm=rc.clip_norm, ema_decay=rc.ema_decay)
+                     clip_norm=rc.clip_norm, ema_decay=rc.ema_decay, rt=rt)
     if rc.optimizer == "momentum":
         return momentum(rc.learning_rate, clip_norm=rc.clip_norm,
-                        ema_decay=rc.ema_decay)
+                        ema_decay=rc.ema_decay, rt=rt)
     if rc.optimizer == "sgd":
-        return sgd(rc.learning_rate, clip_norm=rc.clip_norm)
+        return sgd(rc.learning_rate, clip_norm=rc.clip_norm, rt=rt)
     raise ValueError(f"unknown optimizer {rc.optimizer!r}")

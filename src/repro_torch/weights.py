@@ -6,11 +6,18 @@ parity test initializes the reference model, flattens it to
 path_name``) and hands that dict here. Nothing here imports JAX: bf16
 arrays arrive as numpy arrays of the ``bfloat16`` extension dtype and are
 moved through a 16-bit integer view, so no bit changes.
+
+On a mesh, ``shard_params`` cuts whole parameters into this rank's shards
+(each ``ParamPlan.held``) and ``gather_params`` puts them back together;
+the tests hold the port's sharded state against the JAX package with them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core import collectives as coll
+from repro_torch.core.plan import entry_axes
 
 _NUMPY_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
@@ -44,3 +51,46 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+# ---------------------------------------------------------------------------
+# shards on a mesh
+# ---------------------------------------------------------------------------
+
+def _dims(held: tuple, mesh) -> list:
+    """[(dim, axes)] of a held placement's sharded dimensions."""
+    return [(d, entry_axes(e)) for d, e in enumerate(held)
+            if mesh.axes_size(entry_axes(e)) > 1]
+
+
+def shard_tensor(full: torch.Tensor, held: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``full`` under ``held``: along each sharded
+    dimension, block ``mesh.index(axes)`` of ``mesh.axes_size(axes)``."""
+    out = full
+    for d, axes in _dims(held, mesh):
+        n = mesh.axes_size(axes)
+        size = full.shape[d] // n
+        out = out.narrow(d, mesh.index(axes) * size, size)
+    return out.contiguous()
+
+
+def gather_tensor(local: torch.Tensor, held: tuple, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's ``shard_tensor`` block (a
+    collective over the held axes: every rank of them calls it)."""
+    out = local
+    for d, axes in _dims(held, mesh):
+        out = coll.all_gather(out, axes, mesh, dim=d)
+    return out
+
+
+def shard_params(named_full: dict, plan, mesh) -> dict:
+    """{dotted_name: whole tensor} -> {dotted_name: this rank's shard}
+    under each parameter's ``ParamPlan.held``."""
+    return {n: shard_tensor(t, plan.params[n].held, mesh)
+            for n, t in named_full.items()}
+
+
+def gather_params(named_local: dict, plan, mesh) -> dict:
+    """This rank's shards -> the whole tensors (on every rank)."""
+    return {n: gather_tensor(t, plan.params[n].held, mesh)
+            for n, t in named_local.items()}

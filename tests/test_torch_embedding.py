@@ -120,9 +120,11 @@ def test_local_agg_off_off_the_cpu_takes_the_plain_scatter(monkeypatch):
 
 
 def test_mesh_methods_are_refused():
+    """A mesh method (ps) with no mesh in its context is refused: the
+    exchanges run on a ``launch/mesh.py`` mesh (tests/test_torch_mesh_*)."""
     ctx = temb.EmbedCtx(method="ps", vocab_padded=VOCAB,
                         wire_dtype=torch.float32, local_agg=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(ValueError, match="exchanges over a mesh"):
         temb.lookup(torch.zeros((VOCAB, 4)),
                     torch.zeros((1, 4), dtype=torch.int32),
                     ctx=ctx, capacity=4)

@@ -36,6 +36,10 @@ def test_importing_the_port_pulls_in_no_jax():
     mods = _port_modules()
     assert "repro_torch.core.transform" in mods and len(mods) > 20
     assert "repro_torch.models.rwkv" in mods
+    # the mesh slice's modules are scanned and imported too
+    for m in ("repro_torch.launch.mesh", "repro_torch.core.collectives",
+              "repro_torch.core.buckets"):
+        assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib.util, json, sys
         sys.path.insert(0, {os.path.join(ROOT, "src")!r})

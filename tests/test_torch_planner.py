@@ -171,7 +171,7 @@ def test_single_device_analyze_matches(rc):
             (jp.name, jp.method, jp.sparse, jp.bytes, jp.capacity,
              jp.stale, jp.est_cost), name
         assert dtype_name(tp.wire_dtype) == jnp.dtype(jp.wire_dtype).name
-        assert tp.placement is None
+        assert tp.placement == tuple(jp.pspec)
     # the runtime reads its capacity and wire dtype from the plan alike
     jrt.plan, trt.plan = want, got
     assert trt.embed_capacity_for("embed") == jrt.embed_capacity_for("embed")

@@ -89,10 +89,17 @@ def test_unported_options_are_refused(kw, where):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        get_runner(tc.reduced(tc.get_config("parallax-lm")),
-                   tc.ShapeConfig("t", 8, 2, "train"), tc.RunConfig(),
-                   mesh=object(), device="cpu")
+    """What is not a process mesh is refused: an object that is no mesh,
+    and a MeshShape, which plans (analyze) but holds no process groups.
+    Meshes run in tests/test_torch_mesh_correctness.py."""
+    from repro_torch.launch.mesh import MeshShape
+    cfg = tc.reduced(tc.get_config("parallax-lm"))
+    shape = tc.ShapeConfig("t", 8, 2, "train")
+    with pytest.raises(TypeError, match="launch/mesh.py"):
+        get_runner(cfg, shape, tc.RunConfig(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="make_mesh"):
+        get_runner(cfg, shape, tc.RunConfig(),
+                   mesh=MeshShape((2, 2), ("data", "model")), device="cpu")
 
 
 def test_device_defaults_to_the_card():
