@@ -51,7 +51,10 @@ and never prints the final line:
               index_add_ summation order differ on the card, and without
               local aggregation index_add_ adds repeated ids with atomics),
               the embed_* census metrics equal, the no-LA push through the
-              plain scatter (no kernel launch).
+              plain scatter (no kernel launch). Then reduced parallax-nmt
+              at f32 the same way: losses within rtol 1e-4, both tables'
+              embed_* / enc_embed_* census equal, 2 gathers and 2 one-pass
+              scatters a step.
   5. serve_parity  reduced phi3-medium-14b at f32, attention "pallas": the
               same parameters and prompts through Server(device="cpu") and
               Server(device="cuda"): prefill logits within rtol 1e-4, greedy
@@ -74,6 +77,16 @@ and never prints the final line:
               one-pass kernel. Then main_no_la: 3 such steps under
               RunConfig(local_agg=False), their pushes through the plain
               scatter (no embed_scatter_add launch), step ms and losses.
+     nmt      full-width parallax-nmt (4 + 4 LSTM layers of 1,024, d 1,024,
+              vocab 36,548; nothing cut), bf16, seed 0, ShapeConfig("wmt",
+              50, 128) (GNMT's batch 128 and length 50), the reference's
+              two-table knobs (capped capacity x 1.5, link latency 0,
+              embed declared Zipf 1.3, enc_embed alpha 0.99), 10 steps of
+              SyntheticLM(is_encdec=True, src_zipf_a=0.0) batches: losses
+              finite and falling, no row dropped (one device: the knobs
+              change no math), both tables pulled on the bulk route and
+              pushed one-pass every step (2 + 2 launches a step); median
+              step ms, tokens/s, peak memory.
      Then the mesh path (launch/mesh.py ranks, spawned processes):
      mesh_one_rank: the same 3 first steps through get_runner(...,
               mesh=make_mesh((1, 1))) over a one-rank NCCL group: the plan
@@ -91,7 +104,18 @@ and never prints the final line:
               comm_mode="ps") on (1, 4): each rank holds 200,000 table rows,
               pulls at row_offset m * 200,000 on the bulk route and pushes
               through the one-pass scatter, 3 each in 3 steps; losses
-              within rel 1e-2 of main's; per-rank step ms and peak memory.
+              within rel 1e-2 of main's; per-rank step ms and peak memory;
+              (c) full-width parallax-nmt as in nmt on (4, 1): the plan
+              (embed on mpi_gatherv, enc_embed on the dense all-reduce,
+              its buckets, fused_apply stamped), 3 steps with the fused
+              bucket-apply and 3 with fused_apply=False from the same
+              seed, deterministic algorithms on: losses and rank 0's
+              parameters equal bit for bit, losses within rel 1e-2 of
+              nmt's first 3; per-rank step ms and peak memory, the
+              optimizer apply alone fused and per-param (CUDA events on
+              rank 0, the other ranks at a barrier), launches per rank (2
+              bulk gathers and the enc_embed one-pass push a step; the
+              gatherv push of embed takes the plain scatter).
   9. serve    full-width phi3-medium-14b (40 layers, nothing cut), bf16,
               Server(..., RunConfig(attention_impl="pallas"),
               ServerConfig(max_batch=4, max_seq=2048)) on the card: 8
@@ -116,15 +140,16 @@ and never prints the final line:
               (its ms; 32 wkv launches, all on the tensor-core route), peak
               memory.
 
-Each path (main, main_no_la, mesh_one_rank, mesh_card, serve,
-rwkv_serve) runs with every launch count set to 0 just before it and read
-just after: the mesh phases in each rank's own process (mesh_card's (a)
-and (b) each so, the path's launches their sum, rank 0's), rwkv_serve's
-serve loop and its 2,048-token prefill each so (the path's launches their
-sum).
+Each path (main, main_no_la, nmt, mesh_one_rank, mesh_card (a) + (b),
+mesh_card_nmt = mesh_card (c), serve, rwkv_serve) runs with every launch
+count set to 0 just before it and read just after: the mesh phases in
+each rank's own process (mesh_card's (a), (b) and (c)'s two runs each so,
+a path's launches their sum, rank 0's), rwkv_serve's serve loop and its
+2,048-token prefill each so (the path's launches their sum).
 
-Then the card's name and power limit (nvidia-smi), one JSON line of the
-kernels' numbers, and last {"ok": true, "device": {...}}.
+Then a "done" line with the run's seconds and each phase's, the card's
+name and power limit (nvidia-smi), one JSON line of the kernels' numbers,
+and last {"ok": true, "device": {...}}.
 
 It imports the port (src/repro_torch) and nothing of the JAX package.
 """
@@ -144,10 +169,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch import compat  # noqa: E402
 from repro_torch.configs import (RunConfig, ShapeConfig, get_config,  # noqa: E402
                                  reduced)
+from repro_torch.core import buckets  # noqa: E402
 from repro_torch.core.embedding import dedupe  # noqa: E402
 from repro_torch.core.runtime import Runtime  # noqa: E402
 from repro_torch.core.transform import (analyze, get_runner,  # noqa: E402
@@ -156,7 +183,9 @@ from repro_torch.core.transform import (analyze, get_runner,  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
+from repro_torch.launch.profile_step import CELLS  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.optim.optimizer import is_fused  # noqa: E402
 from repro_torch.runtime.server import (Request, Server,  # noqa: E402
                                         ServerConfig, ToyServer, bucket_len)
 from repro_torch.utils.roofline import HW  # noqa: E402
@@ -238,9 +267,16 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 "mesh_one_rank": ("embed_gather",),
                 # ps on (1, 4): each rank's owner push is one-pass
                 "mesh_card": ("embed_gather", "embed_scatter_add"),
+                # both tables pulled and pushed one-pass every step
+                "nmt": ("embed_gather", "embed_scatter_add"),
+                # (4, 1): the gatherv push of embed takes the plain
+                # scatter, the dense-routed enc_embed's is one-pass
+                "mesh_card_nmt": ("embed_gather", "embed_scatter_add"),
                 "serve": ("embed_gather", "flash_attention"),
                 "rwkv_serve": ("embed_gather", "wkv_tc", "wkv_step")}
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
+NMT_CENSUS = tuple(f"{t}_{k}" for t in ("embed", "enc_embed")
+                   for k in ("rows", "unique", "dropped"))
 WKV_ROWS = {"scalar": "wkv", "tc": "wkv_tc", "step": "wkv_step"}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -399,6 +435,46 @@ def _misaligned(table: torch.Tensor) -> torch.Tensor:
     return view
 
 
+def _nmt_ids(dev) -> dict:
+    """The dedupe buffers parallax-nmt's first batch gives its two tables:
+    on one device (all 6,400 tokens) and on rank 0 of a (4, 1) mesh (its
+    1,600), each at its token count's capacity."""
+    cfg, shape, _ = _nmt_setup()
+    batch = _nmt_batches(1)[0]
+    v, out = cfg.vocab_size, {}
+    for table, key in (("embed", "tokens"), ("enc_embed", "src_tokens")):
+        flat = torch.from_numpy(np.ascontiguousarray(batch[key])).reshape(
+            -1).to(dev)
+        for where, ids in (("one_device", flat),
+                           ("rank0_of_4", flat[:flat.numel() // 4])):
+            out[f"nmt_{table}_{where}"] = dedupe(ids, ids.numel(), v,
+                                                 True)[0]
+    return out
+
+
+def _nmt_kernel_cases(dev, gen, hold_gather, hold) -> None:
+    """Both embed kernels at parallax-nmt's shapes: a (36,548, 1,024) bf16
+    table (2,048-byte rows, the bulk route) and bf16 wire rows pushed into
+    its f32 gradient, at each table's ids."""
+    v = get_config("parallax-nmt").vocab_size
+    table = torch.randn((v, 1024), generator=gen, device=dev).to(
+        torch.bfloat16)
+    check(ops.gather_route(2048, table.data_ptr()) == "bulk",
+          "embed_gather: parallax-nmt's table is not on the bulk route")
+    for case, ids in _nmt_ids(dev).items():
+        hold_gather(case, table, ids, 0)
+        rows = torch.randn((ids.numel(), 1024), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        fused0 = ops.embed_scatter_add.launches_fused
+        got = ops.embed_scatter_add(ids, rows, v)
+        check(ops.embed_scatter_add.launches_fused - fused0 == 1,
+              f"embed_scatter_add/{case}: not on the one-pass kernel")
+        hold("embed_scatter_add", case, got,
+             ref.embed_scatter_add_ref(ids, rows, v))
+    del table
+    torch.cuda.empty_cache()
+
+
 def _scatter_fns(ids, rows, vs: int, e: int) -> dict:
     """The push's function three ways on the same inputs: the one-pass
     kernel; PR 11's function (a zeroed (Vs + 1, E) buffer, the dump-row
@@ -513,6 +589,7 @@ def phase_kernels(dev) -> dict:
              ref.embed_scatter_add_ref(ids, rows, vs))
     del t32, rows32, signed_zero
     torch.cuda.empty_cache()
+    _nmt_kernel_cases(dev, gen, hold_gather, hold)
 
     # ---- timing at the main path's shapes: bf16 table, bf16 wire rows ----
     timer = Timer(dev)
@@ -1044,7 +1121,42 @@ def phase_parity() -> None:
               and counts["embed_gather"] == 3,
               f"{name}: launches {counts}")
         out[name] = rows
+    out["nmt"] = _nmt_parity()
     emit({"phase": "parity", **out})
+
+
+def _nmt_parity() -> list:
+    """Reduced parallax-nmt at f32, CPU against card, 3 steps: each step
+    pulls and pushes both tables through the kernels on the card."""
+    cfg = reduced(get_config("parallax-nmt"))
+    shape = ShapeConfig("parity", 16, 4, "train")
+    ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
+                     is_encdec=True, src_zipf_a=0.0)
+    rc = RunConfig(param_dtype="float32", compute_dtype="float32")
+    cpu = get_runner(cfg, shape, rc, seed=0, device="cpu")
+    gpu = get_runner(cfg, shape, rc, device="cuda", params={
+        k: p.detach().to("cuda") for k, p in named_parameters(
+            cpu.model).items()})
+    rows = []
+    ops.reset_launch_counts()
+    for i in range(3):
+        b = ds.batch(i)
+        mc, mg = cpu.run(b), gpu.run(b)
+        lc, lg = float(mc["loss"]), float(mg["loss"])
+        check(math.isclose(lc, lg, rel_tol=1e-4),
+              f"nmt step {i}: cpu loss {lc} vs card {lg}")
+        for k in NMT_CENSUS:
+            check(float(mc[k]) == float(mg[k]),
+                  f"nmt step {i}: {k} cpu {float(mc[k])} vs card "
+                  f"{float(mg[k])}")
+        rows.append({"cpu": lc, "cuda": lg, "rel": abs(lc - lg) / abs(lc),
+                     **{k: float(mg[k]) for k in NMT_CENSUS
+                        if k.endswith("_unique")}})
+    counts = ops.launch_counts()
+    check(counts["embed_gather"] == 6 and counts["embed_scatter_add"] == 6,
+          f"nmt parity: launches {counts}, want 2 gathers and 2 scatters "
+          "a step")
+    return rows
 
 
 def _prompts(rng, lens, vocab: int) -> list:
@@ -1493,6 +1605,57 @@ def phase_main_no_la(dev, steps: int = 3) -> dict:
     return res
 
 
+def _nmt_setup() -> tuple:
+    """Full-width parallax-nmt's cell (``profile_step.CELLS``): GNMT's
+    batch 128 and length 50, the reference's two-table knobs (one device
+    runs the same math; on (4, 1) embed goes to mpi_gatherv and enc_embed
+    to the dense all-reduce), AdamW at 1e-4."""
+    shape, rc, _, _ = CELLS["parallax-nmt"]
+    return get_config("parallax-nmt"), shape, rc
+
+
+def _nmt_batches(steps: int) -> list:
+    """Zipf(1.3) targets and a uniform source stream (the near-dense
+    table)."""
+    cfg, shape, _ = _nmt_setup()
+    ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
+                     **CELLS["parallax-nmt"][2])
+    return [ds.batch(i) for i in range(steps)]
+
+
+def phase_nmt(dev, steps: int = 10) -> dict:
+    """Full-width parallax-nmt, 10 steps on one card: both tables pulled
+    through the bulk gather and pushed through the one-pass scatter every
+    step. On one device the two-table knobs change no math: no capped
+    buffer drops a row."""
+    cfg, shape, rc = _nmt_setup()
+    t0 = time.perf_counter()
+    runner = get_runner(cfg, shape, rc, seed=0, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    r = _timed_steps(runner, _nmt_batches(steps), dev, NMT_CENSUS)
+    losses, counts = r["losses"], r["launches"]
+    check(all(math.isfinite(x) for x in losses), f"nmt losses {losses}")
+    check(losses[-1] < losses[0], f"nmt loss did not fall: {losses}")
+    check(all(c[f"{t}_dropped"] == 0.0 for c in r["census"]
+              for t in ("embed", "enc_embed")),
+          f"nmt dropped rows: {r['census']}")
+    for k in ("embed_gather", "embed_gather_bulk", "embed_scatter_add",
+              "embed_scatter_add_fused"):
+        check(counts[k] == 2 * steps,
+              f"nmt: {k} launched {counts[k]} times in {steps} steps, "
+              "want 2 a step (one per table)")
+    med = r["median_step_ms"]
+    res = {"phase": "nmt", "arch": cfg.name,
+           "tokens_per_step": shape.tokens, "plan": runner.plan.tables(),
+           **r, "tokens_per_s": shape.tokens / (med / 1e3),
+           "setup_s": setup_s, "seconds": time.perf_counter() - t0,
+           "nvidia_smi": nvidia_smi(
+               "clocks.sm,power.draw,power.limit,temperature.gpu")}
+    emit(res)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the mesh phases: ranks are spawned processes (launch/mesh.py::spawn)
 # ---------------------------------------------------------------------------
@@ -1503,7 +1666,7 @@ def _main_batches(steps: int) -> list:
     return [ds.batch(i) for i in range(steps)]
 
 
-def _timed_steps(runner, batches, dev) -> dict:
+def _timed_steps(runner, batches, dev, census_keys=CENSUS) -> dict:
     """Run ``batches`` through ``runner`` with every launch count set to 0
     just before and read just after: losses, step ms, launches, peak."""
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1515,7 +1678,7 @@ def _timed_steps(runner, batches, dev) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(m["loss"]))
-        census.append({k: float(m[k]) for k in CENSUS})
+        census.append({k: float(m[k]) for k in census_keys})
     return {"losses": losses, "step_ms": step_ms, "census": census,
             "median_step_ms": statistics.median(step_ms),
             "launches": ops.launch_counts(),
@@ -1613,6 +1776,89 @@ def _card_rank(rank: int, world: int, named: dict, steps: int) -> dict:
                       "table_shard": list(runner.model.embed.shape),
                       "model_index": mesh.coords["model"]}
     out["launches"] = {k: total[k] + v for k, v in r["launches"].items()}
+    del runner
+    torch.cuda.empty_cache()
+    out["nmt"] = _nmt_card(rank, dev, steps)
+    return out
+
+
+def _apply_ms(runner, rank: int, dev, runs: int = 5):
+    """The optimizer apply alone (``update_fused`` or ``update``), timed
+    with CUDA events on rank 0 while the other ranks wait at a barrier, on
+    the step's shapes and layout from random gradients (an elementwise
+    apply's time does not depend on the values). Changes the state: it
+    runs after the checks."""
+    dist.barrier()
+    ms = None
+    if rank == 0:
+        state, bp = runner.live_state, runner.plan.bucket_plan
+        names = list(state.params)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        grads = {n: torch.randn(p.shape, generator=gen, device=dev).mul_(
+            1e-3).to(p.dtype) for n, p in state.params.items()}
+        bufs = []
+        for b in bp.buckets:
+            members = [grads[names[i]] for i in b.idx]
+            bufs.append(buckets._flat_wire(b, members, 1.0))
+            grads.update(zip((names[i] for i in b.idx),
+                             buckets._slice_back(b, bufs[-1], members)))
+        opt = runner.optimizer
+        fn = ((lambda: opt.update_fused(state, grads, bufs, bp))
+              if runner.plan.fused_apply else
+              (lambda: opt.update(state, grads)))
+        times = []
+        for _ in range(runs + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        ms = statistics.median(times[1:])          # the first warms up
+    dist.barrier()
+    return ms
+
+
+def _nmt_card(rank: int, dev, steps: int) -> dict:
+    """(c): full-width parallax-nmt, bf16, the two-table knobs, on a (4, 1)
+    mesh over the same four ranks: 3 steps with the fused apply, then 3
+    with fused_apply=False, from the same seed. Deterministic algorithms
+    are on for both, so index_add_ (the segment sums and the gatherv
+    push's repeats) adds in a fixed order and the two runs can be held bit
+    for bit."""
+    mesh = make_mesh((4, 1), ("data", "model"), device=dev)
+    cfg, shape, rc = _nmt_setup()
+    batches = _nmt_batches(steps)
+    out, first = {}, None
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for fused in (True, False):
+            runner = get_runner(cfg, shape, replace(rc, fused_apply=fused),
+                                mesh=mesh, seed=0)
+            r = _timed_steps(runner, batches, dev, NMT_CENSUS)
+            own = {n: p.detach() for n, p in
+                   named_parameters(runner.model).items()}
+            if first is None:
+                first = {n: p.clone() for n, p in own.items()}
+            else:
+                r["params_equal_fused"] = all(
+                    torch.equal(_bits(first[n]), _bits(p))
+                    for n, p in own.items())
+            bp = runner.plan.bucket_plan
+            r.update(plan=runner.plan.tables(),
+                     fused_apply=runner.plan.fused_apply,
+                     live_fused=is_fused(runner.live_state),
+                     buckets=len(bp.buckets) if bp is not None else 0,
+                     bucket_wire_bytes=bp.wire_bytes if bp else 0,
+                     apply_ms=_apply_ms(runner, rank, dev))
+            out["fused" if fused else "per_param"] = r
+            del runner
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["launches"] = {k: v + out["per_param"]["launches"][k]
+                       for k, v in out["fused"]["launches"].items()}
     return out
 
 
@@ -1630,15 +1876,20 @@ def _census(tokens: np.ndarray, method: str, bucketed: bool, n: int,
             "embed_dropped": 0.0}
 
 
-def phase_mesh_card(main_losses: list, steps: int = 3) -> dict:
+def phase_mesh_card(main_losses: list, nmt_losses: list,
+                    steps: int = 3) -> dict:
     """Four ranks on the one card over gloo (NCCL takes one card per
     rank): (a) the reduced six flag sets on (2, 2) against the one-device
     card run on the same batches (the reference test's bar, 5e-4 + 1e-4 i)
     with the census the plan implies; (b) full-width ps on (1, 4): each
     rank pulls at row_offset m * 200,000 through the bulk gather and
     pushes through the one-pass scatter, 3 each, losses within rel 1e-2
-    of main's. Gloo moves CUDA tensors through the host: its times are not
-    a multi-GPU exchange time."""
+    of main's; (c) full-width parallax-nmt on (4, 1): embed on
+    mpi_gatherv, enc_embed on the dense all-reduce, the fused apply
+    stamped; 3 steps fused and 3 per-param equal bit for bit (losses, rank
+    0's parameters), losses within rel 1e-2 of nmt's. Gloo moves CUDA
+    tensors through the host: its times are not a multi-GPU exchange
+    time."""
     cfg, shape = _reduced()
     one = get_runner(cfg, shape, RunConfig(**MESH_F32), device="cuda")
     named = {k: p.detach().cpu().numpy()
@@ -1685,9 +1936,11 @@ def phase_mesh_card(main_losses: list, steps: int = 3) -> dict:
             check(abs(a - b) <= 1e-2 * abs(b),
                   f"mesh_card full: losses {r['losses']} vs main "
                   f"{main_losses[:steps]}")
+    nmt = _check_nmt_card([r["nmt"] for r in ranks], nmt_losses, steps)
     res = {"phase": "mesh_card", "backend": "gloo", "world": 4,
            "note": "4 ranks on one card over gloo, not a multi-GPU "
                    "exchange time",
+           "nmt": nmt,
            "reduced": {"mesh": [2, 2], "one_device": single,
                        "flag_sets": reduced_rows},
            "full_ps": {"mesh": [1, 4], "main_losses": main_losses[:steps],
@@ -1701,35 +1954,92 @@ def phase_mesh_card(main_losses: list, steps: int = 3) -> dict:
     return res
 
 
+def _check_nmt_card(ranks: list, nmt_losses: list, steps: int) -> dict:
+    """mesh_card (c)'s checks, over every rank's record."""
+    f0, p0 = ranks[0]["fused"], ranks[0]["per_param"]
+    for m, r in enumerate(ranks):
+        f, p = r["fused"], r["per_param"]
+        methods = {t: f["plan"][t]["method"] for t in ("embed", "enc_embed")}
+        check(methods == {"embed": "mpi_gatherv", "enc_embed": "allreduce"},
+              f"mesh_card nmt rank {m}: plan {f['plan']}")
+        check(f["fused_apply"] and f["live_fused"] and f["buckets"] > 0
+              and not p["fused_apply"] and not p["live_fused"],
+              f"mesh_card nmt rank {m}: fused_apply {f['fused_apply']} / "
+              f"{p['fused_apply']}, buckets {f['buckets']}")
+        check(f["losses"] == p["losses"] == f0["losses"],
+              f"mesh_card nmt rank {m}: fused {f['losses']} vs per-param "
+              f"{p['losses']} vs rank 0 {f0['losses']}")
+        c = r["launches"]
+        check(c["embed_gather"] == c["embed_gather_bulk"] == 4 * steps
+              and c["embed_scatter_add"] == c["embed_scatter_add_fused"]
+              == 2 * steps,
+              f"mesh_card nmt rank {m}: launches {c}, want 2 bulk gathers "
+              "and the enc_embed one-pass push a step")
+    check(p0["params_equal_fused"],
+          "mesh_card nmt: rank 0's parameters after 3 fused steps differ "
+          "from the per-param run's")
+    for a, b in zip(f0["losses"], nmt_losses):
+        check(math.isfinite(a) and abs(a - b) <= 1e-2 * abs(b),
+              f"mesh_card nmt: losses {f0['losses']} vs nmt "
+              f"{nmt_losses[:steps]}")
+    return {"mesh": [4, 1], "nmt_losses": nmt_losses[:steps],
+            "losses": f0["losses"], "plan": f0["plan"],
+            "buckets": f0["buckets"],
+            "bucket_wire_bytes": f0["bucket_wire_bytes"],
+            "fused_apply": f0["fused_apply"],
+            "params_equal_fused": p0["params_equal_fused"],
+            "apply_ms": {"fused": f0["apply_ms"],
+                         "per_param": p0["apply_ms"]},
+            "ranks": [{run: {k: r[run][k] for k in (
+                "step_ms", "median_step_ms", "max_memory_allocated",
+                "census")} for run in ("fused", "per_param")}
+                for r in ranks],
+            "launches": ranks[0]["launches"],
+            "launches_by_rank": [r["launches"] for r in ranks]}
+
+
 def main() -> None:
     t0 = time.perf_counter()
+    seconds = {}
+
+    def run(name: str, fn, *args):
+        """One phase, its wall seconds recorded; the card's cache freed
+        after it."""
+        t = time.perf_counter()
+        res = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        return res
+
     info = phase_banner()
     dev = torch.device("cuda", 0)
-    phase_build()
-    kern = phase_kernels(dev)
-    torch.cuda.empty_cache()
-    phase_parity()
-    phase_serve_parity()
-    phase_rwkv_parity()
-    phase_rwkv_recurrence(dev)
-    torch.cuda.empty_cache()
-    main_res = phase_main(dev)
+    run("build", phase_build)
+    kern = run("kernels", phase_kernels, dev)
+    run("parity", phase_parity)
+    run("serve_parity", phase_serve_parity)
+    run("rwkv_parity", phase_rwkv_parity)
+    run("rwkv_recurrence", phase_rwkv_recurrence, dev)
+    main_res = run("main", phase_main, dev)
     paths = {"main": main_res["launches"]}
-    torch.cuda.empty_cache()
-    paths["main_no_la"] = phase_main_no_la(dev)["launches"]
-    torch.cuda.empty_cache()
-    paths["mesh_one_rank"] = phase_mesh_one_rank(
-        main_res["losses"])["launches"]
-    paths["mesh_card"] = phase_mesh_card(main_res["losses"])["launches"]
-    torch.cuda.empty_cache()
-    serve = phase_serve(dev)
+    paths["main_no_la"] = run("main_no_la", phase_main_no_la,
+                              dev)["launches"]
+    nmt = run("nmt", phase_nmt, dev)
+    paths["nmt"] = nmt["launches"]
+    paths["mesh_one_rank"] = run("mesh_one_rank", phase_mesh_one_rank,
+                                 main_res["losses"])["launches"]
+    card = run("mesh_card", phase_mesh_card, main_res["losses"],
+               nmt["losses"])
+    paths["mesh_card"] = card["launches"]
+    paths["mesh_card_nmt"] = card["nmt"]["launches"]
+    serve = run("serve", phase_serve, dev)
     paths["serve"] = serve["launches"]
-    torch.cuda.empty_cache()         # phi3's server is gone: free its blocks
-    paths["rwkv_serve"] = phase_rwkv_serve(dev)["launches"]
+    paths["rwkv_serve"] = run("rwkv_serve", phase_rwkv_serve,
+                              dev)["launches"]
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} not launched on {path}")
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "phase_seconds": seconds})
     print(info["nvidia_smi"], flush=True)
     rows = []
     for name, meta in KERNELS.items():

@@ -23,8 +23,12 @@ axis that is not a batch axis has size 1 and every dense parameter
 exchanges by all-reduce. Elsewhere ``assign_buckets`` returns None and the
 step exchanges tensor by tensor. Multi-host meshes with inter-tier
 constants may give a bucket the two-level schedule (``_two_level_psum``).
-The fused bucket-apply (``update_fused``) comes with ROADMAP slice 2 item
-8: the optimizer here walks the parameters one by one.
+
+Fused bucket-apply: where ``fused_apply_eligible`` holds, ``plan_buckets``
+stamps ``Plan.fused_apply`` and the exchange hands back each bucket's
+post-all-reduce flat buffer beside the per-leaf slices; the optimizer
+(``optim/optimizer.py::update_fused``) applies straight from those
+buffers against m/v/EMA laid out one flat buffer per bucket.
 """
 from __future__ import annotations
 
@@ -174,10 +178,25 @@ def assign_buckets(plan: Plan, rt) -> Optional[BucketPlan]:
                           if p.sparse and p.method == "mpi_gatherv"))
 
 
+def fused_apply_eligible(plan: Plan, rt) -> bool:
+    """Can the optimizer apply bucket-natively (``update_fused``)? It
+    needs the bucketed exchange (the flat post-all-reduce buffers exist),
+    an optimizer with a fused path, optimizer state beside its parameter
+    (zero_stage 0: a flat buffer has no per-leaf dimension to shard) and
+    OPAU (the fused global norm is the partial-sum form)."""
+    rc = rt.run_cfg
+    return bool(plan.bucket_plan is not None and rc.fused_apply
+                and rc.optimizer in ("adamw", "momentum")
+                and rc.zero_stage == 0 and rc.opau)
+
+
 def plan_buckets(plan: Plan, rt) -> None:
     """Planner hook: (re)compute the bucket assignment in place, after the
-    memory escalation (an fsdp flip vetoes bucketing)."""
+    memory escalation (an fsdp flip vetoes bucketing), and stamp the
+    fused-apply eligibility: the optimizer-state layout is part of the
+    plan."""
     plan.bucket_plan = assign_buckets(plan, rt)
+    plan.fused_apply = fused_apply_eligible(plan, rt)
 
 
 # ---------------------------------------------------------------------------
@@ -219,24 +238,26 @@ def _slice_back(b: Bucket, buf: torch.Tensor, like: list) -> list:
 
 
 def _exchange_bucket(b: Bucket, grads: list, scale: float, bp: BucketPlan,
-                     mesh) -> list:
+                     mesh) -> tuple:
     """The fused exchange of ONE bucket: flatten -> x 1/N -> wire cast ->
     one all-reduce (ring or two-level) -> slice back to the members'
-    shapes and dtypes."""
+    shapes and dtypes. Returns (the members' gradients, the post-all-reduce
+    flat wire buffer that the fused apply reads)."""
     wire = _flat_wire(b, grads, scale)
     if b.schedule == "two_level":
         buf = _two_level_psum(wire, bp.batch_axes, bp.dims.local_replicas,
                               mesh)
     else:
         buf = coll.all_reduce(wire, bp.batch_axes, mesh)
-    return _slice_back(b, buf, grads)
+    return _slice_back(b, buf, grads), buf
 
 
 class OverlapExchange:
     """Issues each bucket's all-reduce from the gradient hooks of its
     members, when the last of them has accumulated (``overlap=True``).
     ``begin()`` arms it for one backward; ``finish()`` waits for every
-    bucket and returns {leaf index: exchanged gradient}."""
+    bucket and returns ({leaf index: exchanged gradient}, [each bucket's
+    post-all-reduce flat buffer])."""
 
     def __init__(self, bp: BucketPlan, params: list, mesh):
         self.bp, self.mesh = bp, mesh
@@ -272,16 +293,17 @@ class OverlapExchange:
         self._pending = {}
         self.armed = True
 
-    def finish(self) -> dict:
+    def finish(self) -> tuple:
         self.armed = False
-        out = {}
+        out, bufs = {}, []
         for k, b in enumerate(self.bp.buckets):
             buf, work, grads = self._pending.pop(k)
             if work is not None:
                 work.wait()
             for i, g in zip(b.idx, _slice_back(b, buf, grads)):
                 out[i] = g
-        return out
+            bufs.append(buf)
+        return out, bufs
 
 
 def fused_metrics(loss: torch.Tensor, metrics: dict, axes: tuple, mesh,

@@ -154,6 +154,9 @@ class Plan:
     embed_method: str = "ps"           # the "embed" table's exchange method
     bucket_plan: Any = None            # core/buckets.py BucketPlan (None =
                                        # per-tensor dense collectives)
+    fused_apply: bool = False          # the optimizer applies straight from
+                                       # the flat bucket buffers (fused
+                                       # m/v/EMA layout; optim/optimizer.py)
     # ---- per-parameter planning (one record per sparse table) ----
     table_methods: dict = field(default_factory=dict)   # name -> method
     table_capacity: dict = field(default_factory=dict)  # name -> buffer rows

@@ -50,7 +50,8 @@ from repro_torch.core.runtime import Runtime, check_ported, mesh_dims
 from repro_torch.launch.mesh import Mesh, MeshShape
 from repro_torch.models.layers import flatten_specs, init_param
 from repro_torch.models.model import build_model
-from repro_torch.optim.optimizer import Optimizer, TrainState, make_optimizer
+from repro_torch.optim.optimizer import (Optimizer, TrainState, fuse_state,
+                                         make_optimizer, unfuse_state)
 from repro_torch.utils.dtypes import torch_dtype
 from repro_torch.utils.tree import named_parameters
 from repro_torch.weights import shard_params
@@ -220,9 +221,11 @@ def _fsdp_dim(held: tuple, batch_axes: tuple, mesh) -> Optional[tuple]:
 
 
 def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
-    """(state, batch) -> ((loss, metrics), grads) on a mesh: this rank's
-    loss of its replica's rows, backward, then every gradient exchanged by
-    its plan — the average over the replicas, at its wire dtype."""
+    """(state, batch) -> ((loss, metrics), grads, bufs) on a mesh: this
+    rank's loss of its replica's rows, backward, then every gradient
+    exchanged by its plan — the average over the replicas, at its wire
+    dtype. ``bufs``: each bucket's post-all-reduce flat buffer (empty
+    without a bucket plan), which the fused apply reads."""
     mesh, ba = rt.mesh, tuple(rt.batch_axes)
     n_rep = rt.replicas
     scale = 1.0 / n_rep
@@ -276,7 +279,7 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
             loss.backward()
         finally:
             rt.deferred_pushes = None
-        done = overlap.finish() if overlap is not None else {}
+        done, bufs = overlap.finish() if overlap is not None else ({}, [])
         local = {n: (full[n].grad if n in full else own[n].grad)
                  for n in names}
         for p in own.values():
@@ -288,9 +291,10 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
         grads = {}
         if bp is not None and overlap is None:
             for b in bp.buckets:
-                ex = buckets._exchange_bucket(
+                ex, buf = buckets._exchange_bucket(
                     b, [local[names[i]] for i in b.idx], scale, bp, mesh)
                 done.update(zip(b.idx, ex))
+                bufs.append(buf)
         for i, n in enumerate(names):
             grads[n] = done[i] if i in bucketed else exchange(n, local[n])
         if bp is None:
@@ -299,7 +303,7 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
             grads = opsw_cast(grads, plan)
         loss, metrics = buckets.fused_metrics(loss.detach(), metrics, ba,
                                               mesh, n_rep)
-        return (loss, metrics), grads
+        return (loss, metrics), grads, bufs
 
     return value_and_grad
 
@@ -307,7 +311,13 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
 def make_train_step(model, optimizer: Optimizer, rt: Runtime,
                     plan: Plan) -> Callable:
     """(state, batch) -> (state, metrics). ``batch`` holds tensors on the
-    model's device (this replica's rows on a mesh)."""
+    model's device (this replica's rows on a mesh). When the plan stamps
+    ``fused_apply`` the optimizer applies bucket-natively from the
+    exchange's flat buffers (``update_fused``, against the fused state
+    that ``build_step`` lays out); an optimizer without a fused path
+    (sgd) drops the stamp."""
+    if plan.fused_apply and optimizer.update_fused is None:
+        plan.fused_apply = False
 
     def value_and_grad(state: TrainState, batch: dict):
         params = state.params
@@ -318,15 +328,19 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
             p.grad = None      # the step owns its gradients from here on
-        return (loss.detach(), metrics), opsw_cast(grads, plan)
+        return (loss.detach(), metrics), opsw_cast(grads, plan), []
 
     if rt.mesh is not None:
         value_and_grad = _mesh_value_and_grad(model, rt, plan)
 
     def train_step(state: TrainState, batch: dict):
-        (loss, metrics), grads = value_and_grad(state, batch)
+        (loss, metrics), grads, bufs = value_and_grad(state, batch)
         metrics = dict(metrics)
-        state, opt_metrics = optimizer.update(state, grads)
+        if plan.fused_apply:
+            state, opt_metrics = optimizer.update_fused(
+                state, grads, bufs, plan.bucket_plan)
+        else:
+            state, opt_metrics = optimizer.update(state, grads)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
         return state, metrics
@@ -380,7 +394,10 @@ def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
                ) -> tuple:
     """-> (train step, state). ``params``: {dotted_name: whole tensor} to
     start from (e.g. weights.load_reference_params); None draws a fresh
-    init from ``seed``. On a mesh each rank keeps its shards."""
+    init from ``seed``. On a mesh each rank keeps its shards. When the plan
+    stamps ``fused_apply`` the optimizer memory is laid out per bucket
+    here (``Runner.state`` hands it out per parameter). Moving fused state
+    across a replan waits for the replan loop (ROADMAP slice 3)."""
     check_ported(rt.run_cfg, rt.mesh)
     if params is None:
         init_params_(model, seed)
@@ -394,8 +411,11 @@ def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
                     f"parameter (ZeRO-1, zero_stage {plan.zero_stage}) is "
                     "not ported yet: ROADMAP Queue 1")
         place_params_(model, plan, rt.mesh)
+    step = make_train_step(model, optimizer, rt, plan)
     state = optimizer.init(named_parameters(model))
-    return make_train_step(model, optimizer, rt, plan), state
+    if plan.fused_apply:
+        state = fuse_state(state, plan.bucket_plan)
+    return step, state
 
 
 @dataclass
@@ -405,7 +425,13 @@ class Runner:
     plan: Plan
     rt: Runtime
     train_step: Callable
-    state: TrainState
+    live_state: TrainState      # the layout the step runs (fused or not)
+
+    @property
+    def state(self) -> TrainState:
+        """The canonical per-param state: a fused layout's moments and
+        shadows as per-parameter views of its flat buffers."""
+        return unfuse_state(self.live_state, self.plan.bucket_plan)
 
     def run(self, batch: dict) -> dict:
         """One training step on the global batch (numpy arrays or
@@ -418,7 +444,7 @@ class Runner:
                      for k, v in batch.items()}
         batch = {k: torch.as_tensor(v).to(rt.device)
                  for k, v in batch.items()}
-        self.state, metrics = self.train_step(self.state, batch)
+        self.live_state, metrics = self.train_step(self.live_state, batch)
         return metrics
 
 
@@ -442,7 +468,7 @@ def get_runner(model_cfg: ModelConfig, shape_cfg: ShapeConfig,
     optimizer = make_optimizer(rt)
     step, state = build_step(model, optimizer, rt, plan, params, seed=seed)
     return Runner(model=model, optimizer=optimizer, plan=plan, rt=rt,
-                  train_step=step, state=state)
+                  train_step=step, live_state=state)
 
 
 # ---------------------------------------------------------------------------

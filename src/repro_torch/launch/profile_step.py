@@ -1,9 +1,12 @@
 """Where the time of one training step goes, on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_step
+    PYTHONPATH=src python -m repro_torch.launch.profile_step \
+        [--arch parallax-lm|parallax-nmt]
 
-Drives the same main path as chip_smoke.py (full-width parallax-lm,
-ShapeConfig("lm1b", 20, 128), default RunConfig) and prints JSON lines:
+Drives the same training path as chip_smoke.py's ``main`` (full-width
+parallax-lm, ShapeConfig("lm1b", 20, 128), default RunConfig) or its
+``nmt`` (full-width parallax-nmt, ShapeConfig("wmt", 50, 128), the
+reference's two-table knobs, AdamW at 1e-4) and prints JSON lines:
 
   stages    per-step device time of the forward (lookup, LSTM, head, loss),
             the backward, and the update (OPSW cast, clipping, AdamW), from
@@ -13,11 +16,12 @@ ShapeConfig("lm1b", 20, 128), default RunConfig) and prints JSON lines:
             the device's idle share (1 - union of kernel intervals /
             profiled wall window).
 
-The chrome trace goes to results/profile_step/trace.json. Needs a card;
-without one it exits non-zero.
+The chrome trace goes to results/profile_step/trace.json (parallax-nmt:
+nmt_trace.json). Needs a card; without one it exits non-zero.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import sys
@@ -35,6 +39,25 @@ from repro_torch.data import SyntheticLM
 
 STEPS = 3
 OUT = Path(__file__).resolve().parents[3] / "results" / "profile_step"
+# arch -> (shape, RunConfig, SyntheticLM options, trace file): the
+# training paths chip_smoke.py drives as main and nmt. parallax-nmt takes
+# the reference's two-table knobs and AdamW at 1e-4: at the default 1e-3
+# its full-width loss spikes by the third step (in bf16 and f32, with the
+# embed kernels or their plain versions alike: the model's math)
+CELLS = {
+    "parallax-lm": (ShapeConfig("lm1b", seq_len=20, global_batch=128,
+                                kind="train"), RunConfig(), {},
+                    "trace.json"),
+    "parallax-nmt": (ShapeConfig("wmt", seq_len=50, global_batch=128,
+                                 kind="train"),
+                     RunConfig(capacity_mode="capped", capacity_factor=1.5,
+                               link_latency=0.0,
+                               table_zipf=(("embed", 1.3),),
+                               table_alpha=(("enc_embed", 0.99),),
+                               learning_rate=1e-4),
+                     {"is_encdec": True, "src_zipf_a": 0.0},
+                     "nmt_trace.json"),
+}
 
 # kernel-name fragment -> class, first match wins
 CLASSES = (
@@ -138,20 +161,25 @@ def profiled(fn, per: int, trace_path: Path, top: int = 10) -> dict:
             "top_kernels_ms": [[n[:120], v / 1e3 / per] for n, v in names]}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=sorted(CELLS), default="parallax-lm")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("parallax-lm")
-    shape = ShapeConfig("lm1b", seq_len=20, global_batch=128, kind="train")
-    runner = get_runner(cfg, shape, RunConfig(), device="cuda")
-    ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch)
+    cfg = get_config(args.arch)
+    shape, rc, data_kw, trace = CELLS[args.arch]
+    runner = get_runner(cfg, shape, rc, device="cuda")
+    ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
+                     **data_kw)
     warm = [ds.batch(i) for i in range(2)]
     for b in warm:
         runner.run(b)
     torch.cuda.synchronize()
     stages = _stage_times(runner, [ds.batch(i) for i in range(2, 5)])
-    _emit({"phase": "stages", "device": torch.cuda.get_device_name(0),
+    _emit({"phase": "stages", "arch": cfg.name,
+           "device": torch.cuda.get_device_name(0),
            **stages, "step_ms": sum(stages.values())})
 
     batches = [ds.batch(i) for i in range(5, 5 + STEPS)]
@@ -160,8 +188,8 @@ def main() -> None:
         for b in batches:
             runner.run(b)
 
-    _emit({"phase": "profile", "steps": STEPS,
-           **profiled(steps, STEPS, OUT / "trace.json", top=15)})
+    _emit({"phase": "profile", "arch": cfg.name, "steps": STEPS,
+           **profiled(steps, STEPS, OUT / trace, top=15)})
 
 if __name__ == "__main__":
     main()

@@ -1,11 +1,19 @@
-"""The paper's LM (Jozefowicz BIGLSTM, 800k vocab) — the port of
-``repro/models/lstm.py``, decoder-only (``parallax-lm``).
+"""The paper's own models — the port of ``repro/models/lstm.py``: the LM
+(Jozefowicz BIGLSTM, 800k vocab; ``parallax-lm``) and the NMT (GNMT-style
+LSTM encoder-decoder; ``parallax-nmt``).
 
-LSTM-with-projection cell, a Python loop over time. The embedding table
+LSTM-with-projection cell, a Python loop over time. Each embedding table
 goes through the PS pull/push (core/embedding.py, the two CUDA kernels on
-the card); the gate, projection and logit products are plain
-``torch.matmul``, as the reference leaves them to XLA. The encoder-decoder
-branch (``parallax-nmt``) comes with ROADMAP slice 2 item 6.
+the card) under its own planned exchange: the NMT's target table
+``embed`` and source table ``enc_embed`` may ride different methods. The
+gate, projection, attention and logit products are plain
+``torch.matmul``, as the reference leaves them to XLA.
+
+The encoder is what the reference computes: a unidirectional stack run
+from zero states (the config's "bidirectional" describes GNMT, not the
+reference). The decoder attends to its outputs with the reference's
+GNMT-lite dot attention in f32; ``[x, ctx] @ attn_mix`` feeds the head.
+The reference serves no encoder-decoder model, so neither does the port.
 
 Dtypes follow the reference step for step: the lookup returns rows in the
 table dtype, cast to the compute dtype; gates are summed in the compute
@@ -35,17 +43,22 @@ def lstm_cell_specs(d_in: int, hidden: int, proj: int) -> dict:
 
 
 def model_specs(cfg, rt) -> dict:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            "the LSTM encoder-decoder (parallax-nmt) is ROADMAP slice 2 "
-            "item 6")
     d, hidden = cfg.d_model, cfg.d_ff
     vp = rt.padded_vocab
-    return {
+    specs = {
         "embed": ParamSpec((vp, d), ("vocab", "embed"), init="embed", sparse=True),
         "layers": stack_tree(lstm_cell_specs(d, hidden, d), cfg.n_layers),
         "head": ParamSpec((vp, d), ("vocab", "embed"), scale=0.02),
     }
+    if cfg.is_encdec:
+        specs["enc_layers"] = stack_tree(
+            lstm_cell_specs(d, hidden, d), cfg.enc_layers)
+        specs["enc_embed"] = ParamSpec((vp, d), ("vocab", "embed"),
+                                       init="embed", sparse=True)
+        # simple dot cross-attention mixer (GNMT-lite)
+        specs["attn_mix"] = ParamSpec((2 * d, d), (None, None),
+                                      fan_in_axes=(0,))
+    return specs
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,21 +105,26 @@ def _run_stack(layers_p: dict, x: torch.Tensor, states: tuple) -> tuple:
 
 
 class LSTMLM(nn.Module):
-    """``parallax-lm``: its ``named_parameters()`` carry the reference's
-    dotted names (embed, head, layers.bias, layers.w_h, layers.w_proj,
-    layers.w_x). Parameters are allocated uninitialized; ``init_`` or
-    ``load_`` fills them (core/transform.py::build_step)."""
+    """``parallax-lm`` and ``parallax-nmt``: its ``named_parameters()``
+    carry the reference's dotted names (embed, head, layers.bias,
+    layers.w_h, layers.w_proj, layers.w_x; the NMT adds attn_mix,
+    enc_embed and enc_layers.*), enumerated in JAX's flatten order by
+    ``utils/tree.py::named_parameters``. Parameters are allocated
+    uninitialized; ``init_`` or ``load_`` fills them
+    (core/transform.py::build_step)."""
 
     def __init__(self, cfg, rt):
         super().__init__()
         self.cfg, self.rt = cfg, rt
         specs = model_specs(cfg, rt)
         dev, pdt = rt.device, rt.param_dtype
-        for name in ("embed", "head"):
+        for name in sorted(specs):
             s = specs[name]
-            self.register_parameter(name, nn.Parameter(torch.empty(
-                s.shape, dtype=s.dtype or pdt, device=dev)))
-        self.layers = ParamTree(specs["layers"], pdt, dev)
+            if isinstance(s, dict):
+                self.add_module(name, ParamTree(s, pdt, dev))
+            else:
+                self.register_parameter(name, nn.Parameter(torch.empty(
+                    s.shape, dtype=s.dtype or pdt, device=dev)))
 
     def specs(self) -> dict:
         return model_specs(self.cfg, self.rt)
@@ -119,8 +137,11 @@ class LSTMLM(nn.Module):
         """{name: (shape, dtype)} of one training batch."""
         shape = shape or self.rt.shape_cfg
         b, s = shape.global_batch, shape.seq_len
-        return {"tokens": ((b, s), torch.int32),
-                "labels": ((b, s), torch.int32)}
+        specs = {"tokens": ((b, s), torch.int32),
+                 "labels": ((b, s), torch.int32)}
+        if self.cfg.is_encdec and shape.kind in ("train", "prefill"):
+            specs["src_tokens"] = ((b, s), torch.int32)
+        return specs
 
     def forward(self, batch: dict, state=None) -> tuple:
         """-> (logits (B,S,Vp) in the compute dtype, new state, metrics)."""
@@ -133,8 +154,32 @@ class LSTMLM(nn.Module):
         if state is None:
             state = _init_state(self.cfg, b, self.cfg.n_layers, rt.dtype,
                                 tokens.device)
+        if self.cfg.is_encdec:
+            if "src_tokens" not in batch:
+                raise ValueError(
+                    "parallax-nmt's forward needs the batch's src_tokens; "
+                    "the reference serves no encoder-decoder model")
+            # each table runs its own planned exchange and reports its own
+            # census metrics
+            src, m2 = emb.lookup(self.enc_embed, batch["src_tokens"],
+                                 ctx=rt.embed_ctx("enc_embed"),
+                                 capacity=rt.embed_capacity_for("enc_embed"),
+                                 name="enc_embed")
+            enc_out, _ = _run_stack(
+                dict(self.enc_layers.named_parameters()), src.to(rt.dtype),
+                _init_state(self.cfg, b, self.cfg.enc_layers, rt.dtype,
+                            tokens.device))
+            metrics.update(m2)
         layers = dict(self.layers.named_parameters())
         x, new_state = _run_stack(layers, x, state)
+        if self.cfg.is_encdec:
+            # GNMT-lite dot attention over the encoder states, in f32
+            enc32 = enc_out.float()
+            scores = torch.matmul(x.float(), enc32.transpose(1, 2)) \
+                * (self.cfg.d_model ** -0.5)
+            ctx_vec = torch.matmul(torch.softmax(scores, -1), enc32).to(
+                x.dtype)
+            x = _mm(torch.cat([x, ctx_vec], dim=-1), self.attn_mix)
         if rt.vocab_shards > 1:
             x = coll.copy_to(x, "model", rt.mesh)
         logits = torch.matmul(x, self.head.to(x.dtype).t())

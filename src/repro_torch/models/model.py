@@ -5,7 +5,8 @@ parameters, with ``specs()``, ``param_specs()``, ``input_specs()``,
 ``loss_fn(batch)``, ``prefill_fn(batch)``, ``decode_fn(cache, tokens,
 cache_len)``, ``init_cache(batch, seq)`` and ``prefill_cache_fn(tokens)``
 (None for a family whose recurrent state cannot be bucket-prefilled under
-padding). Ported families: ``lstm`` (the paper's decoder-only LM),
+padding). Ported families: ``lstm`` (the paper's LM and its LSTM
+encoder-decoder NMT, trained; the NMT is not served, as in the reference),
 ``dense`` (serving; its training is ROADMAP slice 4) and ``ssm`` (rwkv6,
 serving; its training waits for slice 4 and a WKV backward). The others
 are refused by name.
@@ -20,7 +21,7 @@ _LATER = {
     "vlm": "slice 6 (the other families)",
     "moe": "slice 6 (the other families)",
     "hybrid": "slice 6 (the other families)",
-    "audio": "slice 6 (the other families)",
+    "audio": "slice 6 item 16 (models/encdec.py)",
 }
 
 

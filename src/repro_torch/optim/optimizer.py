@@ -1,5 +1,5 @@
-"""Optimizers with Parallax placement discipline (the port of the
-per-parameter paths of ``repro/optim/optimizer.py``).
+"""Optimizers with Parallax placement discipline (the port of
+``repro/optim/optimizer.py``).
 
   * Gradient clipping happens AFTER aggregation: the gradients handed to
     ``update`` are already the aggregated ones (this rank's shards), and
@@ -12,8 +12,20 @@ per-parameter paths of ``repro/optim/optimizer.py``).
 Updates run in place under ``torch.no_grad()``: the reference returns new
 arrays, the port overwrites the parameters, moments and shadows it is given
 (the same values; at the paper's LM width a second copy of the tables and
-moments would cost several GB). The fused bucket-apply path
-(``update_fused``) comes with ROADMAP slice 2 item 8.
+moments would cost several GB).
+
+Fused bucket-apply: under the bucketed exchange the all-reduced gradient
+already exists as one flat buffer per bucket. ``fuse_state`` /
+``unfuse_state`` re-lay m/v/EMA as one flat f32 buffer per bucket
+(``{"bucket": [buffers], "leaf": {name: tensor, None where bucketed}}``;
+the parameters stay per leaf, the model needs them), and
+``Optimizer.update_fused`` reads each post-all-reduce buffer against that
+layout: one elementwise chain per bucket for the moments, one per leaf
+only for the parameter write. It replays ``update`` op for op (the wire ->
+parameter dtype -> f32 casts, the norm's partial sums per leaf in the
+leaf's own shape and in flatten order, the moments, bias corrections,
+weight decay, the parameter write and the EMA), so the two are
+bit-identical. ``sgd`` has no fused path.
 """
 from __future__ import annotations
 
@@ -42,6 +54,131 @@ class Optimizer:
     name: str
     init: Callable[[dict], TrainState]
     update: Callable[[TrainState, dict], tuple]
+    # bucket-native apply: (state, grads, flat post-all-reduce bucket
+    # buffers, BucketPlan) -> (state, metrics); None = per-param only
+    update_fused: Optional[Callable] = None
+
+
+# ---------------------------------------------------------------------------
+# the fused bucket-apply state layout
+# ---------------------------------------------------------------------------
+
+def _is_fused_tree(tree) -> bool:
+    return isinstance(tree, dict) and set(tree) == {"bucket", "leaf"}
+
+
+def is_fused(state: Optional[TrainState]) -> bool:
+    """Is this state's optimizer memory in the bucket-fused layout?"""
+    return state is not None and _is_fused_tree(state.m)
+
+
+def bucket_segments(bp) -> dict:
+    """leaf index -> (bucket k, offset, size) over the bucketed leaves."""
+    out = {}
+    for k, b in enumerate(bp.buckets):
+        off = 0
+        for i, sz in zip(b.idx, b.sizes):
+            out[i] = (k, off, sz)
+            off += sz
+    return out
+
+
+def fuse_state(state: Optional[TrainState], bp) -> Optional[TrainState]:
+    """Per-param -> bucket-fused layout: m/v/EMA become one flat f32
+    buffer per bucket, the concatenation of the members' values in bucket
+    order; the per-leaf dict keeps the unbucketed leaves and ``None`` at
+    the bucketed ones. Exact."""
+    if state is None or bp is None or is_fused(state):
+        return state
+    names = list(state.params)
+
+    def fuse(tree):
+        if tree is None:
+            return None
+        bufs = [torch.cat([tree[names[i]].float().reshape(-1)
+                           for i in b.idx]) for b in bp.buckets]
+        leaf = dict(tree)
+        for b in bp.buckets:
+            for i in b.idx:
+                leaf[names[i]] = None
+        return {"bucket": bufs, "leaf": leaf}
+
+    state.m, state.v, state.ema = (fuse(state.m), fuse(state.v),
+                                   fuse(state.ema))
+    return state
+
+
+def unfuse_state(state: Optional[TrainState], bp) -> Optional[TrainState]:
+    """Bucket-fused -> the canonical per-param layout, the exact inverse of
+    ``fuse_state`` for the same bucket plan. A new TrainState whose
+    bucketed entries are views of the flat buffers (the live memory: an
+    in-place write through either layout shows in both)."""
+    if state is None or bp is None or not is_fused(state):
+        return state
+    names = list(state.params)
+
+    def unfuse(tree):
+        if not _is_fused_tree(tree):
+            return tree
+        leaf = dict(tree["leaf"])
+        for i, (k, off, sz) in bucket_segments(bp).items():
+            n = names[i]
+            leaf[n] = tree["bucket"][k][off:off + sz].view(
+                state.params[n].shape)
+        return leaf
+
+    return TrainState(step=state.step, params=state.params,
+                      m=unfuse(state.m), v=unfuse(state.v),
+                      ema=unfuse(state.ema), stale=state.stale)
+
+
+def _wd_segment(b, names: list, weight_decay: float,
+                wd_mask: Optional[dict], device=None):
+    """Per-bucket weight-decay factor: the per-parameter mask expanded
+    over the bucket's member extents (the scalar when there is no mask)."""
+    if not wd_mask:
+        return weight_decay
+    return torch.cat([
+        torch.full((sz,), float(weight_decay) * float(wd_mask[names[i]]),
+                   dtype=torch.float32, device=device)
+        for i, sz in zip(b.idx, b.sizes)])
+
+
+def _fused_grads(state: TrainState, grads: dict, bufs: list, bp,
+                 clip_norm: Optional[float], rt) -> tuple:
+    """The per-param path's gradient chain on the flat buffers: each
+    buffer cast wire -> parameter dtype -> f32 (the slice-back and the
+    update's casts), then clipped. The norm's partials are taken per leaf
+    in the leaf's own shape and in flatten order, as ``global_norm`` takes
+    them (a flat reduction associates differently). -> (f32 buffers, the
+    unbucketed gradients, metrics)."""
+    names = list(state.params)
+    seg = bucket_segments(bp)
+    pdt = [state.params[names[b.idx[0]]].dtype for b in bp.buckets]
+    gbufs = [buf.to(d).float() for buf, d in zip(bufs, pdt)]
+    rest = {n: g for i, (n, g) in enumerate(grads.items()) if i not in seg}
+    metrics = {}
+    if clip_norm is not None:
+        leaves = {}
+        for i, n in enumerate(names):
+            if i in seg:
+                k, off, sz = seg[i]
+                leaves[n] = gbufs[k][off:off + sz].view(
+                    state.params[n].shape)
+            else:
+                leaves[n] = grads[n]
+        gnorm = global_norm(leaves, rt)
+        scale = _clip_scale(gnorm, clip_norm)
+        gbufs = [(gb * scale).to(d).float() for gb, d in zip(gbufs, pdt)]
+        rest = {n: (g.float() * scale).to(g.dtype) for n, g in rest.items()}
+        metrics["grad_norm"] = gnorm
+    return gbufs, rest, metrics
+
+
+def _members(bp, names: list, params: dict):
+    """(bucket k, name, parameter, offset, size) of every bucketed leaf."""
+    for i, (k, off, sz) in bucket_segments(bp).items():
+        yield k, names[i], params[names[i]], off, sz
 
 
 def _f32_scalar(x: torch.Tensor) -> float:
@@ -89,9 +226,13 @@ def global_norm(grads: dict, rt=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads: dict, max_norm: float, rt=None) -> tuple:
     norm = global_norm(grads, rt)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return ({n: (g.float() * scale).to(g.dtype) for n, g in grads.items()},
             norm)
 
@@ -102,6 +243,18 @@ def _ema_update_(ema: Optional[dict], params: dict, decay: float) -> None:
     for n, e in ema.items():
         e.copy_((e.float() * decay
                  + params[n].float() * (1 - decay)).to(e.dtype))
+
+
+def _ema_fused_(state: TrainState, bp, names: list, decay: float) -> None:
+    """``_ema_update_`` on the fused layout: the bucketed shadows are
+    slices of one flat buffer per bucket."""
+    if state.ema is None:
+        return
+    for k, n, p, off, sz in _members(bp, names, state.params):
+        e = state.ema["bucket"][k][off:off + sz].view(p.shape)
+        e.copy_((e.float() * decay + p.float() * (1 - decay)).to(e.dtype))
+    _ema_update_({n: e for n, e in state.ema["leaf"].items()
+                  if e is not None}, state.params, decay)
 
 
 def _ema_init(params: dict, ema_decay: float) -> Optional[dict]:
@@ -127,6 +280,28 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
             v={n: torch.zeros_like(z) for n, z in zeros.items()},
             ema=_ema_init(params, ema_decay))
 
+    def corrections(step: int) -> tuple:
+        # bias corrections in f32, as the reference computes them
+        t = torch.tensor(step, dtype=torch.float32)
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+        return (_f32_scalar(1.0 - f32(b1) ** t),
+                _f32_scalar(1.0 - f32(b2) ** t))
+
+    def moments_(m: torch.Tensor, v: torch.Tensor, g32: torch.Tensor,
+                 bc1: float, bc2: float) -> torch.Tensor:
+        """m, v advanced in place; -> the Adam direction."""
+        m.mul_(b1).add_(g32 * (1 - b1))
+        v.mul_(b2).add_(torch.square(g32) * (1 - b2))
+        return (m / bc1) / (torch.sqrt(v / bc2) + eps)
+
+    def write_(p: torch.Tensor, upd32: torch.Tensor, lr_t, wd) -> None:
+        if weight_decay:
+            upd32 = upd32 + wd * p.float()
+        p.copy_((p.float() - lr_t * upd32).to(p.dtype))
+
+    def wd_of(n: str) -> float:
+        return weight_decay * (1.0 if wd_mask is None else float(wd_mask[n]))
+
     @torch.no_grad()
     def update(state: TrainState, grads: dict) -> tuple:
         metrics = {}
@@ -134,27 +309,48 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
             grads, gnorm = clip_by_global_norm(grads, clip_norm, rt)
             metrics["grad_norm"] = gnorm
         step = state.step + 1
-        # bias corrections in f32, as the reference computes them
-        t = torch.tensor(step, dtype=torch.float32)
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
-        bc1 = _f32_scalar(1.0 - f32(b1) ** t)
-        bc2 = _f32_scalar(1.0 - f32(b2) ** t)
+        bc1, bc2 = corrections(step)
         lr_t = lr_fn(step)
         for n, p in state.params.items():
-            g32 = grads[n].float()
-            m, v = state.m[n], state.v[n]
-            m.mul_(b1).add_(g32 * (1 - b1))
-            v.mul_(b2).add_(torch.square(g32) * (1 - b2))
-            upd32 = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            if weight_decay:
-                wdm = 1.0 if wd_mask is None else float(wd_mask[n])
-                upd32 = upd32 + (weight_decay * wdm) * p.float()
-            p.copy_((p.float() - lr_t * upd32).to(p.dtype))
+            upd32 = moments_(state.m[n], state.v[n], grads[n].float(),
+                             bc1, bc2)
+            write_(p, upd32, lr_t, wd_of(n))
         _ema_update_(state.ema, state.params, ema_decay)
         state.step = step
         return state, metrics
 
-    return Optimizer("adamw", init, update)
+    @torch.no_grad()
+    def update_fused(state: TrainState, grads: dict, bufs: list,
+                     bp) -> tuple:
+        """Bucket-native adamw: each all-reduced flat buffer drives one
+        moment chain against the fused m/v buffers; the unbucketed leaves
+        (the sparse tables' pushed gradients) walk the per-leaf path."""
+        names = list(state.params)
+        gbufs, rest, metrics = _fused_grads(state, grads, bufs, bp,
+                                            clip_norm, rt)
+        step = state.step + 1
+        bc1, bc2 = corrections(step)
+        lr_t = lr_fn(step)
+        upd = [moments_(state.m["bucket"][k], state.v["bucket"][k], g32,
+                        bc1, bc2) for k, g32 in enumerate(gbufs)]
+        wd_segs = [_wd_segment(b, names, weight_decay, wd_mask,
+                               upd[k].device)
+                   for k, b in enumerate(bp.buckets)] if weight_decay \
+            else None
+        for k, n, p, off, sz in _members(bp, names, state.params):
+            wd = wd_segs[k] if wd_segs else 0.0
+            if isinstance(wd, torch.Tensor):
+                wd = wd[off:off + sz].view(p.shape)
+            write_(p, upd[k][off:off + sz].view(p.shape), lr_t, wd)
+        for n, g in rest.items():
+            upd32 = moments_(state.m["leaf"][n], state.v["leaf"][n],
+                             g.float(), bc1, bc2)
+            write_(state.params[n], upd32, lr_t, wd_of(n))
+        _ema_fused_(state, bp, names, ema_decay)
+        state.step = step
+        return state, metrics
+
+    return Optimizer("adamw", init, update, update_fused)
 
 
 def momentum(lr: float | Callable = 1e-2, mu: float = 0.9,
@@ -169,6 +365,9 @@ def momentum(lr: float | Callable = 1e-2, mu: float = 0.9,
                for n, p in params.items()},
             v=None, ema=_ema_init(params, ema_decay))
 
+    def write_(p: torch.Tensor, m: torch.Tensor, lr_t) -> None:
+        p.copy_((p.float() - lr_t * m).to(p.dtype))
+
     @torch.no_grad()
     def update(state: TrainState, grads: dict) -> tuple:
         metrics = {}
@@ -180,12 +379,32 @@ def momentum(lr: float | Callable = 1e-2, mu: float = 0.9,
         for n, p in state.params.items():
             m = state.m[n]
             m.mul_(mu).add_(grads[n].float())
-            p.copy_((p.float() - lr_t * m).to(p.dtype))
+            write_(p, m, lr_t)
         _ema_update_(state.ema, state.params, ema_decay)
         state.step = step
         return state, metrics
 
-    return Optimizer("momentum", init, update)
+    @torch.no_grad()
+    def update_fused(state: TrainState, grads: dict, bufs: list,
+                     bp) -> tuple:
+        names = list(state.params)
+        gbufs, rest, metrics = _fused_grads(state, grads, bufs, bp,
+                                            clip_norm, rt)
+        step = state.step + 1
+        lr_t = lr_fn(step)
+        for m, g32 in zip(state.m["bucket"], gbufs):
+            m.mul_(mu).add_(g32)
+        for k, n, p, off, sz in _members(bp, names, state.params):
+            write_(p, state.m["bucket"][k][off:off + sz].view(p.shape), lr_t)
+        for n, g in rest.items():
+            m = state.m["leaf"][n]
+            m.mul_(mu).add_(g.float())
+            write_(state.params[n], m, lr_t)
+        _ema_fused_(state, bp, names, ema_decay)
+        state.step = step
+        return state, metrics
+
+    return Optimizer("momentum", init, update, update_fused)
 
 
 def sgd(lr: float | Callable = 1e-2,

@@ -104,7 +104,9 @@ def test_loss_and_gradients_match_reference(dtype):
 
 
 def test_encdec_and_other_families_are_refused():
-    for arch in ("parallax-nmt", "phi3-medium-14b", "rwkv6-7b"):
+    # parallax-nmt trains since its port (tests/test_torch_nmt.py); the
+    # families whose training is not ported yet are still refused
+    for arch in ("phi3-medium-14b", "rwkv6-7b"):
         cfg = tc.reduced(tc.get_config(arch))
         rt = Runtime(cfg, tc.RunConfig(), tc.ShapeConfig("t", 8, 2, "train"),
                      device="cpu")

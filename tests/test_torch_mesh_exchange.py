@@ -205,17 +205,18 @@ def _bucket_rank(rank, world):
                        nbytes=4 * sum(g.numel() for g in grads))
     bp = buckets.BucketPlan(buckets=[b], batch_axes=("data",), replicas=4,
                             n_params=3, wire_bytes=b.nbytes, bucket_bytes=0)
-    fused = buckets._exchange_bucket(b, grads[::-1], 0.25, bp, m)
+    fused, buf = buckets._exchange_bucket(b, grads[::-1], 0.25, bp, m)
     per_tensor = [coll.all_reduce((g * 0.25), "data", m) for g in grads[::-1]]
     # the same exchange issued from the gradient hooks during a backward
     params = [torch.nn.Parameter(torch.zeros(s)) for s in SIZES]
     ov = buckets.OverlapExchange(bp, params, m)
     ov.begin()
     sum((p * g).sum() for p, g in zip(params, grads)).backward()
-    hooked = ov.finish()
+    hooked, hooked_bufs = ov.finish()
     return {"fused": [t.numpy() for t in fused],
             "per_tensor": [t.numpy() for t in per_tensor],
-            "hooked": [hooked[i].numpy() for i in (2, 1, 0)]}
+            "hooked": [hooked[i].numpy() for i in (2, 1, 0)],
+            "buf": buf.numpy(), "hooked_buf": hooked_bufs[0].numpy()}
 
 
 def test_bucketed_all_reduce_equals_per_tensor():
@@ -223,6 +224,11 @@ def test_bucketed_all_reduce_equals_per_tensor():
         for a, b, c in zip(r["fused"], r["per_tensor"], r["hooked"]):
             np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
             np.testing.assert_array_equal(a, c)
+        # the flat buffer the fused apply reads: the members' slices, in
+        # bucket order, from both issue points
+        flat = np.concatenate([a.reshape(-1) for a in r["fused"]])
+        np.testing.assert_array_equal(r["buf"], flat)
+        np.testing.assert_array_equal(r["hooked_buf"], flat)
 
 
 def _two_level_rank(rank, world):

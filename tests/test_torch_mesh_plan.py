@@ -1,4 +1,5 @@
-"""The port's planner on a mesh against the JAX package's, field for field.
+"""The port's planner on a mesh against the JAX package's, field for field,
+for parallax-lm and for parallax-nmt (two sparse tables on one plan).
 
 The reference plans on 8 fake XLA devices in a subprocess
 (``conftest.distributed_run``); the port plans on a ``MeshShape`` of the
@@ -7,9 +8,15 @@ reference's TPU record (the port's default record is the H100's, which
 moves the latency-bound argmins of the reduced model) and the same memory
 budget. Compared: the resolved dense strategy, every table's method,
 capacity and wire dtype, each parameter's method, placement, optimizer
-placement and wire dtype, the per-device bytes of the escalation, and the
-bucket plan (members, sizes, dtypes, placement keys, order, schedule).
+placement and wire dtype, the per-device bytes of the escalation, the
+bucket plan (members, sizes, dtypes, placement keys, order, schedule) and
+the fused-apply stamp. parallax-nmt plans with and without the reference's
+two-table knobs (its tests' capped capacity × 1.5, zero link latency,
+``embed`` declared Zipf 1.3 and ``enc_embed`` α 0.99), and at decode
+shapes with the serve pricing (``test_serve_plan_flips_method_per_table``).
 """
+import math
+
 import pytest
 
 from conftest import distributed_run
@@ -40,6 +47,23 @@ WIDTHS = {
 }
 CASES = [(w, m, mode) for w in WIDTHS for m in MESHES for mode in MODES]
 BUDGET = 0.9 * jroof.HW.hbm_bytes
+TWO_TABLE = dict(capacity_mode="capped", capacity_factor=1.5,
+                 link_latency=0.0, table_zipf=(("embed", 1.3),),
+                 table_alpha=(("enc_embed", 0.99),))
+NMT_WIDTHS = {
+    # the reference's two-table tests' size, at f32
+    "reduced": (256, ("tiny", 32, 4, "train"),
+                dict(param_dtype="float32", compute_dtype="float32",
+                     wire_dtype="float32")),
+    # the published width at GNMT's batch 128 and length 50 (bf16)
+    "full": (None, ("wmt", 50, 128, "train"), {}),
+}
+NMT_MODES = {"default": {}, "two_table": TWO_TABLE}
+NMT_CASES = [(w, m, mode) for w in NMT_WIDTHS for m in MESHES
+             for mode in NMT_MODES]
+# the reference's test_serve_plan_flips_method_per_table
+SERVE_KW = dict(NMT_WIDTHS["reduced"][2], **TWO_TABLE)
+SERVE_KINDS = ("decode", "train")
 
 _REF = """
 from repro.configs import get_config, reduced, RunConfig, ShapeConfig
@@ -57,10 +81,10 @@ def pspec(p):
     return [entry(e) for e in tuple(p)]
 
 out = {{}}
-for width, mesh_shape, mode, red, shape, kw in {cases}:
-    cfg = get_config("parallax-lm")
-    if red:
-        cfg = reduced(cfg)
+for key, arch, mesh_shape, red, shape, kw in {cases}:
+    cfg = get_config(arch)
+    if red is not None:
+        cfg = reduced(cfg, **red)
     mesh = make_mesh(tuple(mesh_shape), ("data", "model"))
     rt = Runtime(cfg, RunConfig(**kw), ShapeConfig(*shape), mesh=mesh)
     model = build_model(cfg, rt)
@@ -68,13 +92,14 @@ for width, mesh_shape, mode, red, shape, kw in {cases}:
     leaves = [p for _, p in named_leaves(plan.params)]
     specs = [s for _, s in named_leaves(model.specs())]
     bp = plan.bucket_plan
-    out["|".join((width, "x".join(map(str, mesh_shape)), mode))] = {{
+    out[key] = {{
         "strategy": rt.resolved_strategy,
         "batch_axes": list(rt.batch_axes), "replicas": rt.replicas,
         "padded_vocab": rt.padded_vocab,
         "tables": plan.tables(), "capacity": plan.capacity,
         "alpha": plan.alpha, "zero_stage": plan.zero_stage,
         "embed_method": plan.embed_method,
+        "fused_apply": plan.fused_apply,
         "params": [[p.name, p.method, pspec(p.pspec), pspec(p.opt_pspec),
                     jnp.dtype(p.wire_dtype).name, p.bytes, p.capacity,
                     p.est_cost] for p in leaves],
@@ -101,13 +126,34 @@ def _pspec(p) -> tuple:
     return tuple(_entry(e) for e in p)
 
 
-@pytest.fixture(scope="module")
-def reference_plans():
-    cases = [(w, m, mode, WIDTHS[w][0], WIDTHS[w][1],
-              dict(WIDTHS[w][2], **MODES[mode])) for w, m, mode in CASES]
+def _key(*parts) -> str:
+    return "|".join(p if isinstance(p, str) else "x".join(map(str, p))
+                    for p in parts)
+
+
+def _reference(cases: list) -> dict:
     code = "import jax.numpy as jnp\n" + _REF.format(cases=repr(cases),
                                                      budget=BUDGET)
     return distributed_run(code, devices=8, timeout=300)
+
+
+@pytest.fixture(scope="module")
+def reference_plans():
+    return _reference([(_key(w, m, mode), "parallax-lm", m,
+                        {} if WIDTHS[w][0] else None, WIDTHS[w][1],
+                        dict(WIDTHS[w][2], **MODES[mode]))
+                       for w, m, mode in CASES])
+
+
+@pytest.fixture(scope="module")
+def reference_nmt_plans():
+    cases = [(_key("nmt", w, m, mode), "parallax-nmt", m,
+              {"vocab": NMT_WIDTHS[w][0]} if NMT_WIDTHS[w][0] else None,
+              NMT_WIDTHS[w][1], dict(NMT_WIDTHS[w][2], **NMT_MODES[mode]))
+             for w, m, mode in NMT_CASES]
+    cases += [(_key("serve", kind), "parallax-nmt", (4, 2), {"vocab": 256},
+               ("probe", 64, 8, kind), SERVE_KW) for kind in SERVE_KINDS]
+    return _reference(cases)
 
 
 def _tpu_hw_for_port():
@@ -120,25 +166,84 @@ def _tpu_hw_for_port():
                           inter_latency=h.inter_latency)
 
 
+def _port_plan(cfg, mesh, shape, kw) -> tuple:
+    ms = MeshShape(mesh, ("data", "model"))
+    rt = Runtime(cfg, tc.RunConfig(**kw), tc.ShapeConfig(*shape), mesh=ms,
+                 device="cpu")
+    model = build_model(cfg, rt)
+    return rt, model, analyze(model, rt, memory_budget=BUDGET)
+
+
 @pytest.mark.distributed
 @pytest.mark.parametrize("width,mesh,mode", CASES,
                          ids=["-".join((w, "x".join(map(str, m)), mode))
                               for w, m, mode in CASES])
 def test_mesh_plan_matches_reference(reference_plans, monkeypatch, width,
                                      mesh, mode):
-    want = reference_plans["|".join((width, "x".join(map(str, mesh)),
-                                     mode))]
+    want = reference_plans[_key(width, mesh, mode)]
     monkeypatch.setattr(tcm, "HW", _tpu_hw_for_port())
     red, shape, kw = WIDTHS[width]
     cfg = tc.get_config("parallax-lm")
     if red:
         cfg = tc.reduced(cfg)
-    ms = MeshShape(mesh, ("data", "model"))
-    rt = Runtime(cfg, tc.RunConfig(**kw, **MODES[mode]),
-                 tc.ShapeConfig(*shape), mesh=ms, device="cpu")
-    model = build_model(cfg, rt)
-    got = analyze(model, rt, memory_budget=BUDGET)
+    rt, model, got = _port_plan(cfg, mesh, shape, dict(kw, **MODES[mode]))
+    _assert_plan_matches(want, rt, model, got)
 
+
+@pytest.mark.distributed
+@pytest.mark.parametrize("width,mesh,mode", NMT_CASES,
+                         ids=["-".join((w, "x".join(map(str, m)), mode))
+                              for w, m, mode in NMT_CASES])
+def test_nmt_mesh_plan_matches_reference(reference_nmt_plans, monkeypatch,
+                                         width, mesh, mode):
+    want = reference_nmt_plans[_key("nmt", width, mesh, mode)]
+    monkeypatch.setattr(tcm, "HW", _tpu_hw_for_port())
+    vocab, shape, kw = NMT_WIDTHS[width]
+    cfg = tc.get_config("parallax-nmt")
+    if vocab:
+        cfg = tc.reduced(cfg, vocab=vocab)
+    rt, model, got = _port_plan(cfg, mesh, shape,
+                                dict(kw, **NMT_MODES[mode]))
+    assert set(got.tables()) == {"embed", "enc_embed"}
+    _assert_plan_matches(want, rt, model, got)
+    if mode == "two_table" and mesh == (4, 1):
+        # one analyze(), the skewed table and the near-dense one on
+        # different methods, the fused apply on
+        t = got.tables()
+        assert (t["embed"]["method"], t["enc_embed"]["method"]) == \
+            ("mpi_gatherv", "allreduce")
+        assert got.fused_apply and got.bucket_plan is not None
+
+
+@pytest.mark.distributed
+def test_serve_plan_flips_method_per_table(reference_nmt_plans,
+                                           monkeypatch):
+    """The port of the reference's test of the same name: one analyze() at
+    decode shapes on a (4 data x 2 model) mesh serves the Zipf-skewed
+    table row-sharded (ps_gather, a nonzero per-token price) and the
+    near-dense one replicated (free pulls); the serve pricing rides
+    ``Plan.tables()`` only at decode. Both plans equal the reference's."""
+    monkeypatch.setattr(tcm, "HW", _tpu_hw_for_port())
+    cfg = tc.reduced(tc.get_config("parallax-nmt"), vocab=256)
+    out = {}
+    for kind in SERVE_KINDS:
+        rt, model, plan = _port_plan(cfg, (4, 2), ("probe", 64, 8, kind),
+                                     SERVE_KW)
+        want = reference_nmt_plans[_key("serve", kind)]
+        _assert_plan_matches(want, rt, model, plan)
+        out[kind] = plan.tables()
+    serve, train = out["decode"], out["train"]
+    assert serve["embed"]["method"] == "ps_gather", serve
+    assert serve["enc_embed"]["method"] == "allreduce", serve
+    assert serve["embed"]["serve"]["s_per_token"] > 0.0, serve
+    assert serve["embed"]["serve"]["pull_bytes"] > 0.0
+    assert serve["enc_embed"]["serve"]["s_per_token"] == 0.0
+    assert math.isfinite(serve["embed"]["serve"]["pull_s"])
+    assert train["embed"]["serve"] is None
+    assert train["enc_embed"]["serve"] is None
+
+
+def _assert_plan_matches(want: dict, rt, model, got) -> None:
     assert rt.resolved_strategy == want["strategy"]
     assert list(rt.batch_axes) == want["batch_axes"]
     assert (rt.replicas, rt.padded_vocab) == (want["replicas"],
@@ -147,6 +252,7 @@ def test_mesh_plan_matches_reference(reference_plans, monkeypatch, width,
     assert (got.capacity, got.alpha, got.zero_stage, got.embed_method) == \
         (want["capacity"], want["alpha"], want["zero_stage"],
          want["embed_method"])
+    assert got.fused_apply == want["fused_apply"]
     assert [n for n, *_ in want["params"]] == list(got.params)
     for name, method, pspec, opt, wire, nbytes, cap, cost in want["params"]:
         p = got.params[name]
