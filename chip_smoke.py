@@ -87,6 +87,32 @@ and never prints the final line:
               change no math), both tables pulled on the bulk route and
               pushed one-pass every step (2 + 2 launches a step); median
               step ms, tokens/s, peak memory.
+     train    full-width parallax-lm through the launcher,
+              launch.train.main(TRAIN_ARGS): 12 steps of Zipf(1.3) batches,
+              capped x 1.5 from the uniform estimate (capacity 2,560), a
+              replan every 4 steps. A replan fires and the capacity shrinks
+              to 1.5 x the observed unique count; 12 bulk gathers and 12
+              one-pass scatters, no row dropped; the losses equal a
+              static-plan run's of the same batches bit for bit
+              (deterministic algorithms); both kernels held bitwise
+              against their plain versions at the replanned capacity.
+              Step ms, the trainer's tokens/s, rebuild ms, peak memory;
+              then TRAIN_ARGS once more with deterministic algorithms off
+              (the launcher's own setting; not counted): its step median
+              beside main's of the same call.
+     train_growth  full-width parallax-lm through Trainer: the planner
+              assumes Zipf(1.3) at capacity factor 1.0, the first 4 of 10
+              batches draw uniform ids; replan every 4 steps, drift 50.
+              The burst overflows, the monitor shows the overflow, the
+              replan grows embed's capacity and marks it grown, no row
+              drops after; the launches at each capacity.
+     train_resume  full-width parallax-nmt (the nmt cell) through Trainer:
+              6 steps with a checkpoint every 3 under build/; a fresh
+              trainer restores step 3 and trains to 6: steps 4-6 and every
+              parameter and moment at step 6 equal the uninterrupted
+              run's bit for bit (deterministic algorithms). The
+              checkpoint's bytes, snapshot / write / restore seconds, the
+              disk it used; the directory is removed.
      Then the mesh path (launch/mesh.py ranks, spawned processes):
      mesh_one_rank: the same 3 first steps through get_runner(...,
               mesh=make_mesh((1, 1))) over a one-rank NCCL group: the plan
@@ -115,7 +141,15 @@ and never prints the final line:
               optimizer apply alone fused and per-param (CUDA events on
               rank 0, the other ranks at a barrier), launches per rank (2
               bulk gathers and the enc_embed one-pass push a step; the
-              gatherv push of embed takes the plain scatter).
+              gatherv push of embed takes the plain scatter); (d) the
+              launcher's mesh path: launch.train.main(LAUNCH_MESH_ARGS),
+              reduced parallax-lm on (4, 1) in 4 ranks of its own spawn, a
+              replan every 4 steps that flips embed from the bucketed
+              dense all-reduce to mpi_gatherv, against the static plan's
+              run: losses within 5e-4 + 1e-4 i; each run's seconds; each
+              rank's launches (path mesh_launcher): a bulk gather every
+              step, a one-pass push every step on the all-reduce (the
+              gatherv push takes the plain scatter).
   9. serve    full-width phi3-medium-14b (40 layers, nothing cut), bf16,
               Server(..., RunConfig(attention_impl="pallas"),
               ServerConfig(max_batch=4, max_seq=2048)) on the card: 8
@@ -140,7 +174,8 @@ and never prints the final line:
               (its ms; 32 wkv launches, all on the tensor-core route), peak
               memory.
 
-Each path (main, main_no_la, nmt, mesh_one_rank, mesh_card (a) + (b),
+Each path (main, main_no_la, nmt, train (its adaptive run), train_growth,
+train_resume (both runs), mesh_one_rank, mesh_card (a) + (b),
 mesh_card_nmt = mesh_card (c), serve, rwkv_serve) runs with every launch
 count set to 0 just before it and read just after: the mesh phases in
 each rank's own process (mesh_card's (a), (b) and (c)'s two runs each so,
@@ -272,6 +307,14 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 # (4, 1): the gatherv push of embed takes the plain
                 # scatter, the dense-routed enc_embed's is one-pass
                 "mesh_card_nmt": ("embed_gather", "embed_scatter_add"),
+                # the launcher's own ranks: pulls on the bulk route, the
+                # all-reduce's pushes one-pass until the flip to gatherv
+                "mesh_launcher": ("embed_gather", "embed_scatter_add"),
+                # the training driver: every step pulls on the bulk
+                # route and pushes one-pass, whatever the capacity
+                "train": ("embed_gather", "embed_scatter_add"),
+                "train_growth": ("embed_gather", "embed_scatter_add"),
+                "train_resume": ("embed_gather", "embed_scatter_add"),
                 "serve": ("embed_gather", "flash_attention"),
                 "rwkv_serve": ("embed_gather", "wkv_tc", "wkv_step")}
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
@@ -1657,6 +1700,266 @@ def phase_nmt(dev, steps: int = 10) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the training driver: launch/train.py, runtime/trainer.py, checkpoints
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 12
+TRAIN_ARGS = ["--arch", "parallax-lm", "--seq", str(SEQ), "--batch",
+              str(BATCH), "--steps", str(TRAIN_STEPS), "--capacity-mode",
+              "capped", "--capacity-factor", "1.5", "--replan-every", "4",
+              "--replan-warmup", "2", "--zipf-a", "1.3", "--log-every", "4"]
+
+
+def _summary(rec: dict) -> dict:
+    """A launcher record's numbers: step times from the trainer's
+    monitor (host clock, each step ending in the one metrics transfer)."""
+    ms = [t * 1e3 for t in rec["step_time_s"]]
+    return {"losses": rec["losses"], "step_ms": ms,
+            "median_step_ms": statistics.median(ms),
+            "tokens_per_s_median": statistics.median(rec["tokens_per_s"]),
+            "seconds": rec["seconds"], "replans": rec["replans"],
+            "plan0": rec["plan0"], "plan": rec["plan"]}
+
+
+def _held_at(table, ids, rows) -> dict:
+    """Both embed kernels against their plain versions on these inputs,
+    bit for bit; -> their max abs errors."""
+    got = ops.embed_gather(table, ids, 0)
+    want = ref.embed_gather_ref(table, ids, 0)
+    pushed = ops.embed_scatter_add(ids, rows, table.shape[0])
+    plain = ref.embed_scatter_add_ref(ids, rows, table.shape[0])
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(got), _bits(want)),
+          "embed_gather differs from its plain version at the replanned "
+          "capacity")
+    check(torch.equal(_bits(pushed), _bits(plain)),
+          "embed_scatter_add differs from its plain version at the "
+          "replanned capacity")
+    return {"embed_gather": float((got.float() - want.float()).abs().max()),
+            "embed_scatter_add": float((pushed - plain).abs().max())}
+
+
+def phase_train(dev, main_ms: float) -> dict:
+    """Full-width parallax-lm through the launcher, ``launch.train.main``:
+    12 steps of Zipf(1.3) batches from the uniform estimate's plan (capped
+    x 1.5, capacity 2,560), a replan every 4 steps; then a static-plan run
+    of the same 12 batches (not counted). Deterministic algorithms on.
+    Then the first run once more with them off, as the launcher runs (not
+    counted): its step median beside ``main_ms``, main's in this call."""
+    from repro_torch.launch import train as launch_train
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        ad = launch_train.main(TRAIN_ARGS, device="cuda")
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        trainer = ad.pop("trainer")
+        cap = trainer.plan.table_capacity["embed"]
+        toks = SyntheticLM(VOCAB, SEQ, BATCH).batch(TRAIN_STEPS - 1)["tokens"]
+        flat = torch.from_numpy(np.ascontiguousarray(toks)).reshape(-1)
+        uids, _, _ = dedupe(flat.to(dev), cap, VOCAB, True)
+        rows = torch.randn((cap, E), device=dev).to(torch.bfloat16)
+        errs = _held_at(trainer.model.embed.detach(), uids, rows)
+        history = ad["history"]
+        del trainer, rows
+        torch.cuda.empty_cache()
+        static = launch_train.main(
+            TRAIN_ARGS[:TRAIN_ARGS.index("--replan-every")]
+            + TRAIN_ARGS[TRAIN_ARGS.index("--replan-warmup"):]
+            + ["--replan-every", "0"], device="cuda")
+        static.pop("trainer")
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    free = launch_train.main(TRAIN_ARGS, device="cuda")
+    free.pop("trainer")
+    torch.cuda.empty_cache()
+    res = {"phase": "train", "args": TRAIN_ARGS, **_summary(ad),
+           "static_losses": static["losses"], "launches": counts,
+           "nondeterministic": {k: v for k, v in _summary(free).items()
+                                if k in ("losses", "step_ms",
+                                         "median_step_ms",
+                                         "tokens_per_s_median")},
+           "main_median_step_ms": main_ms,
+           "max_memory_allocated": peak, "held_at_capacity": cap,
+           "max_abs_err": errs,
+           "dropped": [h["embed_dropped"] for h in history],
+           "embed_rows": [h["embed_rows"] for h in history],
+           "nvidia_smi": nvidia_smi(
+               "clocks.sm,power.draw,power.limit,temperature.gpu")}
+    check(len(ad["replans"]) >= 1, f"train: no replan fired {ad['replans']}")
+    first = ad["replans"][0]
+    caps = first["table_capacity"]
+    uniq = [np.unique(SyntheticLM(VOCAB, SEQ, BATCH).batch(i)["tokens"]).size
+            for i in range(first["step"])]
+    check(caps[0]["embed"] == SEQ * BATCH
+          and math.floor(1.5 * min(uniq)) <= caps[1]["embed"]
+          <= math.ceil(1.5 * max(uniq)),
+          f"train: capacity {caps} after batches of {uniq} unique ids")
+    for k in ("embed_gather", "embed_gather_bulk", "embed_scatter_add",
+              "embed_scatter_add_fused"):
+        check(counts[k] == TRAIN_STEPS,
+              f"train: {k} launched {counts[k]} times in {TRAIN_STEPS} steps")
+    check(all(d == 0 for d in res["dropped"]),
+          f"train: rows dropped {res['dropped']}")
+    check(ad["losses"] == static["losses"],
+          f"train: losses {ad['losses']} vs the static plan's "
+          f"{static['losses']}")
+    check(len(free["replans"]) >= 1
+          and all(math.isfinite(x) for x in free["losses"]),
+          f"train, deterministic algorithms off: replans {free['replans']}, "
+          f"losses {free['losses']}")
+    res["rebuild_ms"] = [r["rebuild_s"] * 1e3 for r in ad["replans"]]
+    emit(res)
+    return res
+
+
+def phase_train_growth(dev) -> dict:
+    """Full-width parallax-lm through ``Trainer``: the planner assumes the
+    Zipf(1.3) skew at capacity factor 1.0; the first 4 of 10 batches draw
+    uniform ids and overflow the buffer; a replan every 4 steps with drift
+    50, so only the overflow growth can fire one."""
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = get_config("parallax-lm")
+    shape = ShapeConfig("lm1b", seq_len=SEQ, global_batch=BATCH,
+                        kind="train")
+    rc = RunConfig(zipf_a=1.3, capacity_mode="capped", capacity_factor=1.0,
+                   capacity_growth=1.5, overflow_tolerance=0.5)
+    ds = SyntheticLM(VOCAB, SEQ, BATCH, zipf_a=1.3, burst_steps=4,
+                     burst_zipf_a=0.0)
+    t0 = time.perf_counter()
+    t = Trainer(cfg, shape, rc, TrainerConfig(
+        total_steps=10, replan_every=4, replan_warmup=2, replan_drift=50.0),
+        ds, device=dev)
+    cap0 = t.plan.table_capacity["embed"]
+    steps = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+
+    def on_metrics(step, m):
+        steps.append({"step": step, "loss": m["loss"],
+                      "capacity": m["embed_rows"],
+                      "unique": m["embed_unique"],
+                      "dropped": m["embed_dropped"],
+                      "overflow": m.get("overflow", {}).get("embed", 0.0),
+                      "step_ms": m["step_time_s"] * 1e3,
+                      "launches": ops.launch_counts()})
+
+    t.run(on_metrics=on_metrics)
+    counts = ops.launch_counts()
+    by_cap: dict = {}
+    prev = {k: 0 for k in counts}
+    for s in steps:
+        c = by_cap.setdefault(str(int(s["capacity"])), {
+            k: 0 for k in ("embed_gather_bulk", "embed_scatter_add_fused")})
+        for k in c:
+            c[k] += s["launches"][k] - prev[k]
+        prev = s["launches"]
+    diff = t.replan_history[0] if t.replan_history else {}
+    res = {"phase": "train_growth", "capacity0": cap0,
+           "capacity": t.plan.table_capacity["embed"],
+           "grown": list(t.plan.grown_tables),
+           "replan": {k: diff.get(k) for k in (
+               "step", "capacity_grown", "capacity_drifted",
+               "table_capacity", "rebuild_s")},
+           "steps": [{k: v for k, v in s.items() if k != "launches"}
+                     for s in steps],
+           "launches": counts, "launches_by_capacity": by_cap,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "seconds": time.perf_counter() - t0}
+    check(max(s["dropped"] for s in steps[:4]) > 0,
+          f"train_growth: the burst dropped no row {res['steps']}")
+    check(any(s["overflow"] > 0 for s in steps),
+          "train_growth: the monitor never surfaced the overflow")
+    check(bool(diff) and diff["capacity_grown"]
+          and res["capacity"] > cap0 and res["grown"] == ["embed"],
+          f"train_growth: no growth {res['replan']} {res['grown']}")
+    check(all(s["dropped"] == 0 for s in steps[4:]),
+          f"train_growth: rows dropped after the growth {res['steps']}")
+    check(counts["embed_gather_bulk"] == counts["embed_scatter_add_fused"]
+          == 10, f"train_growth: launches {counts}")
+    del t
+    emit(res)
+    return res
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_train_resume(dev) -> dict:
+    """Full-width parallax-nmt (the ``nmt`` cell) through ``Trainer``: 6
+    steps with a checkpoint every 3 into build/; a fresh trainer restores
+    step 3 and trains to 6. Deterministic algorithms on: steps 4-6 and
+    every parameter and moment at step 6 equal the uninterrupted run's
+    bit for bit."""
+    import shutil
+    from repro_torch.checkpoint.ckpt import state_leaves
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg, shape, rc = _nmt_setup()
+    ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
+                     **CELLS["parallax-nmt"][2])
+    d = ROOT / "build" / "ckpt_resume"
+    shutil.rmtree(d, ignore_errors=True)
+    tcfg = TrainerConfig(total_steps=6, ckpt_dir=str(d), ckpt_every=3)
+    paths = {"launches": {}}
+
+    def run(t):
+        out = []
+        ops.reset_launch_counts()
+        t.run(on_metrics=lambda s, m: out.append(
+            (s, m["loss"], m["step_time_s"] * 1e3)))
+        for k, v in ops.launch_counts().items():
+            paths["launches"][k] = paths["launches"].get(k, 0) + v
+        return out
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = Trainer(cfg, shape, rc, tcfg, ds, device=dev)
+        first = run(t1)
+        want = {p: v.clone() if isinstance(v, torch.Tensor) else v
+                for p, v in state_leaves(t1._canonical_state())}
+        ck = {"snapshot_s": t1.ckpt.snapshot_seconds,
+              "write_s": t1.ckpt.write_seconds,
+              "bytes": _dir_bytes(d / "step_00000003"),
+              "disk_bytes": _dir_bytes(d)}
+        del t1
+        torch.cuda.empty_cache()
+        shutil.rmtree(d / "step_00000006")
+        t2 = Trainer(cfg, shape, rc, tcfg, ds, device=dev)
+        t = time.perf_counter()
+        t2.maybe_restore()
+        ck["restore_s"] = time.perf_counter() - t
+        check(t2.step == 3, f"train_resume: restored step {t2.step}")
+        second = run(t2)
+        got = dict(state_leaves(t2._canonical_state()))
+        same = {p: (torch.equal(_bits(v), _bits(got[p]))
+                    if isinstance(v, torch.Tensor) else v == got[p])
+                for p, v in want.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        del t2
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(d, ignore_errors=True)
+    res = {"phase": "train_resume", "arch": cfg.name,
+           "losses": [x[1] for x in first],
+           "resumed_losses": [x[1] for x in second],
+           "resumed_steps": [x[0] for x in second],
+           "step_ms": [x[2] for x in first + second], "checkpoint": ck,
+           "leaves": len(same), "max_memory_allocated": peak,
+           "launches": paths["launches"]}
+    check(res["resumed_steps"] == [4, 5, 6]
+          and res["resumed_losses"] == res["losses"][3:],
+          f"train_resume: {res['resumed_losses']} vs {res['losses'][3:]}")
+    check(all(same.values()),
+          f"train_resume: leaves differ {[p for p, v in same.items() if not v]}")
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the mesh phases: ranks are spawned processes (launch/mesh.py::spawn)
 # ---------------------------------------------------------------------------
 
@@ -1937,10 +2240,11 @@ def phase_mesh_card(main_losses: list, nmt_losses: list,
                   f"mesh_card full: losses {r['losses']} vs main "
                   f"{main_losses[:steps]}")
     nmt = _check_nmt_card([r["nmt"] for r in ranks], nmt_losses, steps)
+    launcher = _mesh_launcher()
     res = {"phase": "mesh_card", "backend": "gloo", "world": 4,
            "note": "4 ranks on one card over gloo, not a multi-GPU "
                    "exchange time",
-           "nmt": nmt,
+           "nmt": nmt, "launcher": launcher,
            "reduced": {"mesh": [2, 2], "one_device": single,
                        "flag_sets": reduced_rows},
            "full_ps": {"mesh": [1, 4], "main_losses": main_losses[:steps],
@@ -1952,6 +2256,68 @@ def phase_mesh_card(main_losses: list, nmt_losses: list,
            "launches_by_rank": [r["launches"] for r in ranks]}
     emit(res)
     return res
+
+
+# mesh_card (d): the launcher's mesh path. Reduced parallax-lm (bf16, the
+# launcher's defaults) on (4, 1), capped x 1.5, the reference test's link
+# latency 0 (through --hw-profile): the uniform estimate plans embed on the
+# bucketed dense all-reduce, the observed census on mpi_gatherv
+LAUNCH_MESH_ARGS = ["--arch", "parallax-lm", "--reduced", "--seq", "20",
+                    "--batch", "32", "--steps", "8", "--capacity-mode",
+                    "capped", "--capacity-factor", "1.5", "--replan-warmup",
+                    "2", "--devices", "4", "--mesh", "4x1", "--log-every",
+                    "100"]
+
+
+def _mesh_launcher() -> dict:
+    """``launch.train.main([..., "--devices", "4", "--mesh", "4x1"])``
+    twice (each spawns 4 ranks on the one card over gloo): a replan every
+    4 steps, and the static plan. The replan flips embed's method; the
+    losses stay within the reference's 5e-4 + 1e-4 i of the static
+    run's."""
+    from repro_torch.launch import train as launch_train
+    prof = ROOT / "build" / "hw_link_latency_0.json"
+    prof.parent.mkdir(parents=True, exist_ok=True)
+    prof.write_text(json.dumps({"link_latency": 0.0}))
+    argv = LAUNCH_MESH_ARGS + ["--hw-profile", str(prof)]
+    steps = int(argv[argv.index("--steps") + 1])
+    out = {"how": "launch.train.main --devices 4 --mesh 4x1 (its own spawn "
+                  "of 4 gloo ranks on cuda:0)"}
+    for name, every in (("adaptive", "4"), ("static", "0")):
+        t = time.perf_counter()
+        ranks = launch_train.main(argv + ["--replan-every", every],
+                                  device="cuda")
+        out[name] = {"seconds": time.perf_counter() - t,
+                     "losses": ranks[0]["losses"],
+                     "replans": ranks[0]["replans"],
+                     "plan0": ranks[0]["plan0"], "plan": ranks[0]["plan"],
+                     "median_step_ms": statistics.median(
+                         x * 1e3 for x in ranks[0]["step_time_s"]),
+                     "launches_by_rank": [r["launches"] for r in ranks]}
+        check(all(r["losses"] == ranks[0]["losses"] for r in ranks),
+              f"mesh launcher {name}: ranks disagree")
+    ad, st = out["adaptive"], out["static"]
+    flip = [r["step"] for r in ad["replans"]
+            if ["embed", "allreduce", "mpi_gatherv"] in
+            [list(f) for f in r["flips"]]]
+    check(len(flip) == 1 and st["plan0"]["embed"]["method"] == "allreduce",
+          f"mesh launcher: no method flip {ad['replans']}")
+    # the all-reduce's push is one-pass; the gatherv push (after the flip)
+    # takes the plain scatter
+    for run, on_allreduce in ((ad, flip[0]), (st, steps)):
+        for m, c in enumerate(run["launches_by_rank"]):
+            check(c["embed_gather"] == c["embed_gather_bulk"] == steps
+                  and c["embed_scatter_add"] == c["embed_scatter_add_fused"]
+                  == on_allreduce,
+                  f"mesh launcher rank {m}: launches {c}, want {steps} bulk "
+                  f"gathers and {on_allreduce} one-pass pushes")
+    out["launches"] = ad["launches_by_rank"][0]
+    for i, (a, b) in enumerate(zip(ad["losses"], st["losses"])):
+        check(math.isfinite(a) and abs(a - b) < 5e-4 + 1e-4 * i,
+              f"mesh launcher step {i}: {ad['losses']} vs {st['losses']}")
+    out["max_abs_diff"] = max(abs(a - b) for a, b in
+                              zip(ad["losses"], st["losses"]))
+    return out
 
 
 def _check_nmt_card(ranks: list, nmt_losses: list, steps: int) -> dict:
@@ -2025,12 +2391,19 @@ def main() -> None:
                               dev)["launches"]
     nmt = run("nmt", phase_nmt, dev)
     paths["nmt"] = nmt["launches"]
+    paths["train"] = run("train", phase_train, dev,
+                         main_res["median_step_ms"])["launches"]
+    paths["train_growth"] = run("train_growth", phase_train_growth,
+                                dev)["launches"]
+    paths["train_resume"] = run("train_resume", phase_train_resume,
+                                dev)["launches"]
     paths["mesh_one_rank"] = run("mesh_one_rank", phase_mesh_one_rank,
                                  main_res["losses"])["launches"]
     card = run("mesh_card", phase_mesh_card, main_res["losses"],
                nmt["losses"])
     paths["mesh_card"] = card["launches"]
     paths["mesh_card_nmt"] = card["nmt"]["launches"]
+    paths["mesh_launcher"] = card["launcher"]["launches"]
     serve = run("serve", phase_serve, dev)
     paths["serve"] = serve["launches"]
     paths["rwkv_serve"] = run("rwkv_serve", phase_rwkv_serve,

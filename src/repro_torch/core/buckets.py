@@ -29,6 +29,14 @@ stamps ``Plan.fused_apply`` and the exchange hands back each bucket's
 post-all-reduce flat buffer beside the per-leaf slices; the optimizer
 (``optim/optimizer.py::update_fused``) applies straight from those
 buffers against m/v/EMA laid out one flat buffer per bucket.
+
+Magnitude census (``RunConfig.wire_dtype_auto``): each bucket's |g|inf and
+rms over its flat f32 buffer before the wire cast (``gbucket{k}_gmax`` /
+``_grms``), and each sparse table that keeps its own exchange its pushed
+gradient's over the touched rows (``{table}_gmax`` / ``_grms``): this
+replica's values, which the fused metrics all-reduce averages as it does
+every scalar (no collective of their own). The replan loop reads them
+(core/sparsity.py::wire_dtype_hints).
 """
 from __future__ import annotations
 
@@ -77,6 +85,35 @@ class BucketPlan:
     @property
     def dims(self) -> cost_model.MeshDims:
         return cost_model.MeshDims(data=self.replicas, hosts=self.hosts)
+
+    def stats(self, hw=None) -> dict:
+        """Exchange accounting for runtime/monitor.py: the cost model's
+        view of the dense push per step, each bucket priced at its
+        schedule, beside one ring per member tensor unbucketed."""
+        hw = hw or self.hw or cost_model.HW
+        dims = self.dims
+        ring = 2.0 * (self.replicas - 1) / max(self.replicas, 1)
+        tier = cost_model.span_tier(dims, hw)
+        est = 0.0
+        for b in self.buckets:
+            secs = cost_model.dense_schedule_seconds(b.nbytes, dims, hw)
+            est += secs.get(b.schedule, secs["ring"])
+        return {
+            "n_buckets": len(self.buckets),
+            "n_params_bucketed": self.n_params,
+            "n_collectives_dense": len(self.buckets),
+            "n_collectives_unbucketed": self.n_params,
+            "n_two_level": sum(1 for b in self.buckets
+                               if b.schedule == "two_level"),
+            "hosts": self.hosts,
+            "overlap": self.overlap,
+            "n_overlapped_sparse": self.n_sparse_push if self.overlap else 0,
+            "wire_bytes": self.wire_bytes,
+            "bucket_bytes": self.bucket_bytes,
+            "est_seconds": est,
+            "est_seconds_unbucketed": cost_model.exchange_seconds(
+                ring * self.wire_bytes, self.n_params, hw, tier=tier),
+        }
 
 
 def exchange_dtype(rt, p: Optional[ParamPlan] = None) -> torch.dtype:
@@ -221,12 +258,33 @@ def _two_level_psum(buf: torch.Tensor, batch_axes: tuple, local: int,
     return out[:n] if pad else out
 
 
+def _flat32(grads: list, scale: float) -> torch.Tensor:
+    """flatten -> x 1/N: one contiguous f32 buffer."""
+    parts = [(g.float() * scale).reshape(-1) for g in grads]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def magnitude(buf32: torch.Tensor) -> tuple:
+    """The magnitude census of one flat f32 buffer: (|g|inf, rms), taken
+    on what rides the wire before the cast (``wire_dtype_auto``)."""
+    return (torch.max(torch.abs(buf32)),
+            torch.sqrt(torch.mean(torch.square(buf32))))
+
+
+def row_magnitude(g32: torch.Tensor) -> tuple:
+    """The magnitude census of a sparse table's exchanged gradient: |g|inf
+    and the rms over the rows the push touched (zero rows excluded, so the
+    rms is that of the pushed rows, not of the whole table)."""
+    rows = torch.any(g32 != 0.0, dim=tuple(range(1, g32.dim())))
+    width = g32.numel() // g32.shape[0]
+    nnz = torch.clamp(rows.float().sum(), min=1.0)
+    return (torch.max(torch.abs(g32)),
+            torch.sqrt(torch.sum(torch.square(g32)) / (nnz * width)))
+
+
 def _flat_wire(b: Bucket, grads: list, scale: float) -> torch.Tensor:
     """flatten -> x 1/N -> wire cast: one contiguous buffer."""
-    wdt = torch_dtype(b.key[1])
-    parts = [(g.float() * scale).reshape(-1) for g in grads]
-    buf32 = torch.cat(parts) if len(parts) > 1 else parts[0]
-    return buf32.to(wdt)
+    return _flat32(grads, scale).to(torch_dtype(b.key[1]))
 
 
 def _slice_back(b: Bucket, buf: torch.Tensor, like: list) -> list:
@@ -238,12 +296,16 @@ def _slice_back(b: Bucket, buf: torch.Tensor, like: list) -> list:
 
 
 def _exchange_bucket(b: Bucket, grads: list, scale: float, bp: BucketPlan,
-                     mesh) -> tuple:
+                     mesh, census: Optional[list] = None) -> tuple:
     """The fused exchange of ONE bucket: flatten -> x 1/N -> wire cast ->
     one all-reduce (ring or two-level) -> slice back to the members'
     shapes and dtypes. Returns (the members' gradients, the post-all-reduce
-    flat wire buffer that the fused apply reads)."""
-    wire = _flat_wire(b, grads, scale)
+    flat wire buffer that the fused apply reads). ``census``: a list the
+    bucket's ``magnitude`` pair is appended to (``wire_dtype_auto``)."""
+    buf32 = _flat32(grads, scale)
+    if census is not None:
+        census.append(magnitude(buf32))
+    wire = buf32.to(torch_dtype(b.key[1]))
     if b.schedule == "two_level":
         buf = _two_level_psum(wire, bp.batch_axes, bp.dims.local_replicas,
                               mesh)
@@ -257,19 +319,31 @@ class OverlapExchange:
     members, when the last of them has accumulated (``overlap=True``).
     ``begin()`` arms it for one backward; ``finish()`` waits for every
     bucket and returns ({leaf index: exchanged gradient}, [each bucket's
-    post-all-reduce flat buffer])."""
+    post-all-reduce flat buffer]). With ``census`` each bucket's
+    ``magnitude`` pair is left in ``stats``, in bucket order. ``remove()``
+    takes the hooks off the parameters (a replan builds a new exchange)."""
 
-    def __init__(self, bp: BucketPlan, params: list, mesh):
+    def __init__(self, bp: BucketPlan, params: list, mesh,
+                 census: bool = False):
         self.bp, self.mesh = bp, mesh
         self.params = params
         self.scale = 1.0 / bp.replicas
+        self.census = census
+        self.stats: list = []
         self.armed = False
         self._member = {}
+        self._handles = []
         for k, b in enumerate(bp.buckets):
             for i in b.idx:
                 self._member[i] = k
-                params[i].register_post_accumulate_grad_hook(
-                    self._hook(i))
+                self._handles.append(
+                    params[i].register_post_accumulate_grad_hook(
+                        self._hook(i)))
+
+    def remove(self) -> None:
+        for h in self._handles:
+            h.remove()
+        self._handles = []
 
     def _hook(self, i: int):
         def hook(p):
@@ -284,9 +358,11 @@ class OverlapExchange:
     def _issue(self, k: int) -> None:
         b = self.bp.buckets[k]
         grads = [self.params[i].grad for i in b.idx]
-        buf = _flat_wire(b, grads, self.scale)
+        buf32 = _flat32(grads, self.scale)
+        stats = magnitude(buf32) if self.census else None
+        buf = buf32.to(torch_dtype(b.key[1]))
         self._pending[k] = (buf, coll.all_reduce_async(
-            buf, self.bp.batch_axes, self.mesh), grads)
+            buf, self.bp.batch_axes, self.mesh), grads, stats)
 
     def begin(self) -> None:
         self._ready = [set() for _ in self.bp.buckets]
@@ -295,14 +371,16 @@ class OverlapExchange:
 
     def finish(self) -> tuple:
         self.armed = False
-        out, bufs = {}, []
+        out, bufs, self.stats = {}, [], []
         for k, b in enumerate(self.bp.buckets):
-            buf, work, grads = self._pending.pop(k)
+            buf, work, grads, stats = self._pending.pop(k)
             if work is not None:
                 work.wait()
             for i, g in zip(b.idx, _slice_back(b, buf, grads)):
                 out[i] = g
             bufs.append(buf)
+            if stats is not None:
+                self.stats.append(stats)
         return out, bufs
 
 

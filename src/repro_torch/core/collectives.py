@@ -150,3 +150,11 @@ def copy_to(x: torch.Tensor, axes, mesh) -> torch.Tensor:
 
 def reduce_from(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     return _ReduceFrom.apply(x, axes, mesh)
+
+
+def barrier(mesh) -> None:
+    """Every rank of the mesh's group waits for the others (a no-op off a
+    mesh): the trainer's checkpoint hand-off between the writing rank and
+    the readers."""
+    if mesh is not None and dist.is_initialized():
+        dist.barrier()

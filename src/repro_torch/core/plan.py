@@ -13,9 +13,12 @@ model in global semantics, so its LSTM weights are tensor-parallel over
 keeps a parameter sharded over ``model`` only on its vocab dimension (the
 PS tables and the head). ``held`` is ``placement`` with the model axis
 dropped elsewhere; the data-axis (FSDP) entries stay. The values are the
-same either way (ROADMAP Queue 3). ``plan_diff`` comes with slice 3; the
-step refuses optimizer state sharded apart from its parameter (ZeRO-1),
-which the plan records but the port does not execute yet.
+same either way (ROADMAP Queue 3). The step refuses optimizer state
+sharded apart from its parameter (ZeRO-1), which the plan records but the
+port does not execute yet.
+
+``plan_diff`` is the replan loop's test of whether a plan recomputed from
+an observed census differs enough from the live one to rebuild the step.
 """
 from __future__ import annotations
 
@@ -195,6 +198,76 @@ class Plan:
             "stale": t in self.stale_tables,
             "serve": self.table_serve.get(t),
         } for t, m in self.table_methods.items()}
+
+
+def _drifted(old_cap: int, new_cap: int, factor: float) -> bool:
+    hi = max(old_cap, new_cap)
+    lo = max(min(old_cap, new_cap), 1)
+    return old_cap != new_cap and hi / lo >= factor
+
+
+def plan_diff(old: Plan, new: Plan, capacity_drift: float = 1.5) -> dict:
+    """Structural diff between two Plans for the replan loop, key for key
+    the reference's ``plan_diff``.
+
+    ``changed`` is True when any parameter's exchange method flips, any
+    placement or optimizer placement differs (state must move), any wire
+    dtype moves (the step must be rebuilt), any table's capacity drifts by
+    ``capacity_drift``x or more in either direction, the overflow rule grew
+    a table (never deadbanded: rows are being dropped under the live plan),
+    or the plans price different mesh shapes. Dtypes render as the
+    reference's names (``"bfloat16"``). ``stale_flips`` stays empty until
+    the bounded-staleness fallback is ported (ROADMAP slice 7)."""
+    olds = dict(old.params)
+    flips, wire_flips, pspecs_changed = [], [], False
+    for p in new.params.values():
+        q = olds.get(p.name)
+        if q is None:
+            pspecs_changed = True
+            continue
+        if p.method != q.method:
+            flips.append((p.name, q.method, p.method))
+        if dtype_name(p.wire_dtype) != dtype_name(q.wire_dtype):
+            wire_flips.append((p.name, dtype_name(q.wire_dtype),
+                               dtype_name(p.wire_dtype)))
+        if tuple(p.placement) != tuple(q.placement) or \
+                tuple(p.opt_placement) != tuple(q.opt_placement):
+            pspecs_changed = True
+    capacity_drifted = _drifted(old.capacity, new.capacity, capacity_drift)
+    for t, cap in new.table_capacity.items():
+        if t in old.table_capacity:
+            capacity_drifted |= _drifted(old.table_capacity[t], cap,
+                                         capacity_drift)
+    capacity_grown = any(
+        new.table_capacity.get(t, 0) > old.table_capacity.get(t, 0)
+        for t in new.grown_tables)
+    mesh_shape = lambda p: dict(p.mesh.shape) if p.mesh is not None else None
+    mesh_changed = mesh_shape(old) != mesh_shape(new)
+    stale_flips = [
+        (t, t in old.stale_tables, t in new.stale_tables)
+        for t in sorted(set(old.stale_tables) ^ set(new.stale_tables))]
+    return {
+        "changed": bool(flips) or bool(wire_flips) or pspecs_changed
+                   or capacity_drifted or capacity_grown or mesh_changed
+                   or bool(stale_flips),
+        "mesh_changed": mesh_changed,
+        "mesh": (mesh_shape(old), mesh_shape(new)),
+        "rebuilt": False,             # set by the caller that acts on it
+        "flips": flips,
+        "wire_flips": wire_flips,
+        "stale_flips": stale_flips,
+        "pspecs_changed": pspecs_changed,
+        "capacity_drifted": capacity_drifted,
+        "capacity_grown": capacity_grown,
+        "capacity": (old.capacity, new.capacity),
+        "table_capacity": (dict(old.table_capacity),
+                           dict(new.table_capacity)),
+        "table_methods": (dict(old.table_methods), dict(new.table_methods)),
+        "alpha": (old.alpha, new.alpha),
+        "embed_method": (old.embed_method, new.embed_method),
+        "buckets": (len(old.bucket_plan.buckets) if old.bucket_plan else 0,
+                    len(new.bucket_plan.buckets) if new.bucket_plan else 0),
+    }
 
 
 def plan_leaves(plan: Plan) -> list:

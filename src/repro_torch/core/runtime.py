@@ -90,6 +90,9 @@ class Runtime:
         # per-step list the overlap=False step hands the lookups whose
         # push it runs after the backward (core/transform.py)
         self.deferred_pushes: Optional[list] = None
+        # the live step's OverlapExchange (its hooks sit on the
+        # parameters; a rebuilt step takes them off first)
+        self.overlap: Optional[Any] = None
 
     # ---- dtypes ----
     @property

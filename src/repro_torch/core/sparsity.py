@@ -8,15 +8,24 @@ workload:
   α ≈ E[#unique ids per replica-step] / vocab_rows
 
 under the uniform-draw bound ``V·(1 - (1-1/V)^T)`` or, when a skew is
-declared, the folded-Zipf expectation. The runtime profile that refines
-these estimates (``SparsityProfile``, ``observed_census``,
-``wire_dtype_hints``) comes with ROADMAP slice 3.
+declared, the folded-Zipf expectation.
+
+Planning-time estimates are only the opening bid: the paper profiles the
+actual sparsity during the first iterations and re-optimizes the plan.
+``SparsityProfile`` keeps a host-side EMA of the census scalars every step
+emits (``{table}_unique`` / ``{table}_dropped`` from core/embedding.py;
+``gbucket{k}_gmax`` / ``_grms`` and ``{table}_gmax`` / ``_grms`` from
+core/buckets.py under ``RunConfig.wire_dtype_auto``); ``observed_census``
+folds it back into a ``Census`` the planner re-runs on
+(``transform.analyze(census=)``), growing a table whose buffer overflows;
+``wire_dtype_hints`` turns the magnitude census into per-parameter wire
+dtypes. Plain Python and numpy: the port keeps its own copy.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
-from typing import Any
+from dataclasses import dataclass, field, replace
+from typing import Any, Optional
 
 import numpy as np
 
@@ -155,3 +164,197 @@ def run_census(specs: Any, model_cfg: ModelConfig, shape_cfg: ShapeConfig,
     if tables:
         capacity = max(capacity, max(t.capacity for t in tables.values()))
     return Census(dense, sparse, alpha, local_tokens, capacity, tables=tables)
+
+
+# ---------------------------------------------------------------------------
+# runtime profile: observed sparsity (the paper's early-iteration profiling)
+# ---------------------------------------------------------------------------
+
+# metric suffixes the profile EMAs: the sparse census (unique rows,
+# overflow) and the dense-gradient magnitude census (per-bucket |g|inf/rms)
+_PROFILE_SUFFIXES = ("_unique", "_dropped", "_gmax", "_grms")
+
+
+@dataclass
+class SparsityProfile:
+    """Host-side EMA of the in-graph workload census, one entry per metric.
+
+    The jitted step emits ``{table}_unique`` / ``{table}_dropped`` scalars
+    per sparse table (core/embedding.py's dedupe census) and — under the
+    bucketed exchange — ``gbucket{i}_gmax`` / ``gbucket{i}_grms`` dense-
+    gradient magnitude scalars (core/buckets.py); ``update`` folds each
+    host-materialized metrics dict into per-metric EMAs. ``observed_census``
+    turns the profile into a Census the planner re-runs on.
+    """
+    decay: float = 0.9
+    ema: dict = field(default_factory=dict)     # metric name -> EMA count
+    last: dict = field(default_factory=dict)    # metric name -> last count
+    steps: int = 0                              # steps with census data
+
+    def update(self, metrics: dict) -> None:
+        seen = False
+        for k, v in metrics.items():
+            if not k.endswith(_PROFILE_SUFFIXES):
+                continue
+            try:
+                v = float(v)
+            except (TypeError, ValueError):
+                continue
+            seen = seen or k.endswith("_unique")
+            self.last[k] = v
+            prev = self.ema.get(k)
+            self.ema[k] = v if prev is None else \
+                self.decay * prev + (1.0 - self.decay) * v
+        if seen:
+            self.steps += 1
+
+    def ready(self, min_steps: int = 1) -> bool:
+        return bool(self.ema) and self.steps >= min_steps
+
+    @property
+    def observed_unique(self) -> float:
+        """Per-replica unique rows per step (max over sparse params — the
+        capacity-binding table)."""
+        return max((v for k, v in self.ema.items() if k.endswith("_unique")),
+                   default=0.0)
+
+    def unique_for(self, table: str) -> Optional[float]:
+        return self.ema.get(f"{table}_unique")
+
+    def dropped_for(self, table: str) -> float:
+        return self.ema.get(f"{table}_dropped", 0.0)
+
+    def dropped(self, tables=None) -> dict:
+        """Per-table overflow EMA (rows silently zeroed per step) — the
+        signal the monitor surfaces and the growth rule acts on. ``tables``
+        (any container of table names) restricts the sweep to real sparse
+        tables: other subsystems also emit ``*_dropped`` scalars (e.g. the
+        MoE router's ``moe_dropped``) that are not buffer overflow."""
+        out = {k[:-len("_dropped")]: v for k, v in self.ema.items()
+               if k.endswith("_dropped")}
+        if tables is not None:
+            out = {k: v for k, v in out.items() if k in tables}
+        return out
+
+    def alpha(self, vocab: int) -> float:
+        return self.observed_unique / vocab if vocab else 0.0
+
+    def reset_grad_census(self) -> None:
+        """Drop the per-bucket magnitude EMAs. Bucket metrics are keyed by
+        *index*; after a replan regroups the buckets, index i names a
+        different member set, and blending old-layout samples into its EMA
+        would mis-attribute magnitudes across parameters."""
+        for d in (self.ema, self.last):
+            for k in [k for k in d if k.startswith("gbucket")]:
+                del d[k]
+
+
+def observed_census(profile: SparsityProfile, base: Census,
+                    vocab: int, run_cfg: RunConfig,
+                    live: Optional[dict] = None) -> Census:
+    """Fold a runtime profile into a planning Census.
+
+    Per-table: each table whose ``{name}_unique`` EMA has data gets its own
+    measured α and capacity; a table whose ``{name}_dropped`` EMA stays above
+    ``run_cfg.overflow_tolerance`` gets *grown* capacity — measured demand
+    times ``capacity_factor * capacity_growth`` headroom (overflow means the
+    live buffer is provably too small; the plain re-fit alone could sit
+    inside the replan drift deadband forever). Totals and local_tokens stay
+    structural (they don't drift at runtime).
+
+    ``live`` ({table: (capacity, grown)} from the running plan — the
+    trainer passes it) makes growth *sticky*: once the overflow stops, the
+    dropped EMA decays below tolerance, and a bare re-fit would shrink the
+    buffer by exactly ``capacity_growth`` — tripping the drift rule and
+    re-introducing the overflow in an endless grow/shrink/recompile cycle.
+    A previously-grown table therefore keeps growth-headroom sizing
+    (``ceil(unique · factor · growth)``) — once a buffer has overflowed it
+    stays provisioned with headroom, still tracking the demand EMA downward.
+    """
+    if not profile.ema or vocab <= 0:
+        return base
+    uniq = min(profile.observed_unique, vocab, base.local_tokens)
+    alpha = uniq / vocab
+    if run_cfg.capacity_mode == "exact":
+        capacity = base.capacity      # exact mode sizes buffers per call-site
+    else:
+        capacity = min(int(math.ceil(uniq * run_cfg.capacity_factor)),
+                       base.local_tokens, vocab)
+    capacity = max(capacity, 8)
+    tables = {}
+    for name, t in base.tables.items():
+        obs = profile.unique_for(name)
+        if obs is None or run_cfg.capacity_mode == "exact":
+            tables[name] = t
+            continue
+        # clip observed demand at rows only: a table on the dense/allreduce
+        # path dedupes *global* ids, so its true unique count legitimately
+        # exceeds the per-replica token estimate (lookup() re-clips the
+        # buffer to its call-site token count anyway)
+        uniq_t = min(obs, t.rows)
+        cap_fit = max(min(int(math.ceil(uniq_t * run_cfg.capacity_factor)),
+                          t.rows), 8)
+        headroom = min(int(math.ceil(uniq_t * run_cfg.capacity_factor *
+                                     run_cfg.capacity_growth)), t.rows)
+        dropped_t = profile.dropped_for(name)
+        live_cap, live_grown = (live or {}).get(name, (0, False))
+        if dropped_t > run_cfg.overflow_tolerance:
+            cap_t, grown = max(cap_fit, headroom), True
+        elif live_grown:
+            # sticky growth (see docstring): hold headroom sizing, tracking
+            # the demand EMA downward, never snapping back to the bare fit
+            cap_t = max(cap_fit, min(max(live_cap, cap_fit), headroom))
+            grown = cap_t > cap_fit
+        else:
+            cap_t, grown = cap_fit, False
+        tables[name] = replace(t, unique=uniq_t,
+                               alpha=uniq_t / t.rows if t.rows else 0.0,
+                               capacity=cap_t, dropped=dropped_t, grown=grown)
+    if tables:
+        capacity = max(capacity, max(t.capacity for t in tables.values()))
+    return replace(base, alpha=alpha, capacity=capacity, tables=tables)
+
+
+def wire_dtype_hints(profile: SparsityProfile, bucket_plan: Any,
+                     param_names: list, *, outlier_ratio: float,
+                     default: str = "bfloat16",
+                     sparse_tables: Any = ()) -> dict:
+    """Profiled per-parameter wire-dtype selection from the gradient
+    magnitude census.
+
+    Each bucket's ``gbucket{i}_gmax`` / ``gbucket{i}_grms`` EMAs summarize
+    the magnitudes its member gradients ride the wire at. A bucket whose
+    peak-to-rms ratio exceeds ``outlier_ratio`` is outlier-prone: bf16's
+    ~8-bit mantissa quantizes the small-magnitude bulk relative to the
+    outliers, so its members keep float32 on the wire; everybody else rides
+    ``default``. Returns {param name -> dtype str} for Census.wire_dtypes.
+
+    ``sparse_tables`` extends the same rule to sparse row-buffer pushes:
+    a table that kept its own exchange emits ``{table}_gmax`` /
+    ``{table}_grms`` scalars (core/buckets.py measures the densified
+    post-exchange grad over the rows the push touched), so an
+    outlier-prone table pins its row buffer to float32 too — without this
+    the sparse push could never earn a pin.
+    """
+    hints: dict[str, str] = {}
+
+    def judge(key_prefix: str):
+        gmax = profile.ema.get(f"{key_prefix}_gmax")
+        grms = profile.ema.get(f"{key_prefix}_grms")
+        if gmax is None or grms is None:
+            return None
+        return "float32" if gmax > outlier_ratio * max(grms, 1e-30) \
+            else default
+
+    if bucket_plan is not None:
+        for i, b in enumerate(bucket_plan.buckets):
+            choice = judge(f"gbucket{i}")
+            if choice is None:
+                continue
+            for j in b.idx:
+                hints[param_names[j]] = choice
+    for name in sparse_tables:
+        choice = judge(name)
+        if choice is not None:
+            hints[name] = choice
+    return hints

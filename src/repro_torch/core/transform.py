@@ -28,8 +28,15 @@ reduce-scattered after the backward; the dense gradients are averaged over
 the replicas at their wire dtype, in buckets where the plan has them; the
 loss and every scalar metric ride one all-reduce. The correctness
 contract (paper §3.1): the step computes what the single-device step
-computes at equal global batch. ``Runner.replan`` and the replan loop come
-with ROADMAP slice 3.
+computes at equal global batch.
+
+``apply_replan`` / ``Runner.replan(census)`` hot-swap the step onto a plan
+recomputed from a measured census (paper §5's profile -> re-optimize loop;
+runtime/trainer.py drives it): the state stays where it is when the
+placements hold, and travels whole between the two plans' placements
+(``weights.gather_state`` / ``shard_state``) when they moved; a fused
+optimizer layout is unfused with the old plan's buckets into copies and
+re-fused with the new plan's.
 """
 from __future__ import annotations
 
@@ -45,16 +52,18 @@ from repro_torch.core import buckets, cost_model, sparsity
 from repro_torch.core import collectives as coll
 from repro_torch.core import embedding
 from repro_torch.core.plan import (ParamPlan, Plan, add_fsdp, entry_axes,
-                                   held_placement, per_device_bytes)
+                                   held_placement, per_device_bytes,
+                                   plan_diff)
 from repro_torch.core.runtime import Runtime, check_ported, mesh_dims
 from repro_torch.launch.mesh import Mesh, MeshShape
 from repro_torch.models.layers import flatten_specs, init_param
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizer import (Optimizer, TrainState, fuse_state,
-                                         make_optimizer, unfuse_state)
+                                         is_fused, make_optimizer,
+                                         unfuse_state)
 from repro_torch.utils.dtypes import torch_dtype
 from repro_torch.utils.tree import named_parameters
-from repro_torch.weights import shard_params
+from repro_torch.weights import gather_state, shard_params, shard_state
 
 
 def estimate_census(model, rt: Runtime) -> sparsity.Census:
@@ -233,8 +242,14 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
     own = named_parameters(model)
     bp = plan.bucket_plan
     bucketed = {i for b in bp.buckets for i in b.idx} if bp else set()
-    overlap = (buckets.OverlapExchange(bp, [own[n] for n in names], mesh)
+    # the magnitude census rides the bucketed step only, as in the reference
+    census = bp is not None and rt.run_cfg.wire_dtype_auto
+    if rt.overlap is not None:
+        rt.overlap.remove()       # the previous build's gradient hooks
+    overlap = (buckets.OverlapExchange(bp, [own[n] for n in names], mesh,
+                                       census=census)
                if bp is not None and bp.overlap else None)
+    rt.overlap = overlap
     gathered = {}
     for n, p in plan.params.items():
         fd = _fsdp_dim(p.held, ba, mesh)
@@ -250,10 +265,13 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
             g32 = g32 * scale
         return g32.to(wire)
 
-    def exchange(n: str, g: torch.Tensor):
+    def exchange(n: str, g: torch.Tensor, stats: dict):
         p = plan.params[n]
         if p.sparse and p.method in ("ps", "ps_gather", "mpi_gatherv"):
             # pushed and replica-summed by the lookup: only the 1/N
+            if census and g.dim() >= 2:
+                stats[f"{n}_gmax"], stats[f"{n}_grms"] = \
+                    buckets.row_magnitude(g.float() * scale)
             return (g.float() * scale).to(g.dtype) if n_rep > 1 else g
         wire = buckets.exchange_dtype(rt, p)
         buf = averaged(g, wire)
@@ -288,21 +306,26 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
             # overlap=False: the gatherv pushes, after the backward
             local[n] = embedding.deferred_push(uids, d_rows, vs, ectx).to(
                 own[n].dtype)
-        grads = {}
+        grads, stats = {}, {}
+        mags = overlap.stats if overlap is not None else []
         if bp is not None and overlap is None:
             for b in bp.buckets:
                 ex, buf = buckets._exchange_bucket(
-                    b, [local[names[i]] for i in b.idx], scale, bp, mesh)
+                    b, [local[names[i]] for i in b.idx], scale, bp, mesh,
+                    census=mags if census else None)
                 done.update(zip(b.idx, ex))
                 bufs.append(buf)
+        for k, (gmax, grms) in enumerate(mags):
+            stats[f"gbucket{k}_gmax"], stats[f"gbucket{k}_grms"] = gmax, grms
         for i, n in enumerate(names):
-            grads[n] = done[i] if i in bucketed else exchange(n, local[n])
+            grads[n] = (done[i] if i in bucketed
+                        else exchange(n, local[n], stats))
         if bp is None:
             # the reference's global-semantics step casts every f32
             # gradient to its wire dtype (the sparse ones too)
             grads = opsw_cast(grads, plan)
-        loss, metrics = buckets.fused_metrics(loss.detach(), metrics, ba,
-                                              mesh, n_rep)
+        loss, metrics = buckets.fused_metrics(
+            loss.detach(), {**metrics, **stats}, ba, mesh, n_rep)
         return (loss, metrics), grads, bufs
 
     return value_and_grad
@@ -365,16 +388,22 @@ def load_params_(model, named: dict) -> None:
             p.copy_(src)
 
 
-def init_params_(model, seed: int) -> None:
-    """Fresh init from ``seed``: one torch.Generator on the model's device,
-    drawing each parameter in flatten order (every rank of a mesh draws
-    the same whole parameters, then keeps its shards)."""
+def _draw_params(model, seed: int) -> dict:
+    """Fresh whole parameters from ``seed``: one torch.Generator on the
+    model's device, drawing each parameter in flatten order (every rank of
+    a mesh draws the same whole parameters, then keeps its shards)."""
     gen = torch.Generator(device=model.rt.device)
     gen.manual_seed(seed)
+    return {n: init_param(gen, spec, model.rt.param_dtype)
+            for n, spec in model.param_specs()}
+
+
+def init_params_(model, seed: int) -> None:
+    """Fresh init from ``seed`` into the model's parameters."""
     own = named_parameters(model)
     with torch.no_grad():
-        for n, spec in model.param_specs():
-            own[n].copy_(init_param(gen, spec, model.rt.param_dtype))
+        for n, t in _draw_params(model, seed).items():
+            own[n].copy_(t)
 
 
 def place_params_(model, plan: Plan, mesh) -> None:
@@ -382,27 +411,66 @@ def place_params_(model, plan: Plan, mesh) -> None:
     it (``ParamPlan.held``)."""
     whole = {n: p.detach() for n, p in named_parameters(model).items()}
     for n, shard in shard_params(whole, plan, mesh).items():
-        if shard.shape == whole[n].shape:
-            continue
-        *path, attr = n.split(".")
-        mod = model.get_submodule(".".join(path))
-        setattr(mod, attr, nn.Parameter(shard.clone()))
+        if shard.shape != whole[n].shape:
+            _set_param(model, n, shard)
+
+
+def _set_param(model, name: str, t: torch.Tensor) -> None:
+    """A new parameter holding a copy of ``t`` in place of ``name``."""
+    *path, attr = name.split(".")
+    setattr(model.get_submodule(".".join(path)), attr,
+            nn.Parameter(t.detach().clone()))
+
+
+def _install_params_(model, named: dict) -> None:
+    """Make ``named`` (this rank's tensors) the model's parameters: a
+    parameter that already is the tensor stays; one of the same shape gets
+    the values copied in; where the shape changed (a placement moved) a
+    new parameter takes its place."""
+    own = named_parameters(model)
+    if set(own) != set(named):
+        raise ValueError(f"state names {sorted(named)} vs the model's "
+                         f"{sorted(own)}")
+    with torch.no_grad():
+        for n, p in own.items():
+            src = named[n]
+            if src is p:
+                continue
+            if src.dtype != p.dtype:
+                raise ValueError(f"{n}: got {src.dtype}, want {p.dtype}")
+            if tuple(src.shape) == tuple(p.shape):
+                p.copy_(src)
+            else:
+                _set_param(model, n, src)
+
+
+def load_state(model, rt: Runtime, plan: Plan,
+               state: TrainState) -> TrainState:
+    """A canonical per-parameter state (each leaf whole, or already this
+    rank's shard under ``plan``) -> this rank's shards, the parameters
+    installed as the model's own. The step is untouched."""
+    if is_fused(state):
+        raise ValueError("load_state takes the canonical per-parameter "
+                         "state: unfuse it with its plan's buckets")
+    whole = {n: spec.shape for n, spec in model.param_specs()}
+    state = shard_state(state, plan, rt.mesh, whole)
+    _install_params_(model, state.params)
+    return replace(state, params=named_parameters(model))
 
 
 def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
-               params: Optional[dict] = None, *, seed: int = 0
-               ) -> tuple:
-    """-> (train step, state). ``params``: {dotted_name: whole tensor} to
-    start from (e.g. weights.load_reference_params); None draws a fresh
-    init from ``seed``. On a mesh each rank keeps its shards. When the plan
-    stamps ``fused_apply`` the optimizer memory is laid out per bucket
-    here (``Runner.state`` hands it out per parameter). Moving fused state
-    across a replan waits for the replan loop (ROADMAP slice 3)."""
+               params: Optional[dict] = None, *, seed: int = 0,
+               state: Optional[TrainState] = None) -> tuple:
+    """-> (train step, state). The state starts from ``state``, a
+    canonical per-parameter TrainState whose leaves are each whole or
+    already this rank's shard under ``plan`` (replan, restore and retry
+    start here, with no throwaway init); else from ``params``
+    ({dotted_name: whole tensor}, e.g. weights.load_reference_params);
+    else from a fresh init drawn from ``seed``. On a mesh each rank keeps
+    its shards. When the plan stamps ``fused_apply`` the optimizer memory
+    is laid out per bucket here (``Runner.state`` hands it out per
+    parameter)."""
     check_ported(rt.run_cfg, rt.mesh)
-    if params is None:
-        init_params_(model, seed)
-    else:
-        load_params_(model, params)
     if rt.mesh is not None:
         for p in plan.params.values():
             if p.opt_placement != p.placement:
@@ -410,12 +478,57 @@ def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
                     f"{p.name}: optimizer state sharded apart from its "
                     f"parameter (ZeRO-1, zero_stage {plan.zero_stage}) is "
                     "not ported yet: ROADMAP Queue 1")
-        place_params_(model, plan, rt.mesh)
+    if state is None:
+        if params is None:
+            init_params_(model, seed)
+        else:
+            load_params_(model, params)
+        if rt.mesh is not None:
+            place_params_(model, plan, rt.mesh)
+        state = optimizer.init(named_parameters(model))
+    else:
+        state = load_state(model, rt, plan, state)
     step = make_train_step(model, optimizer, rt, plan)
-    state = optimizer.init(named_parameters(model))
     if plan.fused_apply:
         state = fuse_state(state, plan.bucket_plan)
     return step, state
+
+
+def apply_replan(model, optimizer: Optimizer, rt: Runtime, new_plan: Plan,
+                 state: TrainState, diff: dict) -> tuple:
+    """Hot-swap to ``new_plan``: rebuild the step and move the state.
+    The one swap sequence under ``Runner.replan`` and the trainer. A fused
+    layout is unfused with the OLD plan's buckets into copies (no view of
+    a buffer that is about to go survives) and re-fused with the new
+    plan's in ``build_step``; when the placements moved every leaf is
+    gathered whole on the old plan and cut again on the new one. Marks
+    ``diff['rebuilt']``. -> (train step, state)."""
+    old_plan = rt.plan
+    if is_fused(state):
+        state = unfuse_state(state, old_plan.bucket_plan, copy=True)
+    if diff["pspecs_changed"] and new_plan.mesh is not None:
+        state = gather_state(state, old_plan, old_plan.mesh)
+    rt.plan = new_plan           # the model's lookups read the live plan
+    step, state = build_step(model, optimizer, rt, new_plan, state=state)
+    diff["rebuilt"] = True
+    return step, state
+
+
+def local_batch(rt: Runtime, batch: dict) -> dict:
+    """The global batch -> this replica's contiguous rows (as
+    ``P(batch_axes)`` shards them) as tensors on the runtime's device."""
+    if rt.mesh is not None and rt.replicas > 1:
+        r, n = rt.mesh.index(rt.batch_axes), rt.replicas
+        batch = {k: v[len(v) // n * r:len(v) // n * (r + 1)]
+                 for k, v in batch.items()}
+    return {k: torch.as_tensor(v).to(rt.device) for k, v in batch.items()}
+
+
+def fresh_state(model, optimizer: Optimizer, seed: int) -> TrainState:
+    """A fresh whole state drawn from ``seed`` (the values ``build_step``
+    draws into the model), without touching the model's parameters: what
+    a failed step re-initializes from when nothing is committed."""
+    return optimizer.init(_draw_params(model, seed))
 
 
 @dataclass
@@ -437,15 +550,26 @@ class Runner:
         """One training step on the global batch (numpy arrays or
         tensors); on a mesh this replica's contiguous rows go in. Returns
         the step's metrics as detached tensors."""
-        rt = self.rt
-        if rt.mesh is not None and rt.replicas > 1:
-            r, n = rt.mesh.index(rt.batch_axes), rt.replicas
-            batch = {k: v[len(v) // n * r:len(v) // n * (r + 1)]
-                     for k, v in batch.items()}
-        batch = {k: torch.as_tensor(v).to(rt.device)
-                 for k, v in batch.items()}
-        self.live_state, metrics = self.train_step(self.live_state, batch)
+        self.live_state, metrics = self.train_step(
+            self.live_state, local_batch(self.rt, batch))
         return metrics
+
+    def replan(self, census: sparsity.Census, *, force: bool = False,
+               capacity_drift: float = 1.5) -> dict:
+        """Hot-swap the plan and step from a (typically observed) census.
+        The plan is recomputed through the same stages as at build time;
+        if nothing material changed (``plan_diff``) the live step is kept
+        unless ``force``. Returns the plan diff (``rebuilt`` marks a
+        swap)."""
+        new_plan = analyze(self.model, self.rt, census=census)
+        diff = plan_diff(self.plan, new_plan, capacity_drift)
+        if not (diff["changed"] or force):
+            return diff
+        self.plan = new_plan
+        self.train_step, self.live_state = apply_replan(
+            self.model, self.optimizer, self.rt, new_plan, self.live_state,
+            diff)
+        return diff
 
 
 def get_runner(model_cfg: ModelConfig, shape_cfg: ShapeConfig,

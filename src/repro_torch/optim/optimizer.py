@@ -108,11 +108,14 @@ def fuse_state(state: Optional[TrainState], bp) -> Optional[TrainState]:
     return state
 
 
-def unfuse_state(state: Optional[TrainState], bp) -> Optional[TrainState]:
+def unfuse_state(state: Optional[TrainState], bp, *,
+                 copy: bool = False) -> Optional[TrainState]:
     """Bucket-fused -> the canonical per-param layout, the exact inverse of
     ``fuse_state`` for the same bucket plan. A new TrainState whose
     bucketed entries are views of the flat buffers (the live memory: an
-    in-place write through either layout shows in both)."""
+    in-place write through either layout shows in both), or, with
+    ``copy``, tensors of their own: what a replan or a checkpoint carries
+    past the flat buffers' lifetime."""
     if state is None or bp is None or not is_fused(state):
         return state
     names = list(state.params)
@@ -123,8 +126,8 @@ def unfuse_state(state: Optional[TrainState], bp) -> Optional[TrainState]:
         leaf = dict(tree["leaf"])
         for i, (k, off, sz) in bucket_segments(bp).items():
             n = names[i]
-            leaf[n] = tree["bucket"][k][off:off + sz].view(
-                state.params[n].shape)
+            t = tree["bucket"][k][off:off + sz].view(state.params[n].shape)
+            leaf[n] = t.clone() if copy else t
         return leaf
 
     return TrainState(step=state.step, params=state.params,

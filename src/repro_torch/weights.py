@@ -10,8 +10,14 @@ moved through a 16-bit integer view, so no bit changes.
 On a mesh, ``shard_params`` cuts whole parameters into this rank's shards
 (each ``ParamPlan.held``) and ``gather_params`` puts them back together;
 the tests hold the port's sharded state against the JAX package with them.
+``gather_state`` / ``shard_state`` do the same for a whole canonical
+``TrainState`` (parameters, moments and EMA shadows, which lie beside their
+parameter): a replan whose placements moved, and a checkpoint's save and
+restore, carry the state whole between two plans' placements.
 """
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -94,3 +100,40 @@ def gather_params(named_local: dict, plan, mesh) -> dict:
     """This rank's shards -> the whole tensors (on every rank)."""
     return {n: gather_tensor(t, plan.params[n].held, mesh)
             for n, t in named_local.items()}
+
+
+# TrainState's per-parameter parts (optim/optimizer.py), in the order a
+# checkpoint lists them
+STATE_PARTS = ("params", "m", "v", "ema")
+
+
+def gather_state(state, plan, mesh):
+    """A canonical TrainState of this rank's shards under ``plan`` -> the
+    same state with every leaf whole (a collective: every rank calls it).
+    Off a mesh the state is returned as it is."""
+    if mesh is None:
+        return state
+    out = {part: None if getattr(state, part) is None else
+           {n: gather_tensor(t, plan.params[n].held, mesh)
+            for n, t in getattr(state, part).items()}
+           for part in STATE_PARTS}
+    return replace(state, **out)
+
+
+def shard_state(state, plan, mesh, whole_shapes: dict):
+    """A canonical TrainState -> this rank's shards under ``plan``. A leaf
+    is cut only where it has its whole shape (``whole_shapes[name]``): a
+    leaf already in this plan's shard shape stays as it is, so a state
+    whose placements held passes through untouched."""
+    if mesh is None:
+        return state
+
+    def cut(n, t):
+        if tuple(t.shape) != tuple(whole_shapes[n]):
+            return t
+        return shard_tensor(t, plan.params[n].held, mesh)
+
+    out = {part: None if getattr(state, part) is None else
+           {n: cut(n, t) for n, t in getattr(state, part).items()}
+           for part in STATE_PARTS}
+    return replace(state, **out)

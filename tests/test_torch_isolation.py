@@ -38,7 +38,10 @@ def test_importing_the_port_pulls_in_no_jax():
     assert "repro_torch.models.rwkv" in mods
     # the mesh slice's modules are scanned and imported too
     for m in ("repro_torch.launch.mesh", "repro_torch.core.collectives",
-              "repro_torch.core.buckets"):
+              "repro_torch.core.buckets",
+              # the training driver's modules
+              "repro_torch.checkpoint.ckpt", "repro_torch.runtime.monitor",
+              "repro_torch.runtime.trainer", "repro_torch.launch.train"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib.util, json, sys
