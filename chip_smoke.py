@@ -60,6 +60,13 @@ and never prints the final line:
               Server(device="cuda"): prefill logits within rtol 1e-4, greedy
               tokens equal (at most 2 may differ, the reference's own
               allowance for argmax near-ties; any difference is printed).
+     dense_parity  reduced phi3-medium-14b and reduced command-r-35b
+              (tied embeddings) at f32, 3 steps on the CPU and on the card
+              from the same parameters under naive and chunked attention:
+              losses within rtol 1e-4, the embed_* census equal, a bulk
+              gather and a one-pass scatter a step; then reduced phi3 at
+              the default bf16 under remat none, block and full on the
+              card (deterministic algorithms): equal losses.
   6. rwkv_parity  reduced rwkv6-7b at f32, the same parameters on the CPU
               and on the card: make_prefill_step logits and final carry
               within rtol 1e-4 (and 1e-4 of the max-abs scale), ToyServer
@@ -113,6 +120,17 @@ and never prints the final line:
               run's bit for bit (deterministic algorithms). The
               checkpoint's bytes, snapshot / write / restore seconds, the
               disk it used; the directory is removed.
+     dense_train  phi3-medium-14b at its published width with n_layers
+              cut to 8 of 40 (40 layers' params, grads and AdamW moments
+              are ~176 GB), RunConfig() (bf16, AdamW at 1e-3, hybrid, remat
+              block, chunked attention), ShapeConfig("train", 512, 8),
+              12 steps of Zipf(1.3) batches through runtime/trainer.py's
+              Trainer: losses finite and falling, one bulk gather and one
+              one-pass scatter a step; step median, tokens/s, TFLOP/s and
+              the share of the bf16 peak, peak memory. Both embed kernels
+              are also held bit for bit and timed at this path's shapes in
+              kernels (phi3's (100,352, 5,120) bf16 table, the first
+              batch's 4,096-slot buffer and 4,096 owned ids).
      Then the mesh path (launch/mesh.py ranks, spawned processes):
      mesh_one_rank: the same 3 first steps through get_runner(...,
               mesh=make_mesh((1, 1))) over a one-rank NCCL group: the plan
@@ -149,7 +167,17 @@ and never prints the final line:
               run: losses within 5e-4 + 1e-4 i; each run's seconds; each
               rank's launches (path mesh_launcher): a bulk gather every
               step, a one-pass push every step on the all-reduce (the
-              gatherv push takes the plain scatter).
+              gatherv push takes the plain scatter); (e) mesh_card_dense:
+              reduced phi3 under hybrid, ps and mpi and reduced command-r
+              under hybrid and mpi at f32 on (2, 2), 3 steps each, within
+              5e-4 + 1e-4 i of the one-device card run from the same
+              seed-0 init. replan_replay: repro_torch.benchmarks.
+              adaptive_replan's two phases (reduced phi3 at vocab 256,
+              static against a replan after step 4; reduced parallax-nmt's
+              two tables through a burst), each on 8 gloo ranks on the
+              card, with the replay's own checks (the replan fired and
+              flipped ps -> ps_gather, divergence < 5e-3, the tables on
+              different methods and capacities, the capacity grew).
   9. serve    full-width phi3-medium-14b (40 layers, nothing cut), bf16,
               Server(..., RunConfig(attention_impl="pallas"),
               ServerConfig(max_batch=4, max_seq=2048)) on the card: 8
@@ -175,8 +203,10 @@ and never prints the final line:
               memory.
 
 Each path (main, main_no_la, nmt, train (its adaptive run), train_growth,
-train_resume (both runs), mesh_one_rank, mesh_card (a) + (b),
-mesh_card_nmt = mesh_card (c), serve, rwkv_serve) runs with every launch
+train_resume (both runs), dense_parity (its card runs), dense_train,
+mesh_one_rank, mesh_card (a) + (b), mesh_card_nmt = mesh_card (c),
+mesh_card_dense = mesh_card (e), replan_replay (both phases, rank 0's),
+serve, rwkv_serve) runs with every launch
 count set to 0 just before it and read just after: the mesh phases in
 each rank's own process (mesh_card's (a), (b) and (c)'s two runs each so,
 a path's launches their sum, rank 0's), rwkv_serve's serve loop and its
@@ -218,7 +248,8 @@ from repro_torch.core.transform import (analyze, get_runner,  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
-from repro_torch.launch.profile_step import CELLS  # noqa: E402
+from repro_torch.launch.profile_step import (CELLS,  # noqa: E402
+                                             cell_config)
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim.optimizer import is_fused  # noqa: E402
 from repro_torch.runtime.server import (Request, Server,  # noqa: E402
@@ -316,7 +347,17 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 "train_growth": ("embed_gather", "embed_scatter_add"),
                 "train_resume": ("embed_gather", "embed_scatter_add"),
                 "serve": ("embed_gather", "flash_attention"),
-                "rwkv_serve": ("embed_gather", "wkv_tc", "wkv_step")}
+                "rwkv_serve": ("embed_gather", "wkv_tc", "wkv_step"),
+                # the dense transformer's training: every step pulls phi3's
+                # (or command-r's) table and pushes its unique ids
+                # one-pass (the gatherv push of mesh_card (e)'s mpi runs
+                # takes the plain scatter)
+                "dense_parity": ("embed_gather", "embed_scatter_add"),
+                "dense_train": ("embed_gather", "embed_scatter_add"),
+                "mesh_card_dense": ("embed_gather", "embed_scatter_add"),
+                # the adaptive_replan replay's 8 ranks (rank 0's): ps's
+                # owner push one-pass, ps_gather's plain
+                "replan_replay": ("embed_gather", "embed_scatter_add")}
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
 NMT_CENSUS = tuple(f"{t}_{k}" for t in ("embed", "enc_embed")
                    for k in ("rows", "unique", "dropped"))
@@ -326,6 +367,14 @@ WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 SERVE_BATCH, SERVE_MAX_SEQ = 4, 2048                # both serve phases
 RWKV, RWKV_PREFILL = "rwkv6-7b", 2048
 F32_CORE_FLOPS = 67e12      # f32 FMA rate of the CUDA cores (H100 SXM sheet)
+# dense_train: phi3-medium-14b's cell (``profile_step.CELLS``: its
+# published width at 8 of 40 layers, launch/train.py's default shape)
+DENSE_ARCH, DENSE_STEPS = "phi3-medium-14b", 12
+DENSE = CELLS[DENSE_ARCH]
+# the reference correctness test's RunConfig (f32 end to end, plain
+# attention, no remat): dense_parity and mesh_card (e)
+DENSE_F32 = dict(param_dtype="float32", compute_dtype="float32",
+                 wire_dtype="float32", remat="none")
 # rwkv6 parameters that the seeded init leaves constant (zero mixes, zero
 # decay LoRA factor, w0 and bonus): the parity phases draw them, so the
 # data-dependent decay and the bonus are exercised. (scale, offset) of a
@@ -655,9 +704,9 @@ def phase_kernels(dev) -> dict:
     }
     rows16 = torch.randn((n, E), generator=gen, device=dev).to(torch.bfloat16)
     fns = _scatter_fns(uids, rows16, VOCAB, E)
-    # the function's bytes: every output byte written once, rows and ids
-    # read once
-    s_bytes = VOCAB * E * 4 + n * E * 2 + 4 * n
+    # the function's bytes: every output byte written once, the ids and
+    # the owned ids' rows read once
+    s_bytes = VOCAB * E * 4 + owned * E * 2 + 4 * n
     all_owned = torch.from_numpy(rng.permutation(VOCAB)[:n]
                                  .astype(np.int32)).to(dev)
     none_owned = all_owned + VOCAB
@@ -694,12 +743,13 @@ def phase_kernels(dev) -> dict:
                                  "phi3-medium-14b", _serve_ids(dev), "serve")
     gather_rwkv = _serve_gather(dev, gen, timer, hold_gather, RWKV,
                                 _rwkv_ids(dev), "rwkv")
+    dense = _dense_train_kernels(dev, gen, timer, hold_gather, hold)
     flash = _flash_kernels(dev, gen, timer, errs, cases)
     wkv = _wkv_kernels(dev, gen, timer, errs, cases)
     res = {"phase": "kernels", "cases": cases, "n_ids": n, "owned": owned,
            "max_abs_err": errs, "launches": ops.launch_counts(),
            "embed_gather": gather, "embed_gather_serve": gather_serve,
-           "embed_gather_rwkv": gather_rwkv,
+           "embed_gather_rwkv": gather_rwkv, "dense_train_shape": dense,
            "embed_scatter_add": scatter, "flash_attention": flash, **wkv}
     emit(res)
     return res
@@ -775,6 +825,80 @@ def _serve_gather(dev, gen, timer: Timer, hold_gather, arch: str,
                 lambda: torch.index_select(t16, 0, clamped)),
             "bytes": nbytes, "bound_ms": bound_ms(nbytes),
             "bound_by": "bytes"}
+    return res
+
+
+def _dense_ids(dev) -> dict:
+    """The ids dense_train hands the embed kernels: the dedupe buffer of
+    its first batch (4,096 Zipf(1.3) tokens at exact capacity: ascending
+    unique ids padded with the sentinel), and 4,096 distinct ids, all
+    owned, in random order."""
+    vs = get_config(DENSE_ARCH).vocab_size
+    toks = _dense_batches(1)[0]["tokens"]
+    flat = torch.from_numpy(np.ascontiguousarray(toks)).reshape(-1).to(dev)
+    n = flat.numel()
+    buf, _, _ = dedupe(flat, n, vs, True)
+    every = np.random.default_rng(3).permutation(vs)[:n].astype(np.int32)
+    return {"dense_train": buf,
+            "all_owned": torch.from_numpy(every).to(dev)}
+
+
+def _dense_train_kernels(dev, gen, timer: Timer, hold_gather,
+                         hold) -> dict:
+    """Both embed kernels at the dense training path's shapes: phi3's
+    (100,352, 5,120) bf16 table (10,240-byte rows, the bulk route) pulled
+    at its ids, and the bf16 wire rows pushed into its (100,352, 5,120) f32
+    gradient, held bit for bit; kernel, plain and library times of the
+    first batch's buffer beside their byte bounds."""
+    cfg = get_config(DENSE_ARCH)
+    vs, d = cfg.vocab_size, cfg.d_model
+    table = torch.randn((vs, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    check(ops.gather_route(d * 2, table.data_ptr()) == "bulk",
+          "embed_gather: phi3's table is not on the bulk route")
+    ids = _dense_ids(dev)
+    rows = {}
+    for case, uids in ids.items():
+        hold_gather(f"{case}_bf16", table, uids, 0)
+        rows[case] = torch.randn((uids.numel(), d), generator=gen,
+                                 device=dev).to(torch.bfloat16)
+        fused0 = ops.embed_scatter_add.launches_fused
+        got = ops.embed_scatter_add(uids, rows[case], vs)
+        check(ops.embed_scatter_add.launches_fused - fused0 == 1,
+              f"embed_scatter_add/{case}: not on the one-pass kernel")
+        hold("embed_scatter_add", case, got,
+             ref.embed_scatter_add_ref(uids, rows[case], vs))
+        del got
+        torch.cuda.empty_cache()
+    uids, r16 = ids["dense_train"], rows["dense_train"]
+    n = uids.numel()
+    owned = int(((uids >= 0) & (uids < vs)).sum())
+    clamped = uids.long().clamp(0, vs - 1)
+    g_bytes = (owned + n) * d * 2 + 4 * n
+    s_bytes = vs * d * 4 + owned * d * 2 + 4 * n
+    fns = _scatter_fns(uids, r16, vs, d)
+    shape = f"{DENSE_ARCH}: table ({vs}, {d}) bf16, {n} ids ({owned} owned)"
+    res = {
+        "embed_gather": {
+            "shape": shape,
+            "kernel_ms": timer.ms(lambda: ops.embed_gather(table, uids, 0)),
+            "plain_ms": timer.ms(
+                lambda: ref.embed_gather_ref(table, uids, 0)),
+            "library_ms": timer.ms(
+                lambda: torch.index_select(table, 0, clamped)),
+            "bytes": g_bytes, "bound_ms": bound_ms(g_bytes),
+            "bound_by": "bytes"},
+        "embed_scatter_add": {
+            "shape": f"{DENSE_ARCH}: ({vs}, {d}) f32 gradient from {n} "
+                     f"bf16 rows ({owned} owned)",
+            "kernel_ms": timer.ms(fns["kernel"], runs=20),
+            "plain_ms": timer.ms(
+                lambda: ref.embed_scatter_add_ref(uids, r16, vs), runs=20),
+            "library_ms": timer.ms(fns["library"], runs=20),
+            "bytes": s_bytes, "bound_ms": bound_ms(s_bytes),
+            "bound_by": "bytes"}}
+    del table, rows, r16
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1339,6 +1463,88 @@ def phase_rwkv_parity() -> None:
           "wkv_launches": wkv_launches, "device_steps": steps})
 
 
+def _dense_batches(steps: int, vocab: int = 0, seq: int = 0,
+                   batch: int = 0) -> list:
+    """Batches of dense_train's cell's data options (Zipf(1.3) tokens;
+    SyntheticLM, seed 0); by default its own, over phi3's vocab."""
+    ds = SyntheticLM(vocab or get_config(DENSE_ARCH).vocab_size,
+                     seq or DENSE.shape.seq_len,
+                     batch or DENSE.shape.global_batch, **DENSE.data)
+    return [ds.batch(i) for i in range(steps)]
+
+
+def phase_dense_parity() -> dict:
+    """Reduced phi3 and reduced command-r (tied embeddings) at f32, the
+    same parameters and batches, 3 steps on the CPU and on the card under
+    naive and chunked attention (chunk 8 of 32 positions): losses within
+    rtol 1e-4 (GEMM summation order differs on the card), the embed_*
+    census equal, one gather and one one-pass scatter a step. Then reduced
+    phi3 at bf16 under remat none, block and full on the card: equal
+    losses."""
+    shape = ShapeConfig("parity", 32, 4, "train")
+    out, total = {}, None
+    for arch in (DENSE_ARCH, "command-r-35b"):
+        cfg = reduced(get_config(arch))
+        batches = _dense_batches(3, cfg.vocab_size, 32, 4)
+        for impl in ("naive", "chunked"):
+            rc = RunConfig(**DENSE_F32, attention_impl=impl,
+                           attention_chunk=8)
+            cpu = get_runner(cfg, shape, rc, seed=0, device="cpu")
+            gpu = get_runner(cfg, shape, rc, device="cuda", params={
+                k: p.detach().to("cuda") for k, p in named_parameters(
+                    cpu.model).items()})
+            rows = []
+            ops.reset_launch_counts()
+            for i, b in enumerate(batches):
+                mc, mg = cpu.run(b), gpu.run(b)
+                lc, lg = float(mc["loss"]), float(mg["loss"])
+                check(math.isclose(lc, lg, rel_tol=1e-4),
+                      f"dense_parity {arch} {impl} step {i}: cpu loss {lc} "
+                      f"vs card {lg}")
+                for k in CENSUS:
+                    check(float(mc[k]) == float(mg[k]),
+                          f"dense_parity {arch} {impl} step {i}: {k} cpu "
+                          f"{float(mc[k])} vs card {float(mg[k])}")
+                rows.append({"cpu": lc, "cuda": lg,
+                             "rel": abs(lc - lg) / abs(lc)})
+            counts = ops.launch_counts()
+            check(counts["embed_gather"] == counts["embed_gather_bulk"] == 3
+                  and counts["embed_scatter_add"] == 3
+                  and counts["embed_scatter_add_fused"] == 3,
+                  f"dense_parity {arch} {impl}: launches {counts}")
+            total = counts if total is None else {
+                k: total[k] + v for k, v in counts.items()}
+            out[f"{arch}/{impl}"] = rows
+    # RunConfig.remat on the card: reduced phi3 at the default bf16 (chunked
+    # attention) from the same parameters under none, block and full, with
+    # deterministic algorithms (index_add_'s atomics aside, a recompute
+    # reruns the same kernels): the losses bit for bit
+    cfg = reduced(get_config(DENSE_ARCH))
+    batches = _dense_batches(3, cfg.vocab_size, 32, 4)
+    params = None
+    remat = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in ("none", "block", "full"):
+            r = get_runner(cfg, shape, RunConfig(remat=mode), device="cuda",
+                           seed=0, params=params)
+            if params is None:
+                params = {k: p.detach().clone() for k, p in
+                          named_parameters(r.model).items()}
+            ops.reset_launch_counts()
+            remat[mode] = [float(r.run(b)["loss"]) for b in batches]
+            counts = ops.launch_counts()
+            total = {k: total[k] + v for k, v in counts.items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(remat["block"] == remat["none"] == remat["full"],
+          f"dense_parity remat: {remat}")
+    res = {"phase": "dense_parity", **out, "remat_bf16": remat,
+           "launches": total}
+    emit(res)
+    return res
+
+
 def phase_rwkv_recurrence(dev, n_tokens: int = 300) -> None:
     """rwkv6-7b at full width (d 4,096, 64 heads of 64), n_layers cut to 2
     so it runs in f32: the chunked prefill over one prompt and one-token
@@ -1653,8 +1859,8 @@ def _nmt_setup() -> tuple:
     batch 128 and length 50, the reference's two-table knobs (one device
     runs the same math; on (4, 1) embed goes to mpi_gatherv and enc_embed
     to the dense all-reduce), AdamW at 1e-4."""
-    shape, rc, _, _ = CELLS["parallax-nmt"]
-    return get_config("parallax-nmt"), shape, rc
+    cell = CELLS["parallax-nmt"]
+    return cell_config("parallax-nmt"), cell.shape, cell.run
 
 
 def _nmt_batches(steps: int) -> list:
@@ -1662,7 +1868,7 @@ def _nmt_batches(steps: int) -> list:
     table)."""
     cfg, shape, _ = _nmt_setup()
     ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
-                     **CELLS["parallax-nmt"][2])
+                     **CELLS["parallax-nmt"].data)
     return [ds.batch(i) for i in range(steps)]
 
 
@@ -1884,6 +2090,85 @@ def phase_train_growth(dev) -> dict:
     return res
 
 
+def _dense_work(cfg, shape) -> dict:
+    """A dense training step's matmul parameters and operations: 6 per
+    matmul parameter and token (forward, and the backward's two
+    products), plus the plain attention's QK^T and P.V over every (q, k)
+    pair (the causal mask removes none of them) three times and once more
+    for the block remat's recompute."""
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kv, f, v = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
+    per_layer = 2 * d * h * hd + 2 * d * kv * hd + 3 * d * f
+    matmul = cfg.n_layers * per_layer + v * d
+    attn = (4 * (4 * shape.global_batch * shape.seq_len ** 2 * h * hd)
+            * cfg.n_layers)
+    return {"matmul_params": matmul, "params": cfg.param_count(),
+            "flops": 6 * matmul * shape.tokens + attn}
+
+
+def phase_dense_train(dev) -> dict:
+    """phi3-medium-14b's cell (``profile_step.CELLS``: its published width,
+    d 5,120; 40 q / 10 KV heads of 128; d_ff 17,920; vocab 100,352; with
+    n_layers cut to 8 of 40) through ``runtime/trainer.py::Trainer``:
+    RunConfig() (bf16, AdamW at 1e-3, hybrid, remat block, chunked
+    attention), ShapeConfig("train", 512, 8) (launch/train.py's default seq
+    and batch), 12 steps of Zipf(1.3) batches. Losses finite and falling; one bulk gather and one
+    one-pass scatter a step; step median, tokens/s, peak memory."""
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg, shape = cell_config(DENSE_ARCH), DENSE.shape
+    ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
+                     **DENSE.data)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, shape, DENSE.run,
+                      TrainerConfig(total_steps=DENSE_STEPS, log_every=100),
+                      ds, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated(dev)
+    hist = []
+    ops.reset_launch_counts()
+    trainer.run(on_metrics=lambda step, m: hist.append(m))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rc = trainer.rt.run_cfg
+    plan = trainer.plan.tables()
+    del trainer
+    torch.cuda.empty_cache()
+    losses = [m["loss"] for m in hist]
+    ms = [m["step_time_s"] * 1e3 for m in hist]
+    med = statistics.median(ms[1:])
+    work = _dense_work(cfg, shape)
+    res = {"phase": "dense_train", "arch": cfg.name,
+           "cut": f"n_layers {cfg.n_layers} of "
+                  f"{get_config(DENSE_ARCH).n_layers}",
+           "run_config": {k: getattr(rc, k) for k in (
+               "param_dtype", "compute_dtype", "optimizer", "learning_rate",
+               "comm_mode", "remat", "attention_impl")},
+           "tokens_per_step": shape.tokens, "losses": losses, "step_ms": ms,
+           "median_step_ms": med, "tokens_per_s": shape.tokens / med * 1e3,
+           "tflops_per_s": work["flops"] / med / 1e9,
+           "share_of_peak": work["flops"] / (med / 1e3) / HW.peak_flops,
+           **work, "plan": plan, "setup_s": setup_s,
+           "setup_max_memory_allocated": setup_peak,
+           "max_memory_allocated": peak, "launches": counts,
+           "nvidia_smi": nvidia_smi(
+               "clocks.sm,power.draw,power.limit,temperature.gpu")}
+    check(rc.remat == "block" and rc.attention_impl == "chunked",
+          f"dense_train: RunConfig {res['run_config']}")
+    check(len(losses) == DENSE_STEPS
+          and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0],
+          f"dense_train: losses {losses}")
+    for k in ("embed_gather", "embed_gather_bulk", "embed_scatter_add",
+              "embed_scatter_add_fused"):
+        check(counts[k] == DENSE_STEPS,
+              f"dense_train: {k} launched {counts[k]} times in "
+              f"{DENSE_STEPS} steps")
+    emit(res)
+    return res
+
+
 def _dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
@@ -1899,7 +2184,7 @@ def phase_train_resume(dev) -> dict:
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     cfg, shape, rc = _nmt_setup()
     ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
-                     **CELLS["parallax-nmt"][2])
+                     **CELLS["parallax-nmt"].data)
     d = ROOT / "build" / "ckpt_resume"
     shutil.rmtree(d, ignore_errors=True)
     tcfg = TrainerConfig(total_steps=6, ckpt_dir=str(d), ckpt_every=3)
@@ -2320,6 +2605,188 @@ def _mesh_launcher() -> dict:
     return out
 
 
+# mesh_card (e): the dense transformer on (2, 2); command-r's tied table
+# under the two flag sets the reference runs it with
+DENSE_MESH_RUNS = ((DENSE_ARCH, ("hybrid", "ps", "mpi")),
+                   ("command-r-35b", ("hybrid", "mpi")))
+
+
+def _one_pass_pushes(method: str, steps: int) -> int:
+    """The one-pass embed_scatter_add launches a table's push makes in
+    ``steps`` steps on ``method``: a replica's deduped buffer (ps, the
+    dense exchange's local scatter) takes the kernel once a step; the
+    gather pushes (ps_gather, mpi_gatherv) scatter gathered buffers with
+    repeats on the plain scatter."""
+    return 0 if method in ("ps_gather", "mpi_gatherv") else steps
+
+
+def _dense_mesh_setup(arch: str) -> tuple:
+    cfg = reduced(get_config(arch))
+    return (cfg, ShapeConfig("mesh", 32, 4, "train"),
+            _dense_batches(3, cfg.vocab_size, 32, 4))
+
+
+def _dense_card_rank(rank: int, world: int) -> dict:
+    """One of four ranks on the one card over gloo: reduced phi3 and
+    command-r at f32 on a (2, 2) mesh, 3 steps under each flag set, every
+    rank drawing the seed-0 init."""
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+    out, total = {}, None
+    for arch, names in DENSE_MESH_RUNS:
+        cfg, shape, batches = _dense_mesh_setup(arch)
+        for name in names:
+            runner = get_runner(cfg, shape,
+                                RunConfig(**DENSE_F32, attention_impl="naive",
+                                          **MESH_FLAGS[name]),
+                                mesh=mesh, seed=0)
+            r = _timed_steps(runner, batches, dev)
+            out[f"{arch}/{name}"] = {
+                "losses": r["losses"], "step_ms": r["step_ms"],
+                "method": runner.plan.table_methods["embed"],
+                "bucketed": runner.plan.bucket_plan is not None,
+                "launches": r["launches"]}
+            total = r["launches"] if total is None else {
+                k: total[k] + v for k, v in r["launches"].items()}
+    out["launches"] = total
+    return out
+
+
+def phase_mesh_card_dense() -> dict:
+    """mesh_card (e): four gloo ranks on the one card, reduced phi3 under
+    hybrid, ps and mpi and reduced command-r (tied) under hybrid and mpi on
+    (2, 2), each against the one-device card run from the same seed-0 init
+    and batches within 5e-4 + 1e-4 i (the reference test's bar)."""
+    single = {}
+    for arch, _ in DENSE_MESH_RUNS:
+        cfg, shape, batches = _dense_mesh_setup(arch)
+        one = get_runner(cfg, shape, RunConfig(**DENSE_F32,
+                                               attention_impl="naive"),
+                         device="cuda", seed=0)
+        single[arch] = [float(one.run(b)["loss"]) for b in batches]
+        del one
+    torch.cuda.empty_cache()
+    ranks = spawn(_dense_card_rank, 4, "gloo", "cuda", timeout=600)
+    rows = {}
+    for arch, names in DENSE_MESH_RUNS:
+        for name in names:
+            key = f"{arch}/{name}"
+            rs = [r[key] for r in ranks]
+            got = rs[0]["losses"]
+            check(all(r["losses"] == got for r in rs),
+                  f"mesh_card (e) {key}: ranks disagree "
+                  f"{[r['losses'] for r in rs]}")
+            for i, (a, b) in enumerate(zip(got, single[arch])):
+                check(abs(a - b) < 5e-4 + 1e-4 * i,
+                      f"mesh_card (e) {key} step {i}: {got} vs one device "
+                      f"{single[arch]}")
+            want = _one_pass_pushes(rs[0]["method"], len(got))
+            for m, r in enumerate(rs):
+                c = r["launches"]
+                check(c["embed_scatter_add"] == c["embed_scatter_add_fused"]
+                      == want,
+                      f"mesh_card (e) {key} rank {m}: pushes {c}, want "
+                      f"{want} one-pass on {r['method']}")
+            rows[key] = {"losses": got, "method": rs[0]["method"],
+                         "bucketed": rs[0]["bucketed"],
+                         "median_step_ms": statistics.median(
+                             rs[0]["step_ms"]),
+                         "max_abs_diff": max(abs(a - b) for a, b in
+                                             zip(got, single[arch]))}
+    counts = ranks[0]["launches"]
+    runs = sum(len(n) for _, n in DENSE_MESH_RUNS)
+    check(counts["embed_gather"] == counts["embed_gather_bulk"] == 3 * runs,
+          f"mesh_card (e): gathers {counts}")
+    res = {"phase": "mesh_card_dense", "backend": "gloo", "world": 4,
+           "mesh": [2, 2], "one_device": single, "runs": rows,
+           "launches": counts,
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    emit(res)
+    return res
+
+
+def _replay_rank(rank: int, world: int, phase: str) -> dict:
+    """One rank of a phase of the adaptive_replan replay on the one card,
+    its kernel launches counted from 0."""
+    from repro_torch.benchmarks import adaptive_replan
+    ops.reset_launch_counts()
+    res = getattr(adaptive_replan, phase)(rank, world, "cuda")
+    return {"result": res, "launches": ops.launch_counts()}
+
+
+def _replay_pushes(key: str, res: dict) -> int:
+    """The one-pass pushes a replay phase makes, from the plans it ran
+    under: phase 1's static run on its first plan, the adaptive run on its
+    first plan up to the replan and on the new one after; phase 2's tables
+    on the plan of each replan window."""
+    from repro_torch.benchmarks.adaptive_replan import (PROFILE_STEPS,
+                                                        REPLAN_EVERY, STEPS)
+    if key == "single_table":
+        st, ad = res["static"], res["adaptive"]
+        return (_one_pass_pushes(st["before"]["method"], STEPS)
+                + _one_pass_pushes(ad["before"]["method"], PROFILE_STEPS)
+                + _one_pass_pushes(ad["after"]["method"],
+                                   STEPS - PROFILE_STEPS))
+    return sum(_one_pass_pushes(t["method"], REPLAN_EVERY)
+               for p in res["trajectory"] if p["step"] < STEPS
+               for t in p["tables"].values())
+
+
+def phase_replan_replay() -> dict:
+    """The port's ``benchmarks/adaptive_replan.py`` replay, both phases on
+    8 gloo ranks on the one card ((4 data x 2 model) meshes): reduced phi3
+    at vocab 256, static against a replan after step 4 (ps -> ps_gather,
+    the loss divergence < 5e-3); reduced parallax-nmt's two tables through
+    a burst (different methods and capacities, the capacity grows). The
+    replay's own checks (``adaptive_replan.check``). Gloo through the host,
+    8 processes sharing the card: the step times are not exchange
+    times."""
+    from repro_torch.benchmarks import adaptive_replan
+    world = adaptive_replan.MESH[0] * adaptive_replan.MESH[1]
+    res, launches, seconds = {}, None, {}
+    for key, phase in (("single_table", "single_table_rank"),
+                       ("two_table", "two_table_rank")):
+        t = time.perf_counter()
+        ranks = spawn(_replay_rank, world, "gloo", "cuda", args=(phase,),
+                      timeout=600)
+        seconds[key] = time.perf_counter() - t
+        res[key] = ranks[0]["result"]
+        want = _replay_pushes(key, res[key])
+        for m, r in enumerate(ranks):
+            c = r["launches"]
+            check(c["embed_scatter_add"] == c["embed_scatter_add_fused"]
+                  == want,
+                  f"replan_replay {key} rank {m}: pushes {c}, want {want} "
+                  "one-pass")
+        c = ranks[0]["launches"]
+        launches = c if launches is None else {
+            k: launches[k] + v for k, v in c.items()}
+    adaptive_replan.report(res)
+    adaptive_replan.check(res)
+    single, two = res["single_table"], res["two_table"]
+    check(single["adaptive"]["replan"]["flips"] == [["embed", "ps",
+                                                     "ps_gather"]],
+          f"replan_replay: flips {single['adaptive']['replan']}")
+    out = {"phase": "replan_replay", "backend": "gloo", "world": world,
+           "seconds": seconds,
+           "single_table": {k: single[k] for k in (
+               "alpha_uniform", "alpha_zipf_analytic",
+               "max_loss_divergence")},
+           "static": {k: single["static"][k] for k in (
+               "before", "pre_ms", "post_ms")},
+           "adaptive": {k: single["adaptive"][k] for k in (
+               "before", "after", "replan", "observed_alpha", "pre_ms",
+               "post_ms")},
+           "two_table": {"final_tables": {
+               t: {k: e[k] for k in ("method", "capacity", "grown")}
+               for t, e in two["final_tables"].items()},
+               "embed_capacity": [p["tables"]["embed"]["capacity"]
+                                  for p in two["trajectory"]]},
+           "launches": launches}
+    emit(out)
+    return out
+
+
 def _check_nmt_card(ranks: list, nmt_losses: list, steps: int) -> dict:
     """mesh_card (c)'s checks, over every rank's record."""
     f0, p0 = ranks[0]["fused"], ranks[0]["per_param"]
@@ -2385,8 +2852,10 @@ def main() -> None:
     run("serve_parity", phase_serve_parity)
     run("rwkv_parity", phase_rwkv_parity)
     run("rwkv_recurrence", phase_rwkv_recurrence, dev)
+    dense_parity = run("dense_parity", phase_dense_parity)
     main_res = run("main", phase_main, dev)
-    paths = {"main": main_res["launches"]}
+    paths = {"main": main_res["launches"],
+             "dense_parity": dense_parity["launches"]}
     paths["main_no_la"] = run("main_no_la", phase_main_no_la,
                               dev)["launches"]
     nmt = run("nmt", phase_nmt, dev)
@@ -2397,6 +2866,8 @@ def main() -> None:
                                 dev)["launches"]
     paths["train_resume"] = run("train_resume", phase_train_resume,
                                 dev)["launches"]
+    dense = run("dense_train", phase_dense_train, dev)
+    paths["dense_train"] = dense["launches"]
     paths["mesh_one_rank"] = run("mesh_one_rank", phase_mesh_one_rank,
                                  main_res["losses"])["launches"]
     card = run("mesh_card", phase_mesh_card, main_res["losses"],
@@ -2404,6 +2875,10 @@ def main() -> None:
     paths["mesh_card"] = card["launches"]
     paths["mesh_card_nmt"] = card["nmt"]["launches"]
     paths["mesh_launcher"] = card["launcher"]["launches"]
+    paths["mesh_card_dense"] = run("mesh_card_dense",
+                                   phase_mesh_card_dense)["launches"]
+    paths["replan_replay"] = run("replan_replay",
+                                 phase_replan_replay)["launches"]
     serve = run("serve", phase_serve, dev)
     paths["serve"] = serve["launches"]
     paths["rwkv_serve"] = run("rwkv_serve", phase_rwkv_serve,
@@ -2440,6 +2915,8 @@ def main() -> None:
                                                      "floor_ms")})
             rows[-1]["serve_shapes"] = kern["embed_gather_serve"]
             rows[-1]["rwkv_shapes"] = kern["embed_gather_rwkv"]
+        if name in ("embed_gather", "embed_scatter_add"):
+            rows[-1]["dense_train_shape"] = kern["dense_train_shape"][name]
         if name == "embed_scatter_add":
             rows[-1]["launches_fused"] = {
                 p: c["embed_scatter_add_fused"] for p, c in paths.items()

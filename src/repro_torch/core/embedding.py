@@ -49,6 +49,12 @@ from repro_torch.core import collectives as coll
 from repro_torch.kernels import ops, ref
 
 
+# the push methods whose table gradient the lookup's backward delivers
+# already summed over the replicas: the step only scales it by 1/N, and
+# a tied head's part of the same table is summed to match
+PUSHED = ("ps", "ps_gather", "mpi_gatherv")
+
+
 @dataclass(frozen=True)
 class EmbedCtx:
     """Static context of one lookup."""

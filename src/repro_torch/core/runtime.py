@@ -45,6 +45,10 @@ def check_ported(run_cfg: RunConfig, mesh: Any = None) -> None:
          "slice 8 (tooling)"),
         (run_cfg.verify_contract, "RunConfig.verify_contract",
          "slice 8 (tooling)"),
+        # every rank runs the dense layers whole: an explicit
+        # sequence-parallel block would be accepted and do nothing
+        (run_cfg.explicit_sp, "RunConfig.explicit_sp (core/sp.py)",
+         "slice 2's rest (tensor-parallel execution)"),
     ]
     for hit, what, where in refusals:
         if hit:

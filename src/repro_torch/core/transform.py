@@ -267,7 +267,7 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
 
     def exchange(n: str, g: torch.Tensor, stats: dict):
         p = plan.params[n]
-        if p.sparse and p.method in ("ps", "ps_gather", "mpi_gatherv"):
+        if p.sparse and p.method in embedding.PUSHED:
             # pushed and replica-summed by the lookup: only the 1/N
             if census and g.dim() >= 2:
                 stats[f"{n}_gmax"], stats[f"{n}_grms"] = \
@@ -471,6 +471,12 @@ def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
     is laid out per bucket here (``Runner.state`` hands it out per
     parameter)."""
     check_ported(rt.run_cfg, rt.mesh)
+    if rt.mesh is not None and rt.resolved_strategy == "dp":
+        # the plan records it (analyze plans it); the exchanges of the
+        # port read the model axis as the tables' row shards
+        raise NotImplementedError(
+            "dense_strategy 'dp' (the model axis joining the data axes, "
+            "FSDP over both) is not ported yet: ROADMAP slice 2's rest")
     if rt.mesh is not None:
         for p in plan.params.values():
             if p.opt_placement != p.placement:

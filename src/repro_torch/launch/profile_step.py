@@ -1,12 +1,15 @@
 """Where the time of one training step goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
-        [--arch parallax-lm|parallax-nmt]
+        [--arch parallax-lm|parallax-nmt|phi3-medium-14b]
 
 Drives the same training path as chip_smoke.py's ``main`` (full-width
-parallax-lm, ShapeConfig("lm1b", 20, 128), default RunConfig) or its
+parallax-lm, ShapeConfig("lm1b", 20, 128), default RunConfig), its
 ``nmt`` (full-width parallax-nmt, ShapeConfig("wmt", 50, 128), the
-reference's two-table knobs, AdamW at 1e-4) and prints JSON lines:
+reference's two-table knobs, AdamW at 1e-4) or its ``dense_train``
+(phi3-medium-14b at its published width with 8 of 40 layers,
+ShapeConfig("train", 512, 8), default RunConfig, Zipf(1.3) tokens) and
+prints JSON lines:
 
   stages    per-step device time of the forward (lookup, LSTM, head, loss),
             the backward, and the update (OPSW cast, clipping, AdamW), from
@@ -22,42 +25,67 @@ nmt_trace.json). Needs a card; without one it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import sys
 import time
 from collections import defaultdict
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import RunConfig, ShapeConfig, get_config
+from repro_torch.configs import (ModelConfig, RunConfig, ShapeConfig,
+                                get_config)
 from repro_torch.core.transform import get_runner, opsw_cast
 from repro_torch.data import SyntheticLM
 
 STEPS = 3
 OUT = Path(__file__).resolve().parents[3] / "results" / "profile_step"
-# arch -> (shape, RunConfig, SyntheticLM options, trace file): the
-# training paths chip_smoke.py drives as main and nmt. parallax-nmt takes
-# the reference's two-table knobs and AdamW at 1e-4: at the default 1e-3
-# its full-width loss spikes by the third step (in bf16 and f32, with the
-# embed kernels or their plain versions alike: the model's math)
+
+
+class Cell(NamedTuple):
+    """A training path chip_smoke.py drives and this script profiles."""
+    shape: ShapeConfig
+    run: RunConfig
+    data: dict                  # SyntheticLM options
+    trace: str                  # the chrome trace's file name
+    n_layers: Optional[int] = None  # the depth kept (None: published)
+
+
+# arch -> its cell: chip_smoke.py's main, nmt and dense_train. parallax-nmt
+# takes the reference's two-table knobs and AdamW at 1e-4: at the default
+# 1e-3 its full-width loss spikes by the third step (in bf16 and f32, with
+# the embed kernels or their plain versions alike: the model's math).
+# phi3-medium-14b keeps 8 of its 40 layers: all 40 layers' bf16 params and
+# grads with f32 AdamW moments (~176 GB) do not fit the card's 80 GB
 CELLS = {
-    "parallax-lm": (ShapeConfig("lm1b", seq_len=20, global_batch=128,
-                                kind="train"), RunConfig(), {},
-                    "trace.json"),
-    "parallax-nmt": (ShapeConfig("wmt", seq_len=50, global_batch=128,
-                                 kind="train"),
-                     RunConfig(capacity_mode="capped", capacity_factor=1.5,
-                               link_latency=0.0,
-                               table_zipf=(("embed", 1.3),),
-                               table_alpha=(("enc_embed", 0.99),),
-                               learning_rate=1e-4),
-                     {"is_encdec": True, "src_zipf_a": 0.0},
-                     "nmt_trace.json"),
+    "parallax-lm": Cell(ShapeConfig("lm1b", seq_len=20, global_batch=128,
+                                    kind="train"), RunConfig(), {},
+                        "trace.json"),
+    "parallax-nmt": Cell(ShapeConfig("wmt", seq_len=50, global_batch=128,
+                                     kind="train"),
+                         RunConfig(capacity_mode="capped",
+                                   capacity_factor=1.5, link_latency=0.0,
+                                   table_zipf=(("embed", 1.3),),
+                                   table_alpha=(("enc_embed", 0.99),),
+                                   learning_rate=1e-4),
+                         {"is_encdec": True, "src_zipf_a": 0.0},
+                         "nmt_trace.json"),
+    "phi3-medium-14b": Cell(ShapeConfig("train", seq_len=512, global_batch=8,
+                                        kind="train"), RunConfig(),
+                            {"zipf_a": 1.3}, "phi3_trace.json", n_layers=8),
 }
+
+
+def cell_config(arch: str) -> ModelConfig:
+    """``arch``'s published config at its cell's depth."""
+    cfg, n = get_config(arch), CELLS[arch].n_layers
+    return cfg if n is None else dataclasses.replace(cfg, n_layers=n)
+
 
 # kernel-name fragment -> class, first match wins
 CLASSES = (
@@ -168,8 +196,8 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch)
-    shape, rc, data_kw, trace = CELLS[args.arch]
+    cfg = cell_config(args.arch)
+    shape, rc, data_kw, trace, _ = CELLS[args.arch]
     runner = get_runner(cfg, shape, rc, device="cuda")
     ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
                      **data_kw)

@@ -12,16 +12,18 @@ otherwise, each running the trainer on its shard of the mesh.
 
 Mapped or refused, never ignored:
   * ``--arch``: the port trains the LSTM family (parallax-lm,
-    parallax-nmt); the default ``phi3-medium-14b`` and every other arch are
-    refused by name (the dense transformer's training is ROADMAP slice 4,
-    the other families slice 6);
+    parallax-nmt) and the dense family (the default ``phi3-medium-14b``,
+    command-r-35b, ...); every other arch is refused by name (rwkv6's
+    training is ROADMAP slice 6 item 18, the other families slice 6);
   * ``--embed-impl``: ``pallas`` (the default here) means the hand-written
     CUDA kernels on the card, their plain versions on the CPU, dispatched
     on the tensor's device; ``jnp`` (plain versions on the card) is
     refused;
   * ``--kernel-autotune`` reaches ``RunConfig.kernel_autotune``, which the
     runtime refuses (ROADMAP slice 8);
-  * ``--attention`` is ``RunConfig.attention_impl``, which no LSTM reads;
+  * ``--attention`` is ``RunConfig.attention_impl`` (the dense family's;
+    no LSTM reads it); ``pallas`` is refused for training (the flash
+    kernel is forward-only, as the reference's);
   * the elastic flags (``--remesh-on-straggle``, ``--heartbeat``,
     ``--max-staleness``, ``--stale-on-jitter``, ``--no-attribution``,
     ``--probation-*``, ``--min-data-parallel``) reach their config fields,
@@ -41,10 +43,10 @@ from repro_torch.configs import RunConfig, ShapeConfig, get_config, reduced
 from repro_torch.core.runtime import check_ported
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch.mesh import make_mesh, spawn
+from repro_torch.models.transformer import check_trainable
 
-TRAINABLE = ("lstm",)
-_LATER = {"dense": "ROADMAP slice 4 (training the dense transformer)",
-          "ssm": "ROADMAP slice 6 item 18 (training rwkv6)"}
+TRAINABLE = ("lstm", "dense")
+_LATER = {"ssm": "ROADMAP slice 6 item 18 (training rwkv6)"}
 
 
 def _parse(argv=None):
@@ -121,7 +123,9 @@ def _check(args, cfg) -> None:
                                         "families)")
         raise NotImplementedError(
             f"training {cfg.name} (family {cfg.family!r}) is not ported "
-            f"yet: {where}; the port trains parallax-lm and parallax-nmt")
+            f"yet: {where}; the port trains the lstm and dense families")
+    if cfg.family == "dense":
+        check_trainable(RunConfig(attention_impl=args.attention))
     if args.embed_route == "jnp":
         raise NotImplementedError(
             "--embed-impl jnp: the port has no plain embedding route on "

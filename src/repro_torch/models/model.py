@@ -7,9 +7,10 @@ cache_len)``, ``init_cache(batch, seq)`` and ``prefill_cache_fn(tokens)``
 (None for a family whose recurrent state cannot be bucket-prefilled under
 padding). Ported families: ``lstm`` (the paper's LM and its LSTM
 encoder-decoder NMT, trained; the NMT is not served, as in the reference),
-``dense`` (serving; its training is ROADMAP slice 4) and ``ssm`` (rwkv6,
-serving; its training waits for slice 4 and a WKV backward). The others
-are refused by name.
+``dense`` (phi3, command-r and kin: trained and served) and ``ssm``
+(rwkv6, served; its training waits for a WKV backward, ROADMAP slice 6
+item 18, and ``RwkvLM.loss_fn`` refuses it). The others are refused by
+name.
 """
 from __future__ import annotations
 

@@ -19,9 +19,21 @@ The dense decode cache is the reference's tuple ``(k, v)`` of
 (n_layers, B, D))``. Where JAX returns an updated cache, the port writes the
 new rows (or carry) into the given tensors in place and returns them.
 
-Not ported here: ``loss_fn`` (training the dense and ssm families) and the
-tensor- and sequence-parallel paths (``core/sp.py``), ROADMAP slice 4; the
-moe and hybrid families and cross attention, ROADMAP slice 6.
+Training (``DenseLM.loss_fn``) runs the cache-less path under autograd
+through plain attention (``naive`` or ``chunked``): the reference's Pallas
+flash kernel is forward-only, so ``attention_impl="pallas"`` is refused in
+a training step. ``RunConfig.remat`` recomputes each layer in the
+backward as the reference's ``jax.checkpoint`` does (``block``: the
+matmul outputs saved, the counterpart of
+``dots_with_no_batch_dims_saveable``; ``full``: the whole layer
+recomputed). On a mesh every rank runs the layers whole (``held`` drops
+the model axis outside ``vocab``) and only the head is vocab-sharded:
+``coll.copy_to`` sums the activation's gradient over ``model`` before it,
+and a tied head reads this rank's rows of the table (below).
+
+Not ported here: the ssm family's training (ROADMAP slice 6 item 18), the
+tensor- and sequence-parallel execution (``core/sp.py``, slice 2's rest),
+the moe and hybrid families and cross attention (slice 6).
 """
 from __future__ import annotations
 
@@ -30,7 +42,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import collectives as coll
 from repro_torch.core import embedding as emb
+from repro_torch.core.xent import sharded_xent
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (ParamSpec, ParamTree, flatten_specs,
@@ -49,6 +63,16 @@ def _qmap(n_heads: int, n_kv: int, padded: int, device: torch.device):
 
 def _refuse(what: str, where: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP {where}")
+
+
+def check_trainable(run_cfg) -> None:
+    """Refuse, by name, a training step the dense family cannot run."""
+    if run_cfg.attention_impl == "pallas":
+        raise NotImplementedError(
+            "attention_impl='pallas' in a training step: the reference's "
+            "Pallas flash kernel is forward-only (jax.grad through it "
+            "fails), so training runs plain attention; use 'naive' or "
+            "'chunked' (serving keeps the flash kernel)")
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +196,11 @@ def attn_block(p: dict, x: torch.Tensor, *, cfg, rt, positions,
             q, k, v, impl=rt.run_cfg.attention_impl, causal=causal,
             chunk=rt.run_cfg.attention_chunk, qmap=qmap)
         new_cache = (k.to(rt.dtype), v.to(rt.dtype)) if return_kv else None
+    if hp > cfg.n_heads:
+        # padded heads zeroed before the o-proj, as the reference does:
+        # their columns get no gradient, so padding changes no value
+        keep = torch.arange(hp, device=out.device) < cfg.n_heads
+        out = out * keep.to(out.dtype)[None, None, :, None]
     out = out.reshape(b, s, hp * hd) @ p["wo"]
     return out, new_cache
 
@@ -249,7 +278,7 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
                 cfg=cfg)
             for c, new in zip(cache, new_carry):
                 c[i].copy_(new)
-        return _head(params, x, cfg), cache, metrics
+        return _head(params, x, cfg, rt), cache, metrics
     dev = tokens.device
 
     if cache_len is None and cache is None:
@@ -262,10 +291,14 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
         else:
             positions = base + torch.arange(s, device=dev)
 
+    layer = decoder_layer
+    if cache is None and not collect_kv and torch.is_grad_enabled():
+        # the training forward: each layer under the run's remat
+        layer = remat(decoder_layer, rt.run_cfg.remat)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         layer_cache = None if cache is None else (cache[0][i], cache[1][i])
-        x, new_c, _ = decoder_layer(
+        x, new_c, _ = layer(
             _layer_params(params, i), x, cfg=cfg, rt=rt, positions=positions,
             layer_cache=layer_cache, cache_len=cache_len,
             collect_kv=collect_kv)
@@ -278,13 +311,82 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
         new_cache = (torch.stack(ks), torch.stack(vs))
     else:
         new_cache = None
-    return _head(params, x, cfg), new_cache, metrics
+    return _head(params, x, cfg, rt), new_cache, metrics
 
 
-def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The final norm and the vocab projection."""
+# matmuls with no batch dimension: ``x @ w`` of a (B, S, D) activation
+# reaches the dispatcher as ``mm`` on (B·S, D); attention's einsums are
+# ``bmm`` (batched) and are recomputed, as under the reference's policy
+_SAVED_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, mode: str):
+    """``fn`` under ``RunConfig.remat`` (the reference's ``jax.checkpoint``
+    around each layer): ``none`` keeps every activation; ``block`` keeps
+    the matmul outputs and recomputes the rest in the backward (the
+    counterpart of ``dots_with_no_batch_dims_saveable``); ``full`` keeps
+    only the layer's inputs and recomputes the layer. The values are the
+    same under all three."""
+    if mode == "none":
+        return fn
+    if mode not in ("block", "full"):
+        raise ValueError(f"unknown remat {mode!r} (none | block | full)")
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if mode == "block":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+    return run
+
+
+def _tied_head(table: torch.Tensor, rt) -> torch.Tensor:
+    """The head a tied table gives this rank: its rows of the vocab
+    shard the logits cover, with the gradient summed where the table's
+    other gradient, the lookup's push, arrives summed.
+
+    A pushed table (ps, ps_gather, mpi_gatherv) comes out of the lookup's
+    backward already summed over the replicas, and the step only scales it
+    by 1/N; so the head's part is summed over the batch axes too (the
+    reference's GSPMD step sums both). A replicated table (mpi_gatherv or
+    the dense exchange) under a vocab-sharded head is cut to this model
+    rank's rows, and the gradient summed over ``model`` puts every rank's
+    rows back together, so every model rank holds the same gradient."""
+    mesh = rt.mesh
+    if mesh is None:
+        return table
+    axes = ()
+    if rt.replicas > 1 and rt.embed_ctx().method in emb.PUSHED:
+        axes = tuple(rt.batch_axes)
+    vs = rt.padded_vocab // rt.vocab_shards
+    cut = rt.vocab_shards > 1 and table.shape[0] != vs
+    if cut:
+        axes += ("model",)
+    if axes:
+        table = coll.copy_to(table, axes, mesh)
+    if cut:
+        m = mesh.coords["model"]
+        table = table[m * vs:(m + 1) * vs]
+    return table
+
+
+def _head(params: dict, x: torch.Tensor, cfg, rt) -> torch.Tensor:
+    """The final norm and the vocab projection (this rank's vocab shard on
+    a mesh, its input's gradient summed over ``model``)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    if rt.vocab_shards > 1:
+        x = coll.copy_to(x, "model", rt.mesh)
+    head = (_tied_head(params["embed"], rt) if cfg.tie_embeddings
+            else params["head"])
     return torch.matmul(x, head.to(x.dtype).t())
 
 
@@ -324,11 +426,34 @@ class DenseLM(ParamTree):
         if shape.kind == "decode":
             return {"tokens": ((b, 1), torch.int32),
                     "cache_len": ((), torch.int32)}
-        return {"tokens": ((b, s), torch.int32)}
+        specs = {"tokens": ((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = ((b, s), torch.int32)
+        return specs
 
-    def loss_fn(self, batch: dict):
-        _refuse("training the dense family", "slice 4 (the dense "
-                "transformer)")
+    def forward(self, batch: dict) -> tuple:
+        """The training forward: -> (logits (B, S, Vp / M), None,
+        metrics)."""
+        return forward(self.params(), batch["tokens"], cfg=self.cfg,
+                       rt=self.rt)
+
+    def loss_fn(self, batch: dict, params: dict = None) -> tuple:
+        """-> (this replica's mean loss, metrics). ``params``: {dotted
+        name: tensor} standing in for parameters in this call (the step's
+        FSDP-gathered weights)."""
+        rt = self.rt
+        check_trainable(rt.run_cfg)
+        if params:
+            logits, _, metrics = torch.func.functional_call(
+                self, params, (batch,))
+        else:
+            logits, _, metrics = self(batch)
+        per_tok = sharded_xent(logits, batch["labels"], mesh=rt.mesh,
+                               model_axis="model", batch_axes=rt.batch_axes,
+                               vocab=self.cfg.vocab_size)
+        loss = per_tok.mean()
+        metrics["xent"] = loss.detach()
+        return loss, metrics
 
     @torch.no_grad()
     def prefill_fn(self, batch: dict) -> tuple:

@@ -1,6 +1,10 @@
 """The port stands alone: no module of src/repro_torch, nor chip_smoke.py,
-imports jax or anything of the JAX package ``repro`` — checked by importing
-every module in a fresh interpreter and by scanning the sources' imports."""
+imports jax or anything of the JAX package ``repro``, nor the repo-level
+``benchmarks``, ``examples`` or ``tools`` (the port keeps its own copies
+in ``repro_torch.benchmarks`` and ``repro_torch.examples``) — checked by
+importing every module in a fresh interpreter and by scanning the
+sources' imports. The top-level API (``repro_torch.get_runner`` and the
+reference's other names) loads torch only on first use of a core name."""
 import ast
 import json
 import os
@@ -29,7 +33,8 @@ def _port_modules() -> list:
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks", "examples",
+                   "tools")
 
 
 def test_importing_the_port_pulls_in_no_jax():
@@ -41,7 +46,11 @@ def test_importing_the_port_pulls_in_no_jax():
               "repro_torch.core.buckets",
               # the training driver's modules
               "repro_torch.checkpoint.ckpt", "repro_torch.runtime.monitor",
-              "repro_torch.runtime.trainer", "repro_torch.launch.train"):
+              "repro_torch.runtime.trainer", "repro_torch.launch.train",
+              # the top-level API, the examples and the replay
+              "repro_torch", "repro_torch.examples.quickstart",
+              "repro_torch.examples.train_lm",
+              "repro_torch.benchmarks.adaptive_replan"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib.util, json, sys
@@ -78,3 +87,34 @@ def test_sources_import_no_jax():
             offenders += [f"{path}:{node.lineno}: {n}" for n in names
                           if _forbidden(n)]
     assert offenders == []
+
+
+def test_top_level_api_is_the_references_and_configs_stay_light():
+    """``repro_torch`` exports the names of ``repro/__init__.py``;
+    importing it (or ``repro_torch.configs``) loads no torch until a core
+    name is used."""
+    code = textwrap.dedent(f"""
+        import json, sys
+        sys.path.insert(0, {os.path.join(ROOT, "src")!r})
+        import repro_torch.configs
+        light = "torch" not in sys.modules
+        import repro_torch
+        still = "torch" not in sys.modules
+        names = sorted(n for n in dir(repro_torch) if not n.startswith("_"))
+        runner = repro_torch.get_runner
+        print(json.dumps([light, still, names, runner.__module__,
+                          "torch" in sys.modules]))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    light, still, names, where, loaded = json.loads(
+        proc.stdout.strip().splitlines()[-1])
+    assert light and still and loaded
+    assert where == "repro_torch.core.transform"
+    for n in ("ModelConfig", "ShapeConfig", "RunConfig", "SHAPES",
+              "ALL_ARCHS", "PAPER_ARCHS", "get_config", "all_configs",
+              "reduced", "shapes_for", "Runtime", "Plan", "analyze",
+              "get_runner", "shard", "SyntheticLM"):
+        assert n in names, n

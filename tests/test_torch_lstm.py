@@ -104,13 +104,18 @@ def test_loss_and_gradients_match_reference(dtype):
 
 
 def test_encdec_and_other_families_are_refused():
-    # parallax-nmt trains since its port (tests/test_torch_nmt.py); the
-    # families whose training is not ported yet are still refused
-    for arch in ("phi3-medium-14b", "rwkv6-7b"):
+    # parallax-nmt trains since its port (tests/test_torch_nmt.py) and the
+    # dense family since its own (tests/test_torch_dense_train.py), though
+    # not through the forward-only flash kernel; rwkv6's training is not
+    # ported yet
+    for arch, kw, match in (
+            ("phi3-medium-14b", {"attention_impl": "pallas"},
+             "pallas.*forward-only"),
+            ("rwkv6-7b", {}, "slice")):
         cfg = tc.reduced(tc.get_config(arch))
-        rt = Runtime(cfg, tc.RunConfig(), tc.ShapeConfig("t", 8, 2, "train"),
-                     device="cpu")
-        with pytest.raises(NotImplementedError, match="slice"):
-            # the dense family builds (it serves) but does not train yet
+        rt = Runtime(cfg, tc.RunConfig(**kw),
+                     tc.ShapeConfig("t", 8, 2, "train"), device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
             build_model(cfg, rt).loss_fn(
-                {"tokens": torch.zeros((2, 8), dtype=torch.int32)})
+                {"tokens": torch.zeros((2, 8), dtype=torch.int32),
+                 "labels": torch.zeros((2, 8), dtype=torch.int32)})

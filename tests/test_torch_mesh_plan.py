@@ -61,6 +61,21 @@ NMT_WIDTHS = {
 NMT_MODES = {"default": {}, "two_table": TWO_TABLE}
 NMT_CASES = [(w, m, mode) for w in NMT_WIDTHS for m in MESHES
              for mode in NMT_MODES]
+# the dense transformer (phi3; command-r, tied): reduced at f32 with the
+# exit test's shape, and the published width at launch/train.py's default
+# shape (bf16), whose memory escalation reaches ZeRO-1 and ZeRO-3
+DENSE_ARCHS = ("phi3-medium-14b", "command-r-35b")
+DENSE_WIDTHS = {
+    "reduced": (True, ("tiny", 32, 4, "train"),
+                dict(param_dtype="float32", compute_dtype="float32",
+                     wire_dtype="float32")),
+    "full": (False, ("train", 512, 8, "train"), {}),
+}
+DENSE_MODES = {"hybrid": {}, "ps": {"comm_mode": "ps"},
+               "mpi": {"comm_mode": "mpi"},
+               "auto": {"dense_strategy": "auto"}}
+DENSE_CASES = [(a, w, m, mode) for a in DENSE_ARCHS for w in DENSE_WIDTHS
+               for m in MESHES for mode in DENSE_MODES]
 # the reference's test_serve_plan_flips_method_per_table
 SERVE_KW = dict(NMT_WIDTHS["reduced"][2], **TWO_TABLE)
 SERVE_KINDS = ("decode", "train")
@@ -156,6 +171,15 @@ def reference_nmt_plans():
     return _reference(cases)
 
 
+@pytest.fixture(scope="module")
+def reference_dense_plans():
+    return _reference([(_key(a, w, m, mode), a, m,
+                        {} if DENSE_WIDTHS[w][0] else None,
+                        DENSE_WIDTHS[w][1],
+                        dict(DENSE_WIDTHS[w][2], **DENSE_MODES[mode]))
+                       for a, w, m, mode in DENSE_CASES])
+
+
 def _tpu_hw_for_port():
     h = jroof.HW
     return troof.Hardware(name=h.name, peak_flops=h.peak_flops,
@@ -166,10 +190,10 @@ def _tpu_hw_for_port():
                           inter_latency=h.inter_latency)
 
 
-def _port_plan(cfg, mesh, shape, kw) -> tuple:
+def _port_plan(cfg, mesh, shape, kw, device="cpu") -> tuple:
     ms = MeshShape(mesh, ("data", "model"))
     rt = Runtime(cfg, tc.RunConfig(**kw), tc.ShapeConfig(*shape), mesh=ms,
-                 device="cpu")
+                 device=device)
     model = build_model(cfg, rt)
     return rt, model, analyze(model, rt, memory_budget=BUDGET)
 
@@ -213,6 +237,34 @@ def test_nmt_mesh_plan_matches_reference(reference_nmt_plans, monkeypatch,
         assert (t["embed"]["method"], t["enc_embed"]["method"]) == \
             ("mpi_gatherv", "allreduce")
         assert got.fused_apply and got.bucket_plan is not None
+
+
+@pytest.mark.distributed
+@pytest.mark.parametrize("arch,width,mesh,mode", DENSE_CASES,
+                         ids=["-".join((a, w, "x".join(map(str, m)), mode))
+                              for a, w, m, mode in DENSE_CASES])
+def test_dense_mesh_plan_matches_reference(reference_dense_plans,
+                                           monkeypatch, arch, width, mesh,
+                                           mode):
+    """phi3 and command-r plans, field for field: the placements of the
+    q / KV heads and the MLP over ``model``, the tied table's method,
+    buckets, the memory escalation and the resolved dense strategy. The
+    port's model sits on the meta device: planning reads only the specs,
+    and the published widths hold 14.7 and 35 B parameters."""
+    want = reference_dense_plans[_key(arch, width, mesh, mode)]
+    monkeypatch.setattr(tcm, "HW", _tpu_hw_for_port())
+    red, shape, kw = DENSE_WIDTHS[width]
+    cfg = tc.get_config(arch)
+    if red:
+        cfg = tc.reduced(cfg)
+    rt, model, got = _port_plan(cfg, mesh, shape,
+                                dict(kw, **DENSE_MODES[mode]),
+                                device="meta")
+    _assert_plan_matches(want, rt, model, got)
+    # held: the model axis stays on the vocab rows only
+    for name, p in got.params.items():
+        if name not in ("embed", "head"):
+            assert "model" not in str(p.held), (name, p.held)
 
 
 @pytest.mark.distributed

@@ -263,3 +263,211 @@ def test_replan_trajectory_matches_reference():
             assert tr.plan.tables() == jr.plan.tables()
             caps = td["table_capacity"]
     assert caps[1]["embed"] < caps[0]["embed"]
+
+
+# ---------------------------------------------------------------------------
+# the phi3 cases of the reference's tests/test_replan.py: reduced
+# phi3-medium-14b at vocab 256, ShapeConfig("tiny", 32, 4), the default
+# RunConfig's dtypes (bf16) unless the reference's case sets them
+# ---------------------------------------------------------------------------
+
+PHI3_VOCAB = 256
+TINY = ("tiny", 32, 4, "train")
+SYS = dict(attention_impl="naive", remat="none")
+
+
+def _phi3_runner(rc, seed=0):
+    return get_runner(tc.reduced(tc.get_config("phi3-medium-14b"),
+                                 vocab=PHI3_VOCAB),
+                      tc.ShapeConfig(*TINY), rc, device="cpu", seed=seed)
+
+
+def _phi3_jrunner(rc):
+    return jget_runner(reduced(get_config("phi3-medium-14b"),
+                               vocab=PHI3_VOCAB), ShapeConfig(*TINY), rc)
+
+
+def _phi3_data(**kw):
+    return SyntheticLM(PHI3_VOCAB, 32, 4, **kw)
+
+
+def test_phi3_declared_zipf_skew_informs_the_planner():
+    """RunConfig.zipf_a switches the census to the skew-aware estimate;
+    both plans equal the reference's."""
+    base = dict(capacity_mode="capped")
+    tokens = 32 * 4
+    plans = {}
+    for name, kw in (("uniform", base), ("zipf", dict(base, zipf_a=1.3))):
+        plans[name] = _phi3_runner(tc.RunConfig(**kw)).plan
+        assert plans[name].tables() == \
+            _phi3_jrunner(RunConfig(**kw)).plan.tables()
+    assert plans["uniform"].alpha == pytest.approx(
+        tsp.expected_unique(tokens, PHI3_VOCAB) / PHI3_VOCAB)
+    assert plans["zipf"].alpha == pytest.approx(
+        tsp.expected_unique_zipf(tokens, PHI3_VOCAB, 1.3) / PHI3_VOCAB)
+    assert plans["zipf"].alpha < plans["uniform"].alpha
+    assert plans["zipf"].capacity < plans["uniform"].capacity
+
+
+def test_phi3_plan_diff_flags_overflow_growth_and_wire_flips():
+    """A grown table marks the diff changed inside the drift deadband; a
+    per-parameter wire-dtype move is a rebuild signal without a
+    placement change."""
+    r = _phi3_runner(tc.RunConfig(capacity_mode="capped",
+                                  capacity_factor=1.0))
+    census = estimate_census(r.model, r.rt)
+    grown_tables = {n: dataclasses.replace(t, capacity=int(t.capacity * 1.3),
+                                           grown=True)
+                    for n, t in census.tables.items()}
+    grown = dataclasses.replace(census, tables=grown_tables)
+    d = r.replan(grown, capacity_drift=1.5)
+    assert d["capacity_grown"] and d["changed"] and d["rebuilt"]
+    assert not d["capacity_drifted"]
+    assert r.plan.table_capacity["embed"] == grown_tables["embed"].capacity
+    dense = [p.name for p in r.plan.params.values() if not p.sparse]
+    d2 = r.replan(dataclasses.replace(
+        grown, wire_dtypes={n: "float32" for n in dense}))
+    assert d2["wire_flips"] and d2["changed"] and d2["rebuilt"]
+    assert not d2["pspecs_changed"]
+    assert all(r.plan.params[n].wire_dtype == torch.float32 for n in dense)
+
+
+def test_phi3_step_metrics_carry_observed_unique():
+    r = _phi3_runner(tc.RunConfig(**SYS))
+    b = _phi3_data().batch(0)
+    assert float(r.run(b)["embed_unique"]) == \
+        pytest.approx(float(np.unique(b["tokens"]).size))
+
+
+def test_phi3_plan_from_census_equals_from_scratch():
+    """analyze(census=c) equals the build-time plan whose estimate is c."""
+    r = _phi3_runner(tc.RunConfig(capacity_mode="capped"))
+    census = estimate_census(r.model, r.rt)
+    other = analyze(r.model, r.rt, census=census)
+    assert other.methods() == r.plan.methods()
+    assert (other.capacity, other.alpha) == (r.plan.capacity, r.plan.alpha)
+    d = plan_diff(r.plan, other)
+    assert not d["changed"] and not d["flips"]
+
+
+def test_phi3_noop_replan_keeps_params_bit_identical():
+    r = _phi3_runner(tc.RunConfig(**SYS))
+    ds = _phi3_data()
+    r.run(ds.batch(0))
+    before = {f"{part}.{n}": t.clone() for part in ("params", "m", "v")
+              for n, t in getattr(r.state, part).items()}
+    census = estimate_census(r.model, r.rt)
+    d = r.replan(census)
+    assert not d["changed"] and not d["rebuilt"]
+    assert r.replan(census, force=True)["rebuilt"]
+    after = {f"{part}.{n}": t for part in ("params", "m", "v")
+             for n, t in getattr(r.state, part).items()}
+    assert all(torch.equal(before[k], after[k]) for k in before)
+    assert np.isfinite(float(r.run(ds.batch(1))["loss"]))
+
+
+def test_phi3_capacity_drift_triggers_replan():
+    rc = tc.RunConfig(**SYS, capacity_mode="capped", capacity_factor=1.0)
+    r = _phi3_runner(rc)
+    cap0 = r.plan.capacity
+    prof = tsp.SparsityProfile()
+    prof.update({"embed_unique": cap0 / 4})
+    d = r.replan(tsp.observed_census(prof, estimate_census(r.model, r.rt),
+                                     PHI3_VOCAB, rc))
+    assert d["capacity_drifted"] and d["rebuilt"]
+    assert r.plan.capacity < cap0
+
+
+def _phi3_trainer(rc, tcfg, ds):
+    from repro_torch.runtime.trainer import Trainer
+    return Trainer(tc.reduced(tc.get_config("phi3-medium-14b"),
+                              vocab=PHI3_VOCAB), tc.ShapeConfig(*TINY), rc,
+                   tcfg, ds, device="cpu")
+
+
+def test_phi3_trainer_replan_hook_and_monitor():
+    from repro_torch.runtime.trainer import TrainerConfig
+    rc = tc.RunConfig(**SYS, capacity_mode="capped", capacity_factor=1.5)
+    t = _phi3_trainer(rc, TrainerConfig(total_steps=8, replan_every=4,
+                                        replan_warmup=2, replan_drift=1.3),
+                      _phi3_data())
+    cap0 = t.plan.capacity
+    stats = []
+    t.run(on_metrics=lambda s, m: stats.append(m))
+    # Zipf data against the uniform estimate: the capacity shrinks
+    assert t.monitor.replans >= 1
+    assert t.plan.capacity < cap0
+    assert t.plan.alpha < cap0 / PHI3_VOCAB
+    assert "observed_alpha" in stats[-1]
+    assert stats[-1]["replans"] == t.monitor.replans
+    assert all(np.isfinite(m["loss"]) for m in stats)
+
+
+def test_phi3_trainer_overflow_growth_and_monitor_surfacing():
+    from repro_torch.runtime.trainer import TrainerConfig
+    rc = tc.RunConfig(**SYS, capacity_mode="capped", capacity_factor=2.0,
+                      zipf_a=2.0, capacity_growth=1.5,
+                      overflow_tolerance=0.5)
+    t = _phi3_trainer(rc, TrainerConfig(total_steps=8, replan_every=6,
+                                        replan_warmup=2, replan_drift=50.0),
+                      _phi3_data(zipf_a=2.0, burst_steps=4,
+                                 burst_zipf_a=1.3))
+    cap0 = t.plan.table_capacity["embed"]
+    stats = []
+    t.run(on_metrics=lambda s, m: stats.append(m))
+    assert any(m.get("overflow", {}).get("embed", 0) > 0 for m in stats)
+    assert "overflow_rows" in stats[-1]
+    assert t.monitor.replans >= 1
+    assert t.plan.table_capacity["embed"] > cap0
+    assert "embed" in t.plan.grown_tables
+    assert all(np.isfinite(m["loss"]) for m in stats)
+
+
+@pytest.mark.distributed
+def test_phi3_method_flipping_replan_preserves_trajectory():
+    """(4, 2), Zipf ids: the uniform estimate plans ps, the observed α
+    sits below the ps / ps_gather crossover; the replan flips the method,
+    keeps the placements, and reproduces the static losses within
+    5e-4 + 1e-4·i."""
+    import _torch_dense_ranks as DR
+    from repro_torch.launch.mesh import spawn
+    res = spawn(DR.flip_rank, 8, "gloo", timeout=300)[0]
+    st, ad = res["static"], res["adaptive"]
+    assert st["first"] == st["last"] == "ps"
+    assert ad["first"] == "ps" and ad["last"] == "ps_gather", ad
+    assert ad["diff"]["flips"] and not ad["diff"]["pspecs_changed"]
+    assert ad["alpha"] < st["alpha"]
+    for i, (a, b) in enumerate(zip(st["losses"], ad["losses"])):
+        assert abs(a - b) < 5e-4 + 1e-4 * i, (i, st["losses"], ad["losses"])
+
+
+@pytest.mark.distributed
+def test_phi3_wire_dtype_auto_replan_from_magnitude_census():
+    import _torch_dense_ranks as DR
+    from repro_torch.launch.mesh import spawn
+    res = spawn(DR.wire_auto_rank, 8, "gloo", timeout=300)[0]
+    assert res["n_gm"] == 2 * res["n_buckets"], res
+    assert res["wire_flips"] and res["rebuilt"], res
+    assert not res["pspecs_changed"]
+    assert res["wires"] == ["float32"], res
+    assert res["keys0"] == ["bfloat16"] and res["keys1"] == ["float32"]
+    assert np.isfinite(res["loss"])
+
+
+@pytest.mark.distributed
+def test_phi3_overflow_growth_replan_exact_trajectory():
+    """A burst overflows the capped buffer; the growth rule (not the drift
+    deadband) rebuilds the step, and the swap leaves the f32 trajectory
+    exactly as the static run's."""
+    import _torch_dense_ranks as DR
+    from repro_torch.launch.mesh import spawn
+    res = spawn(DR.growth_rank, 4, "gloo", timeout=300)[0]
+    st, ad = res["static"], res["adaptive"]
+    d = ad["diff"]
+    assert max(ad["dropped"][:4]) > 0, ad["dropped"]
+    assert d["rebuilt"] and d["capacity_grown"], d
+    assert not d["capacity_drifted"] and not d["flips"] \
+        and not d["pspecs_changed"], d
+    assert ad["cap"] > ad["cap0"] and ad["grown"] == ["embed"]
+    assert st["cap"] == st["cap0"]
+    assert st["losses"] == ad["losses"]

@@ -260,7 +260,9 @@ LM = ["--arch", "parallax-lm", "--reduced", "--seq", "16", "--batch", "4"]
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    ([], NotImplementedError, "phi3-medium-14b.*slice 4"),
+    # the default arch (phi3) trains; its flash kernel does not
+    (["--reduced", "--attention", "pallas"], NotImplementedError,
+     "pallas.*forward-only"),
     (["--arch", "rwkv6-7b"], NotImplementedError, "slice 6"),
     (LM + ["--embed-impl", "jnp"], NotImplementedError, "embed-impl jnp"),
     (LM + ["--kernel-autotune"], NotImplementedError, "slice 8"),
