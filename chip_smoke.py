@@ -10,7 +10,8 @@ and never prints the final line:
               process-group backends this torch has; TF32 off.
   2. build    nvcc builds the ten kernel libraries from src/repro_torch/
               kernels/csrc (one process per source, in parallel) into
-              build/repro_torch/; -Xptxas -v's registers and spills.
+              build/repro_torch/; -Xptxas -v's registers and spills, each
+              after its function's mangled name (the template's D).
   3. kernels  each kernel against its plain version on the card at the main
               paths' shapes and at edge cases: the embedding kernels bit for
               bit (torch.equal of the raw bits; embed_gather on the route
@@ -26,11 +27,14 @@ and never prints the final line:
               kernel and the library's zeros + index_copy_, an empty
               kernel's launch floor under the same timer,
               flash_attention within 2e-5 at f32 and 2e-2 at bf16 on the
-              route ops.flash_route gives each case (bf16 at D 64/128:
+              route ops.flash_route gives each case (bf16 at D 64/128/160:
               the tensor-core kernel, also at Sq 96/Sk 160 and 160/96
               causal, B 4 with Sq 200, an 8-row q tile and strided views;
-              f32 and D 16/32: the scalar kernel), timed at the engine's
-              prefill buckets 256..2,048 beside SDPA, wkv
+              f32 and D 16/32: the scalar kernel; stablelm-12b's D 160 at
+              its 2,048-token prefill in bf16 and f32, the buckets
+              256/512/1,024, Sq != Sk both ways and a strided view),
+              timed at the engine's prefill buckets 256..2,048 beside
+              SDPA (phi3's D 128 and stablelm's D 160), wkv
               within 1e-4 at f32 and 5e-2 at bf16 of both its plain
               versions (chunked and sequential) on the route
               ops.wkv_route gives each case (bf16 with E 64 and S > 1:
@@ -201,12 +205,47 @@ and never prints the final line:
               decode step over 4 slots, one 2,048-token make_prefill_step
               (its ms; 32 wkv launches, all on the tensor-core route), peak
               memory.
+ 11. stablelm_parity  stablelm-12b at its published width with n_layers
+              cut to 2, f32, attention "pallas": one 256-token prompt
+              through Server on the CPU and on the card; prefill logits
+              within rtol 1e-4, at most 2 of 8 greedy tokens different,
+              flash launched once a layer per prefill on the scalar route
+              (D 160). stablelm_serve: serve's run on full-width
+              stablelm-12b (40 layers, d 5,120, 32 q / 8 KV heads of 160,
+              nothing cut): every prefill's 40 flash launches on the
+              tensor-core route at D 160.
+ 12. families_parity  reduced seamless-m4t-medium, hymba-1.5b,
+              chameleon-34b and rwkv6-7b at f32: 3 training steps on the
+              CPU and on the card from the same parameters (losses within
+              rtol 1e-4, embed_* census equal, no flash or wkv launch in
+              training); seamless and hymba also prefill and decode 4
+              tokens with attention "pallas" (logits within rtol 1e-4;
+              seamless's encoder and cross attention through flash,
+              non-causal, Sq != Sk). Then the families' training through
+              Trainer, dense_train's recipe (RunConfig(), ShapeConfig(
+              "train", 512, 8), 12 steps of Zipf(1.3) batches), each at its
+              cell in profile_step.CELLS (chameleon's AdamW at 1e-5): seamless_train (seamless-m4t-
+              medium whole: 12 + 12 layers, d 1,024, vocab 256,206, 128
+              stub frames a row), hymba_train (hymba-1.5b whole: 32
+              layers, d 1,600, 25 q / 5 KV heads of 64, SSM state 16),
+              chameleon_train (chameleon-34b at 4 of 48 layers) and
+              rwkv_train (rwkv6-7b at 8 of 32; the WKV through the chunked
+              form under autograd): losses finite and falling, peak under
+              72 GB, a bulk gather and a one-pass scatter a step, step ms,
+              tokens/s, TFLOP/s from counted operations and the share of
+              the bf16 peak. mesh_card_encdec = mesh_card (f): reduced
+              seamless at f32 on (2, 2) over 4 gloo ranks on the card,
+              default flags and comm_mode mpi, within 5e-4 + 1e-4 i of the
+              one-device card run.
 
 Each path (main, main_no_la, nmt, train (its adaptive run), train_growth,
 train_resume (both runs), dense_parity (its card runs), dense_train,
 mesh_one_rank, mesh_card (a) + (b), mesh_card_nmt = mesh_card (c),
 mesh_card_dense = mesh_card (e), replan_replay (both phases, rank 0's),
-serve, rwkv_serve) runs with every launch
+serve, rwkv_serve, stablelm_parity (its card prefills and serving),
+stablelm_serve, families_parity (its card runs), seamless_train,
+hymba_train, chameleon_train, rwkv_train, mesh_card_encdec) runs with
+every launch
 count set to 0 just before it and read just after: the mesh phases in
 each rank's own process (mesh_card's (a), (b) and (c)'s two runs each so,
 a path's launches their sum, rank 0's), rwkv_serve's serve loop and its
@@ -243,8 +282,8 @@ from repro_torch.core import buckets  # noqa: E402
 from repro_torch.core.embedding import dedupe  # noqa: E402
 from repro_torch.core.runtime import Runtime  # noqa: E402
 from repro_torch.core.transform import (analyze, get_runner,  # noqa: E402
-                                        init_params_, make_decode_step,
-                                        make_prefill_step)
+                                        init_params_, load_params_,
+                                        make_decode_step, make_prefill_step)
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
@@ -285,14 +324,16 @@ KERNELS = {
     },
     "flash_attention": {
         "route": "cuda",
-        # bf16 with D in {64, 128}, the full-width path's route
+        # bf16 with D in {64, 128, 160}, the full-width paths' route
         "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:67",
-        "design": ("bf16, D 64/128: wgmma m64n128k16 (S from shared "
+        "design": ("bf16, D 64/128/160: wgmma m64n128k16 (S from shared "
                    "memory, P.V with P in registers), TMA 4-D tensor maps "
-                   "with the 128 B swizzle, a 2-stage K/V mbarrier ring, "
-                   "one producer thread and two consumer warpgroups "
-                   "(setmaxnreg 24/240); f32 and D 16/32: scalar f32 FMAs"),
+                   "with the 128 B swizzle (D 160: two 64-column boxes "
+                   "and a 32-column one with the 64 B swizzle, its P.V an "
+                   "m64n32k16), a 2-stage K/V mbarrier ring, one producer "
+                   "thread and two consumer warpgroups (setmaxnreg "
+                   "24/240); f32 and D 16/32: scalar f32 FMAs"),
         "scalar_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
     },
     # the three routes of ops.wkv (ops.wkv_route), one row each; "wkv" is
@@ -347,6 +388,21 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 "train_growth": ("embed_gather", "embed_scatter_add"),
                 "train_resume": ("embed_gather", "embed_scatter_add"),
                 "serve": ("embed_gather", "flash_attention"),
+                # stablelm-12b's 160-wide heads: the tc route at bf16 in
+                # the engine, the scalar route at f32 in the parity run
+                "stablelm_serve": ("embed_gather", "flash_attention"),
+                "stablelm_parity": ("embed_gather", "flash_attention"),
+                # slice 6's families: every training step pulls and pushes
+                # one table (flash and wkv are forward-only: never in
+                # training); the parity run's pallas prefills take flash
+                "families_parity": ("embed_gather", "embed_scatter_add",
+                                    "flash_attention"),
+                "seamless_train": ("embed_gather", "embed_scatter_add"),
+                "hymba_train": ("embed_gather", "embed_scatter_add"),
+                "chameleon_train": ("embed_gather", "embed_scatter_add"),
+                "rwkv_train": ("embed_gather", "embed_scatter_add"),
+                # mesh_card (f): hybrid's owner push one-pass, mpi's plain
+                "mesh_card_encdec": ("embed_gather", "embed_scatter_add"),
                 "rwkv_serve": ("embed_gather", "wkv_tc", "wkv_step"),
                 # the dense transformer's training: every step pulls phi3's
                 # (or command-r's) table and pushes its unique ids
@@ -371,6 +427,17 @@ F32_CORE_FLOPS = 67e12      # f32 FMA rate of the CUDA cores (H100 SXM sheet)
 # published width at 8 of 40 layers, launch/train.py's default shape)
 DENSE_ARCH, DENSE_STEPS = "phi3-medium-14b", 12
 DENSE = CELLS[DENSE_ARCH]
+# the slice-6 families' training phases (their cells in
+# ``profile_step.CELLS``: seamless and hymba whole, chameleon at 4 of 48
+# layers, rwkv6 at 8 of 32), each 12 Trainer steps like dense_train, and a
+# training phase's peak-memory limit on the 80 GB card
+FAMILY_TRAIN = {"seamless_train": "seamless-m4t-medium",
+                "hymba_train": "hymba-1.5b",
+                "chameleon_train": "chameleon-34b",
+                "rwkv_train": "rwkv6-7b"}
+FAMILY_STEPS = 12
+PEAK_LIMIT = 72e9
+STABLELM = "stablelm-12b"
 # the reference correctness test's RunConfig (f32 end to end, plain
 # attention, no remat): dense_parity and mesh_card (e)
 DENSE_F32 = dict(param_dtype="float32", compute_dtype="float32",
@@ -489,7 +556,8 @@ def phase_build() -> None:
         _build.load(name)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "ptxas": {n: [ln for ln in r["log"].splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "registers" in ln or "spill" in ln
+                        or "Function properties" in ln]
                     for n, r in res.items()}})
 
 
@@ -972,14 +1040,27 @@ def _flash_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
              (torch.bfloat16,)),
             # one q tile of 8 rows: the engine's smallest prefill bucket
             ("sq8_d128", (1, 8, 8, 40, 128), (True, False),
-             (torch.bfloat16,))):
+             (torch.bfloat16,)),
+            # stablelm-12b's 160-wide heads: its 2,048-token prefill, the
+            # engine's smaller buckets, Sq != Sk both ways (bf16 on the
+            # tensor cores: two 64-column boxes and a 32-column one)
+            ("stablelm_d160", (1, 2048, 2048, 32, 160), (True,), None),
+            ("bucket256_d160", (1, 256, 256, 32, 160), (True,),
+             (torch.bfloat16,)),
+            ("bucket512_d160", (1, 512, 512, 32, 160), (True,),
+             (torch.bfloat16,)),
+            ("bucket1024_d160", (1, 1024, 1024, 32, 160), (True,),
+             (torch.bfloat16,)),
+            ("sq96_sk160_d160", (2, 96, 160, 4, 160), (True, False), None),
+            ("sq160_sk96_d160", (2, 160, 96, 4, 160), (True, False), None)):
         for dtype in dtypes or (torch.bfloat16, torch.float32):
             q, k, v = qkv(b, sq, sk, h, d, dtype)
             for causal in causals:
                 hold(f"{case}_{'causal' if causal else 'full'}_"
                      f"{str(dtype).removeprefix('torch.')}", q, k, v, causal)
     for d, dtype in ((128, torch.bfloat16), (64, torch.bfloat16),
-                     (64, torch.float32)):
+                     (64, torch.float32), (160, torch.bfloat16),
+                     (160, torch.float32)):
         q, k, v = strided(2, 300, 8, d, dtype)
         check(not q.is_contiguous() and not k.is_contiguous(),
               "strided case made contiguous views")
@@ -1004,6 +1085,7 @@ def _flash_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
             "share_of_bound": work["bound_ms"] / t, **work}
     main = by_len[2048]
     q32, k32, v32 = (x.float() for x in (q, k, v))
+    d160 = _flash_d160(qkv, timer)
     # host time per call at the 128-token bucket, where a prefill is
     # host-bound: the tensor-core route encodes three tensor maps a call
     s_ = 128
@@ -1026,11 +1108,47 @@ def _flash_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
         "library_ms": main["library_ms"],
         # the f32 route (the scalar kernel) at the main shape
         "f32_ms": timer.ms(lambda: ops.flash_attention(q32, k32, v32)),
+        "d160": d160,
         **{key: main[key] for key in ("flops", "bytes", "ops_bound_ms",
                                       "bytes_bound_ms", "bound_ms",
                                       "bound_by", "tflops",
                                       "share_of_bound")},
     }
+
+
+def _flash_d160(qkv, timer: Timer) -> dict:
+    """flash_attention at stablelm-12b's head width (B 1, H 32, D 160,
+    causal, bf16) timed at the engine's buckets 256..2,048 beside SDPA
+    (``is_causal=True``; Hopper's SDPA takes head dims up to 256) and the
+    bound; at 2,048 also the plain version and the f32 (scalar) route.
+    Their unmasked pairs at 2,048 are phi3's 42.97 GFLOP, so the bound is
+    the D = 128 kernel's."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, d = 1, 32, 160
+    by_len = {}
+    for s_ in (256, 512, 1024, 2048):
+        q, k, v = qkv(b, s_, s_, h, d, torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        work = _flash_work(b, s_, h, d, 2)
+        t = timer.ms(lambda: ops.flash_attention(q, k, v))
+        by_len[s_] = {
+            "kernel_ms": t,
+            "library_ms": timer.ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+            "tflops": work["flops"] / t / 1e9,
+            "share_of_bound": work["bound_ms"] / t, **work}
+    main = by_len[2048]
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    return {"shape": f"stablelm-12b prefill: ({b}, 2048, {h}, {d}) bf16, "
+                     "causal",
+            "route": ops.flash_route(torch.bfloat16, d),
+            "by_len": by_len,
+            "kernel_ms": main["kernel_ms"],
+            "library_ms": main["library_ms"],
+            "plain_ms": timer.ms(lambda: ref.flash_attention_ref(q, k, v)),
+            "f32_ms": timer.ms(lambda: ops.flash_attention(q32, k32, v32)),
+            **{key: main[key] for key in (
+                "flops", "bytes", "ops_bound_ms", "bytes_bound_ms",
+                "bound_ms", "bound_by", "tflops", "share_of_bound")}}
 
 
 def _wkv_inputs(gen, b, s, h, e, dtype, lw_dtype=None, *, decay=(0.5, -1.0),
@@ -1581,9 +1699,13 @@ def phase_rwkv_recurrence(dev, n_tokens: int = 300) -> None:
           "logit_scale": float(logits[:, -1].abs().max())})
 
 
-def phase_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
-    """Full-width phi3-medium-14b served on the card."""
-    cfg = get_config("phi3-medium-14b")
+def phase_serve(dev, n_requests: int = 8, new: int = 16,
+                arch: str = "phi3-medium-14b", phase: str = "serve") -> dict:
+    """Full-width ``arch`` served on the card through the paged engine, bf16
+    and attention "pallas": phi3-medium-14b (``serve``) or stablelm-12b
+    (``stablelm_serve``, its 160-wide heads on flash's tensor-core
+    route). Every prefill launches flash once a layer on the tc route."""
+    cfg = get_config(arch)
     scfg = ServerConfig(max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1653,7 +1775,8 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     decode_ms = timer.ms(lambda: sv._decode(sv.cache, sv.lens, sv.tok,
                                              active, sv._gen), 10)
     sv.close()
-    res = {"phase": "serve", "arch": cfg.name, "requests": n_requests,
+    res = {"phase": phase, "arch": cfg.name, "requests": n_requests,
+           "flash_route": ops.flash_route(sv.rt.dtype, cfg.head_dim),
            "prompt_lens": [int(x) for x in lens],
            "buckets": sorted(sv.stats["buckets"]),
            "prefill_calls": prefills, "decode_steps": steps,
@@ -2090,38 +2213,72 @@ def phase_train_growth(dev) -> dict:
     return res
 
 
-def _dense_work(cfg, shape) -> dict:
-    """A dense training step's matmul parameters and operations: 6 per
-    matmul parameter and token (forward, and the backward's two
-    products), plus the plain attention's QK^T and P.V over every (q, k)
-    pair (the causal mask removes none of them) three times and once more
-    for the block remat's recompute."""
-    d, hd = cfg.d_model, cfg.head_dim
-    h, kv, f, v = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
-    per_layer = 2 * d * h * hd + 2 * d * kv * hd + 3 * d * f
-    matmul = cfg.n_layers * per_layer + v * d
-    attn = (4 * (4 * shape.global_batch * shape.seq_len ** 2 * h * hd)
-            * cfg.n_layers)
-    return {"matmul_params": matmul, "params": cfg.param_count(),
-            "flops": 6 * matmul * shape.tokens + attn}
+def _train_work(cfg, shape) -> dict:
+    """A training step's matmul parameters and counted operations, per
+    family: 6 per matmul parameter and each row it multiplies (the forward
+    and the backward's two products), plus the sequence mixing 4 times
+    (the forward, the backward's two products and the block remat's
+    recompute): plain attention's QK^T and P.V over every (q, k) pair (the
+    causal mask removes none of them), the selective SSM's chunked products
+    (chunk 128) and the WKV's (chunk 32), 2 operations per FMA. The
+    encoder-decoder's encoder and cross K/V run over the S / 4 frames."""
+    b, s = shape.global_batch, shape.seq_len
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tok = b * s
+    q_o, k_v, mlp = 2 * d * h * hd, 2 * d * kv * hd, 3 * d * f
+
+    def pairs(sq, sk):
+        return 4 * b * sq * sk * h * hd
+    if cfg.family == "audio":
+        se = s // 4
+        enc, dec, cross = (cfg.enc_layers * (q_o + k_v + mlp),
+                           cfg.n_layers * (2 * q_o + k_v + mlp),
+                           cfg.n_layers * k_v)
+        matmul = enc + dec + cross + v * d
+        rows = (enc + cross) * b * se + (dec + v * d) * tok
+        mix = (cfg.enc_layers * pairs(se, se)
+               + cfg.n_layers * (pairs(s, s) + pairs(s, se)))
+    elif cfg.family == "ssm":                           # rwkv6
+        e, chunk = hd, 32
+        matmul = cfg.n_layers * (6 * d * d + 2 * d * f + 128 * d) + v * d
+        rows = matmul * tok
+        mix = cfg.n_layers * tok * h * (4 * chunk * e + 4 * e * e)
+    else:                                 # dense, vlm; hybrid adds the SSM
+        per = q_o + k_v + mlp
+        mix = cfg.n_layers * pairs(s, s)
+        if cfg.family == "hybrid":
+            n, chunk = cfg.ssm_state, 128
+            per += 4 * d * d + 2 * d * n
+            mix += cfg.n_layers * tok * (2 * chunk * n + 2 * chunk * d
+                                         + 4 * n * d)
+        matmul = cfg.n_layers * per + v * d
+        rows = matmul * tok
+    return {"matmul_params": matmul, "flops": 6 * rows + 4 * mix}
 
 
-def phase_dense_train(dev) -> dict:
-    """phi3-medium-14b's cell (``profile_step.CELLS``: its published width,
-    d 5,120; 40 q / 10 KV heads of 128; d_ff 17,920; vocab 100,352; with
-    n_layers cut to 8 of 40) through ``runtime/trainer.py::Trainer``:
-    RunConfig() (bf16, AdamW at 1e-3, hybrid, remat block, chunked
-    attention), ShapeConfig("train", 512, 8) (launch/train.py's default seq
-    and batch), 12 steps of Zipf(1.3) batches. Losses finite and falling; one bulk gather and one
-    one-pass scatter a step; step median, tokens/s, peak memory."""
+def phase_dense_train(dev, arch: str = DENSE_ARCH,
+                      phase: str = "dense_train",
+                      steps: int = DENSE_STEPS) -> dict:
+    """``arch``'s cell (``profile_step.CELLS``) through
+    ``runtime/trainer.py::Trainer``: the cell's RunConfig (RunConfig():
+    bf16, AdamW at 1e-3, hybrid, remat block, chunked attention; chameleon
+    at 1e-5), ShapeConfig("train", 512, 8) (launch/train.py's default seq
+    and batch), 12 steps of Zipf(1.3) batches. ``dense_train``: phi3-medium-14b at its published width (d
+    5,120; 40 q / 10 KV heads of 128; d_ff 17,920; vocab 100,352) with
+    n_layers cut to 8 of 40; the slice-6 families' phases
+    (``FAMILY_TRAIN``) at their cells' depths. Losses finite and falling;
+    one bulk gather and one one-pass scatter a step; peak memory under
+    72 GB; step median, tokens/s, TFLOP/s from counted operations."""
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
-    cfg, shape = cell_config(DENSE_ARCH), DENSE.shape
+    cell = CELLS[arch]
+    cfg, shape = cell_config(arch), cell.shape
     ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
-                     **DENSE.data)
+                     **cell.data)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, shape, DENSE.run,
-                      TrainerConfig(total_steps=DENSE_STEPS, log_every=100),
+    trainer = Trainer(cfg, shape, cell.run,
+                      TrainerConfig(total_steps=steps, log_every=100),
                       ds, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -2133,15 +2290,17 @@ def phase_dense_train(dev) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     rc = trainer.rt.run_cfg
     plan = trainer.plan.tables()
+    n_params = sum(p.numel() for p in trainer.model.parameters())
     del trainer
     torch.cuda.empty_cache()
     losses = [m["loss"] for m in hist]
     ms = [m["step_time_s"] * 1e3 for m in hist]
     med = statistics.median(ms[1:])
-    work = _dense_work(cfg, shape)
-    res = {"phase": "dense_train", "arch": cfg.name,
-           "cut": f"n_layers {cfg.n_layers} of "
-                  f"{get_config(DENSE_ARCH).n_layers}",
+    work = _train_work(cfg, shape)
+    full = get_config(arch).n_layers
+    res = {"phase": phase, "arch": cfg.name,
+           "cut": (f"n_layers {cfg.n_layers} of {full}"
+                   if cfg.n_layers != full else "none"),
            "run_config": {k: getattr(rc, k) for k in (
                "param_dtype", "compute_dtype", "optimizer", "learning_rate",
                "comm_mode", "remat", "attention_impl")},
@@ -2149,22 +2308,24 @@ def phase_dense_train(dev) -> dict:
            "median_step_ms": med, "tokens_per_s": shape.tokens / med * 1e3,
            "tflops_per_s": work["flops"] / med / 1e9,
            "share_of_peak": work["flops"] / (med / 1e3) / HW.peak_flops,
-           **work, "plan": plan, "setup_s": setup_s,
+           "params": n_params, **work, "plan": plan, "setup_s": setup_s,
            "setup_max_memory_allocated": setup_peak,
            "max_memory_allocated": peak, "launches": counts,
            "nvidia_smi": nvidia_smi(
                "clocks.sm,power.draw,power.limit,temperature.gpu")}
     check(rc.remat == "block" and rc.attention_impl == "chunked",
-          f"dense_train: RunConfig {res['run_config']}")
-    check(len(losses) == DENSE_STEPS
+          f"{phase}: RunConfig {res['run_config']}")
+    check(len(losses) == steps
           and all(math.isfinite(x) for x in losses)
           and losses[-1] < losses[0],
-          f"dense_train: losses {losses}")
+          f"{phase}: losses {losses}")
+    check(peak < PEAK_LIMIT, f"{phase}: peak {peak} B over {PEAK_LIMIT}")
     for k in ("embed_gather", "embed_gather_bulk", "embed_scatter_add",
               "embed_scatter_add_fused"):
-        check(counts[k] == DENSE_STEPS,
-              f"dense_train: {k} launched {counts[k]} times in "
-              f"{DENSE_STEPS} steps")
+        check(counts[k] == steps,
+              f"{phase}: {k} launched {counts[k]} times in {steps} steps")
+    check(counts["flash_attention"] == counts["wkv"] == 0,
+          f"{phase}: a forward-only kernel ran in training: {counts}")
     emit(res)
     return res
 
@@ -2787,6 +2948,249 @@ def phase_replan_replay() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# stablelm-12b's 160-wide heads and the slice-6 families
+# ---------------------------------------------------------------------------
+
+def phase_stablelm_parity() -> dict:
+    """stablelm-12b at its published width (d 5,120, 32 q / 8 KV heads of
+    160, d_ff 13,824, vocab 100,352) with n_layers cut to 2, f32,
+    attention "pallas": one 256-token prompt through Server on the CPU and
+    on the card from the same parameters. Prefill logits within rtol 1e-4
+    (atol 1e-4 of their max-abs scale; the card's f32 GEMMs sum in another
+    order), at most 2 of 8 greedy tokens different (the reference's
+    allowance for argmax near-ties); each card prefill launches flash once
+    a layer, on the f32 (scalar) route at D 160."""
+    cfg = replace(get_config(STABLELM), n_layers=2)
+    rc = RunConfig(attention_impl="pallas", param_dtype="float32",
+                   compute_dtype="float32")
+    scfg = ServerConfig(max_batch=1, max_seq=512)
+    cpu = Server(cfg, rc, scfg, seed=0, device="cpu")
+    gpu = Server(cfg, rc, scfg, device="cuda",
+                 params={k: p.to("cuda") for k, p in cpu.params.items()})
+    prompt = _prompts(np.random.default_rng(0), (256,), cfg.vocab_size)
+    toks = torch.from_numpy(prompt[0][None])
+    lc, _ = cpu.model.prefill_cache_fn(toks)
+    ops.reset_launch_counts()
+    lg, _ = gpu.model.prefill_cache_fn(toks.cuda())
+    lg = lg.cpu()
+    scale = float(lc.abs().max())
+    diff = float((lg - lc).abs().max())
+    check(torch.allclose(lg, lc, rtol=1e-4, atol=1e-4 * scale),
+          f"stablelm_parity: prefill logits max abs diff {diff} (scale "
+          f"{scale})")
+    got = _drain(gpu, prompt, 8)
+    counts = ops.launch_counts()
+    want = _drain(cpu, prompt, 8)
+    cpu.close()
+    gpu.close()
+    differ = sum(a != b for a, b in zip(got[0].out_tokens,
+                                        want[0].out_tokens))
+    check(differ <= 2, f"stablelm_parity: {differ} of 8 greedy tokens "
+          f"differ: {got[0].out_tokens} vs {want[0].out_tokens}")
+    check(counts["flash_attention"] == cfg.n_layers * 2
+          and counts["flash_attention_tc"] == 0,
+          f"stablelm_parity: flash launches {counts} for 2 prefills of "
+          f"{cfg.n_layers} layers on the scalar route")
+    res = {"phase": "stablelm_parity", "arch": cfg.name,
+           "cut": f"n_layers 2 of {get_config(STABLELM).n_layers}",
+           "prompt_len": 256, "logits_max_abs_diff": diff,
+           "logits_max_abs": scale, "tokens_cpu": want[0].out_tokens,
+           "tokens_cuda": got[0].out_tokens, "tokens_differ": differ,
+           "flash_route": ops.flash_route(torch.float32, cfg.head_dim),
+           "launches": counts}
+    emit(res)
+    return res
+
+
+def _family_data(cfg, seq: int, batch: int) -> SyntheticLM:
+    """Zipf(1.3) tokens; the audio family's stub frames (B, seq // 4, d)."""
+    audio = cfg.family == "audio"
+    return SyntheticLM(cfg.vocab_size, seq, batch, zipf_a=1.3,
+                       is_encdec=cfg.is_encdec,
+                       frames_dim=cfg.d_model if audio else 0,
+                       frames_len=max(seq // 4, 1))
+
+
+def _family_prefill_decode(arch: str, new: int = 4) -> dict:
+    """Reduced ``arch`` at f32 with attention "pallas" on the CPU and on
+    the card from the same parameters: prefill logits (the encoder's and
+    the cross attention's non-causal, Sq != Sk products go to flash for
+    seamless), then ``new`` decode steps through the model's cache; all
+    within rtol 1e-4 (atol 1e-4 of the logits' scale)."""
+    cfg = reduced(get_config(arch))
+    rc = RunConfig(attention_impl="pallas", param_dtype="float32",
+                   compute_dtype="float32")
+    shape = ShapeConfig("serve", 32, 2, "decode")
+    models = {}
+    for d in ("cpu", "cuda"):
+        rt = Runtime(cfg, rc, shape, device=d)
+        models[d] = build_model(cfg, rt)
+        rt.plan = analyze(models[d], rt)
+    init_params_(models["cpu"], 0)
+    load_params_(models["cuda"], {k: p.detach().to("cuda") for k, p in
+                                  named_parameters(models["cpu"]).items()})
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+             _family_data(cfg, 32, 2).batch(0).items() if k != "labels"}
+    worst, flash = 0.0, 0
+    outs = {}
+    for d, m in models.items():
+        if d == "cuda":
+            ops.reset_launch_counts()
+        logits, _, _ = m.prefill_fn({k: v.to(d) for k, v in batch.items()})
+        steps = []
+        cache = m.init_cache(2, 32)
+        toks = batch["tokens"][:, :new].to(d)
+        for i in range(new):
+            lg, cache = m.decode_fn(cache, toks[:, i:i + 1], i)
+            steps.append(lg)
+        if d == "cuda":
+            flash = ops.launch_counts()["flash_attention"]
+        outs[d] = [logits] + steps
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        b = b.cpu()
+        scale = float(a.abs().max())
+        diff = float((a - b).abs().max())
+        check(torch.allclose(b, a, rtol=1e-4, atol=1e-4 * scale),
+              f"families_parity {arch}: {'prefill' if i == 0 else 'decode'}"
+              f" {i} logits max abs diff {diff} (scale {scale})")
+        worst = max(worst, diff / scale)
+    check(flash > 0, f"families_parity {arch}: no flash launch")
+    return {"max_rel_diff": worst, "flash_launches": flash}
+
+
+def phase_families_parity() -> dict:
+    """Reduced seamless-m4t-medium, hymba-1.5b, chameleon-34b and rwkv6-7b
+    at f32 (naive attention, no remat), the same parameters and Zipf(1.3)
+    batches, 3 training steps on the CPU and on the card: losses within
+    rtol 1e-4, the embed_* census equal, a bulk gather and a one-pass
+    scatter a step, and neither forward-only kernel launched. Seamless and
+    hymba also prefill and decode with attention "pallas" on both
+    (``_family_prefill_decode``)."""
+    shape = ShapeConfig("parity", 32, 4, "train")
+    out, total = {}, None
+    for arch in FAMILY_TRAIN.values():
+        cfg = reduced(get_config(arch))
+        ds = _family_data(cfg, 32, 4)
+        batches = [ds.batch(i) for i in range(3)]
+        rc = RunConfig(**DENSE_F32, attention_impl="naive")
+        cpu = get_runner(cfg, shape, rc, seed=0, device="cpu")
+        gpu = get_runner(cfg, shape, rc, device="cuda", params={
+            k: p.detach().to("cuda") for k, p in named_parameters(
+                cpu.model).items()})
+        rows = []
+        ops.reset_launch_counts()
+        for i, b in enumerate(batches):
+            mc, mg = cpu.run(b), gpu.run(b)
+            lc, lg = float(mc["loss"]), float(mg["loss"])
+            check(math.isclose(lc, lg, rel_tol=1e-4),
+                  f"families_parity {arch} step {i}: cpu loss {lc} vs card "
+                  f"{lg}")
+            for k in CENSUS:
+                check(float(mc[k]) == float(mg[k]),
+                      f"families_parity {arch} step {i}: {k} cpu "
+                      f"{float(mc[k])} vs card {float(mg[k])}")
+            rows.append({"cpu": lc, "cuda": lg,
+                         "rel": abs(lc - lg) / abs(lc)})
+        counts = ops.launch_counts()
+        check(counts["embed_gather"] == counts["embed_gather_bulk"] == 3
+              and counts["embed_scatter_add"] == 3
+              and counts["embed_scatter_add_fused"] == 3
+              and counts["flash_attention"] == counts["wkv"] == 0,
+              f"families_parity {arch}: launches {counts}")
+        total = counts if total is None else {
+            k: total[k] + v for k, v in counts.items()}
+        out[arch] = {"train": rows}
+        del cpu, gpu
+    for arch in ("seamless-m4t-medium", "hymba-1.5b"):
+        ops.reset_launch_counts()
+        out[arch]["pallas_prefill_decode"] = _family_prefill_decode(arch)
+        counts = ops.launch_counts()
+        total = {k: total[k] + v for k, v in counts.items()}
+    res = {"phase": "families_parity", **out, "launches": total}
+    emit(res)
+    return res
+
+
+ENCDEC_MESH_RUNS = ("hybrid", "mpi")
+
+
+def _encdec_mesh_setup() -> tuple:
+    cfg = reduced(get_config("seamless-m4t-medium"))
+    ds = _family_data(cfg, 32, 4)
+    return (cfg, ShapeConfig("mesh", 32, 4, "train"),
+            [ds.batch(i) for i in range(3)])
+
+
+def _encdec_card_rank(rank: int, world: int) -> dict:
+    """One of four ranks on the one card over gloo: reduced seamless at f32
+    on (2, 2), 3 steps under the default flags and comm_mode mpi, every
+    rank drawing the seed-0 init."""
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+    cfg, shape, batches = _encdec_mesh_setup()
+    out, total = {}, None
+    for name in ENCDEC_MESH_RUNS:
+        runner = get_runner(cfg, shape,
+                            RunConfig(**DENSE_F32, attention_impl="naive",
+                                      **MESH_FLAGS[name]),
+                            mesh=mesh, seed=0)
+        r = _timed_steps(runner, batches, dev)
+        out[name] = {"losses": r["losses"], "step_ms": r["step_ms"],
+                     "method": runner.plan.table_methods["embed"],
+                     "launches": r["launches"]}
+        total = r["launches"] if total is None else {
+            k: total[k] + v for k, v in r["launches"].items()}
+    out["launches"] = total
+    return out
+
+
+def phase_mesh_card_encdec() -> dict:
+    """mesh_card (f): four gloo ranks on the one card, reduced seamless
+    (the encoder-decoder) under the default flags and comm_mode mpi on
+    (2, 2), against the one-device card run from the same seed-0 init and
+    batches within 5e-4 + 1e-4 i (the reference test's bar)."""
+    cfg, shape, batches = _encdec_mesh_setup()
+    one = get_runner(cfg, shape, RunConfig(**DENSE_F32,
+                                           attention_impl="naive"),
+                     device="cuda", seed=0)
+    single = [float(one.run(b)["loss"]) for b in batches]
+    del one
+    torch.cuda.empty_cache()
+    ranks = spawn(_encdec_card_rank, 4, "gloo", "cuda", timeout=600)
+    rows = {}
+    for name in ENCDEC_MESH_RUNS:
+        rs = [r[name] for r in ranks]
+        got = rs[0]["losses"]
+        check(all(r["losses"] == got for r in rs),
+              f"mesh_card (f) {name}: ranks disagree "
+              f"{[r['losses'] for r in rs]}")
+        for i, (a, b) in enumerate(zip(got, single)):
+            check(abs(a - b) < 5e-4 + 1e-4 * i,
+                  f"mesh_card (f) {name} step {i}: {got} vs one device "
+                  f"{single}")
+        want = _one_pass_pushes(rs[0]["method"], len(got))
+        for m, r in enumerate(rs):
+            c = r["launches"]
+            check(c["embed_scatter_add"] == c["embed_scatter_add_fused"]
+                  == want,
+                  f"mesh_card (f) {name} rank {m}: pushes {c}, want {want} "
+                  f"one-pass on {r['method']}")
+        rows[name] = {"losses": got, "method": rs[0]["method"],
+                      "median_step_ms": statistics.median(rs[0]["step_ms"]),
+                      "max_abs_diff": max(abs(a - b) for a, b in
+                                          zip(got, single))}
+    counts = ranks[0]["launches"]
+    check(counts["embed_gather"] == counts["embed_gather_bulk"]
+          == 3 * len(ENCDEC_MESH_RUNS), f"mesh_card (f): gathers {counts}")
+    res = {"phase": "mesh_card_encdec", "backend": "gloo", "world": 4,
+           "mesh": [2, 2], "arch": cfg.name, "one_device": single,
+           "runs": rows, "launches": counts,
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    emit(res)
+    return res
+
+
 def _check_nmt_card(ranks: list, nmt_losses: list, steps: int) -> dict:
     """mesh_card (c)'s checks, over every rank's record."""
     f0, p0 = ranks[0]["fused"], ranks[0]["per_param"]
@@ -2883,6 +3287,18 @@ def main() -> None:
     paths["serve"] = serve["launches"]
     paths["rwkv_serve"] = run("rwkv_serve", phase_rwkv_serve,
                               dev)["launches"]
+    paths["stablelm_parity"] = run("stablelm_parity",
+                                   phase_stablelm_parity)["launches"]
+    stablelm = run("stablelm_serve", phase_serve, dev, 8, 16, STABLELM,
+                   "stablelm_serve")
+    paths["stablelm_serve"] = stablelm["launches"]
+    paths["families_parity"] = run("families_parity",
+                                   phase_families_parity)["launches"]
+    for phase, arch in FAMILY_TRAIN.items():
+        paths[phase] = run(phase, phase_dense_train, dev, arch, phase,
+                           FAMILY_STEPS)["launches"]
+    paths["mesh_card_encdec"] = run("mesh_card_encdec",
+                                    phase_mesh_card_encdec)["launches"]
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} not launched on {path}")
@@ -2937,6 +3353,20 @@ def main() -> None:
                 for n, r in k["by_len"].items()}
             rows[-1]["f32_ms"] = k["f32_ms"]
             rows[-1]["host_ms_per_call"] = k["host_ms_per_call"]
+            # stablelm-12b's 160-wide heads: the tc route's time at its
+            # prefill beside SDPA and the bound, and the D 160 launches
+            rows[-1]["d160"] = {
+                **{key: k["d160"][key] for key in (
+                    "shape", "route", "kernel_ms", "plain_ms", "library_ms",
+                    "f32_ms", "bound_ms", "bound_by", "tflops",
+                    "share_of_bound")},
+                "by_len": {n: {key: r[key] for key in (
+                    "kernel_ms", "library_ms", "bound_ms", "tflops",
+                    "share_of_bound")}
+                    for n, r in k["d160"]["by_len"].items()},
+                "launches": {p: paths[p]["flash_attention"] for p in (
+                    "stablelm_serve", "stablelm_parity")},
+                "launches_tc": stablelm["flash_attention_launches_tc"]}
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,9 @@
 // dimension must be contiguous): the reference's transpose to (B*H, S, D)
 // is never made. Ragged Sq and Sk are masked, not padded; a causal block
 // stops at the last KV tile that reaches its diagonal. Templated on D in
-// {16, 32, 64, 128} and on the element type (f32, bf16).
+// {16, 32, 64, 128, 160} and on the element type (f32, bf16); at D = 160
+// (stablelm-12b) a thread holds 4 x 20 accumulators and the block 93 KB of
+// shared memory.
 //
 // C interface (loaded with ctypes by kernels/ops.py); launches on the
 // caller's stream, allocates nothing, returns cudaGetLastError().
@@ -231,6 +233,7 @@ cudaError_t by_dim(int64_t d, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, h, qs, ks, vs, os, causal, scale, st);
     case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, h, qs, ks, vs, os, causal, scale, st);
     case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, h, qs, ks, vs, os, causal, scale, st);
+    case 160: return launch<T, 160>(q, k, v, o, b, sq, sk, h, qs, ks, vs, os, causal, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

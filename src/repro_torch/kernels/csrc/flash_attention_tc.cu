@@ -1,7 +1,7 @@
 // flash_attention_tc — the bf16 forward of flash attention on Hopper's
 // tensor cores (sm_90a): wgmma, TMA and an mbarrier ring, warp-specialised.
 //
-// Replaces, for bf16 with D in {64, 128}, the TPU kernel
+// Replaces, for bf16 with D in {64, 128, 160}, the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (pallas_call body
 // _flash_kernel): for q (B, Sq, H, D) and k, v (B, Sk, H, D), KV already
 // expanded to H heads,
@@ -27,9 +27,14 @@
 //    the caller's strides, with the 128-byte swizzle: Q once, K and V tiles
 //    of 128 rows into a 2-stage ring, each stage with a full barrier per
 //    tensor and one empty barrier. A box is 64 bf16 wide, so a D = 128 tile
-//    is two boxes. TMA fills rows past Sq or Sk with zeros.
+//    is two boxes. A D = 160 tile (stablelm-12b) is two such boxes and a
+//    third of 32 columns, 64 B wide, copied through its own tensor maps with
+//    the 64-byte swizzle (a third 64-wide box would need 245,760 B of shared
+//    memory at kBN 128; the 32-wide one keeps it at 204,800 B). TMA fills
+//    rows past Sq or Sk with zeros.
 //  * S = Q K^T: wgmma m64n128k16, both operands K-major in shared memory,
-//    f32 accumulate, D/16 steps. D^-0.5 (with log2 e folded in) scales the
+//    f32 accumulate, D/16 steps (at D = 160 the last two read the 32-wide
+//    box through 64-byte-swizzle descriptors). D^-0.5 (with log2 e folded in) scales the
 //    f32 scores after the product, not q in bf16 before it.
 //  * Only a tile crossing the causal diagonal or the Sk edge is masked, and a
 //    causal CTA stops at its diagonal tile.
@@ -38,12 +43,14 @@
 //    exp2f on the log2-scaled scores.
 //  * O += P V: P is rounded to bf16 in registers, where the S accumulator
 //    layout is already wgmma's register-A layout; V is the MN-major B operand
-//    straight from its TMA tile. O stays f32 in registers. l sums the
+//    straight from its TMA tile; at D = 160 an m64n128k16 covers columns
+//    0-127 and an m64n32k16 columns 128-159. O stays f32 in registers. l sums the
 //    bf16-rounded P, the weights the product really applies, so the output
 //    is their exact weighted mean.
 //  * A consumer releases a stage once the P.V that read it has completed.
 //  * Resources (-Xptxas -v): 168 registers at launch, no spills; 164,920 B
-//    of dynamic shared memory at D = 128 (83,000 at D = 64), one CTA per SM.
+//    of dynamic shared memory at D = 128 (83,000 at D = 64, 205,880 at
+//    D = 160), one CTA per SM.
 //
 // C interface (loaded with ctypes by kernels/ops.py); launches on the
 // caller's stream, allocates nothing, returns a cudaError_t (or 1000 + the
@@ -61,6 +68,7 @@ constexpr int kBM = 128;              // q rows per CTA (two warpgroups of 64)
 constexpr int kBN = 128;              // kv rows per tile
 constexpr int kBox = 64;              // bf16 columns per TMA box (128 B)
 constexpr int kBoxBytes = kBN * kBox * 2;   // one box of 128 rows: 16 KB
+constexpr int kTailBox = 32;          // the last 32 columns of D = 160 (64 B)
 constexpr int kStages = 2;
 constexpr int kThreads = 384;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
@@ -79,6 +87,14 @@ struct Smem {
 };
 #undef HD
 
+// a tile's 64-wide boxes and its 32-wide tail (0 or 32 columns)
+template <int D>
+struct Cols {
+  static constexpr int kWide = D / kBox, kTail = D % kBox;
+  static constexpr int kMain = D - kTail;
+  static_assert(kTail == 0 || kTail == kTailBox, "D must be 64 k or 64 k + 32");
+};
+
 struct OutArgs {
   __nv_bfloat16* o;
   int64_t sb, ss, sh;    // strides of o in elements (d contiguous)
@@ -88,9 +104,14 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
-             const __grid_constant__ CUtensorMap tv, OutArgs out, int sq,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tq32,
+             const __grid_constant__ CUtensorMap tk32,
+             const __grid_constant__ CUtensorMap tv32, OutArgs out, int sq,
              int sk, int h, int causal, float scale_log2) {
-  constexpr int kBoxes = D / kBox;
+  constexpr int kBoxes = Cols<D>::kWide, kTail = Cols<D>::kTail;
+  constexpr int kMain = Cols<D>::kMain;
+  constexpr int kTailOff = kBoxes * kBoxBytes;   // the tail box in a tile
   constexpr int kTileBytes = Smem::tile(D);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -131,6 +152,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       for (int x = 0; x < kBoxes; ++x)
         sm90::tma_load_4d(sQ + x * kBoxBytes, &tq, q_full, x * kBox, hh, q0,
                           b);
+      if constexpr (kTail != 0)
+        sm90::tma_load_4d(sQ + kTailOff, &tq32, q_full, kMain, hh, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         const uint32_t phase = (it / kStages) & 1;
@@ -141,10 +164,16 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
         for (int x = 0; x < kBoxes; ++x)
           sm90::tma_load_4d(sK + x * kBoxBytes, &tk, k_full(s), x * kBox, hh,
                             it * kBN, b);
+        if constexpr (kTail != 0)
+          sm90::tma_load_4d(sK + kTailOff, &tk32, k_full(s), kMain, hh,
+                            it * kBN, b);
         sm90::mbar_expect_tx(v_full(s), kTileBytes);
 #pragma unroll
         for (int x = 0; x < kBoxes; ++x)
           sm90::tma_load_4d(sV + x * kBoxBytes, &tv, v_full(s), x * kBox, hh,
+                            it * kBN, b);
+        if constexpr (kTail != 0)
+          sm90::tma_load_4d(sV + kTailOff, &tv32, v_full(s), kMain, hh,
                             it * kBN, b);
       }
     }
@@ -159,9 +188,13 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     const int c0 = 2 * (lane % 4);
     const int wg_first_row = q0 + wg * 64;
 
-    float o[D / 2];
+    // O's columns 0 .. kMain-1, and the 32-wide tail's (unused below 160)
+    float o[kMain / 2];
+    float ot[kTail ? kTail / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kMain / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kTail ? kTail / 2 : 1); ++i) ot[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     float sacc[64];
 #pragma unroll
@@ -178,12 +211,19 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       sm90::fence_regs(sacc);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < kMain / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
         const uint64_t da =
             sm90::desc_sw128(sQ + wg * 64 * 128 + off, 16, 1024);
         const uint64_t db = sm90::desc_sw128(sK + off, 16, 1024);
         sm90::wgmma_m64n128k16_ss(sacc, da, db, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTail / 16; ++kk) {   // the 64-byte-swizzled box
+        const uint32_t off = kTailOff + kk * 32;
+        const uint64_t da = sm90::desc_sw64(sQ + wg * 64 * 64 + off, 16, 512);
+        const uint64_t db = sm90::desc_sw64(sK + off, 16, 512);
+        sm90::wgmma_m64n128k16_ss(sacc, da, db, 1);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -237,11 +277,14 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       l0 = l0 * corr0 + ps0;
       l1 = l1 * corr1 + ps1;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? corr1 : corr0;
+      for (int i = 0; i < kMain / 2; ++i) o[i] *= (i & 2) ? corr1 : corr0;
+#pragma unroll
+      for (int i = 0; i < kTail / 2; ++i) ot[i] *= (i & 2) ? corr1 : corr0;
 
       // ---- O += P V ----
       sm90::mbar_wait(v_full(s), phase);
       sm90::fence_regs(o);
+      sm90::fence_regs(ot);
       sm90::fence_regs(p);
       sm90::wgmma_fence();
 #pragma unroll
@@ -250,14 +293,18 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                                p[4 * kk + 3]};
         const uint64_t db = sm90::desc_sw128(sV + kk * 16 * 128, kBoxBytes,
                                              1024);
-        if constexpr (D == 128)
+        if constexpr (kMain == 128)
           sm90::wgmma_m64n128k16_rs(o, a, db);
         else
           sm90::wgmma_m64n64k16_rs(o, a, db);
+        if constexpr (kTail != 0)
+          sm90::wgmma_m64n32k16_rs(
+              ot, a, sm90::desc_sw64(sV + kTailOff + kk * 16 * 64, 512, 512));
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
+      sm90::fence_regs(ot);
       if (t == 0) sm90::mbar_arrive(empty(s));
     }
 
@@ -273,12 +320,13 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + c0;
+      const float* oj = j < kMain / 8 ? o + 4 * j : ot + 4 * (j - kMain / 8);
       if (qpos0 < sq)
         *reinterpret_cast<__nv_bfloat162*>(op + qpos0 * out.ss + col) =
-            __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+            __floats2bfloat162_rn(oj[0] * inv0, oj[1] * inv0);
       if (qpos1 < sq)
         *reinterpret_cast<__nv_bfloat162*>(op + qpos1 * out.ss + col) =
-            __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+            __floats2bfloat162_rn(oj[2] * inv1, oj[3] * inv1);
     }
   }
 }
@@ -286,19 +334,22 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
 // ---- host side ---------------------------------------------------------------
 
 // (B, S, H, D) bf16 seen as the 4-D map (D, H, S, B), boxes of 64 x 1 x 128
-// x 1 with the 128-byte swizzle; strides in elements, d contiguous.
+// x 1 with the 128-byte swizzle (``box`` 64), or of 32 x 1 x 128 x 1 with
+// the 64-byte swizzle (``box`` 32); strides in elements, d contiguous.
 CUresult make_map(CUtensorMap* map, const void* ptr, int64_t b, int64_t s,
-                  int64_t h, int64_t d, int64_t sb, int64_t ss, int64_t sh) {
+                  int64_t h, int64_t d, int64_t sb, int64_t ss, int64_t sh,
+                  int box_cols = kBox) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s,
                               (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)kBN, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)kBN, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return sm90::encode_fn()(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      box_cols == kBox ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -333,18 +384,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   CUresult r = make_map(&mq, q, b, sq, h, D, st[0], st[1], st[2]);
   if (r == CUDA_SUCCESS) r = make_map(&mk, k, b, sk, h, D, st[3], st[4], st[5]);
   if (r == CUDA_SUCCESS) r = make_map(&mv, v, b, sk, h, D, st[6], st[7], st[8]);
+  // the 32-wide tail's maps; below D = 160 the kernel never reads them
+  CUtensorMap mq32 = mq, mk32 = mk, mv32 = mv;
+  if (Cols<D>::kTail != 0) {
+    if (r == CUDA_SUCCESS)
+      r = make_map(&mq32, q, b, sq, h, D, st[0], st[1], st[2], kTailBox);
+    if (r == CUDA_SUCCESS)
+      r = make_map(&mk32, k, b, sk, h, D, st[3], st[4], st[5], kTailBox);
+    if (r == CUDA_SUCCESS)
+      r = make_map(&mv32, v, b, sk, h, D, st[6], st[7], st[8], kTailBox);
+  }
   if (r != CUDA_SUCCESS) return 1000 + (int)r;
   const OutArgs out{static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11]};
   const dim3 grid((unsigned)(b * h), (unsigned)((sq + kBM - 1) / kBM));
   flash_fwd_tc<D><<<grid, kThreads, Smem::bytes(D), stream>>>(
-      mq, mk, mv, out, (int)sq, (int)sk, (int)h, causal,
+      mq, mk, mv, mq32, mk32, mv32, out, (int)sq, (int)sk, (int)h, causal,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 q, k, v, o; D in {64, 128}. Strides are in elements, for the b, s and
+// bf16 q, k, v, o; D in {64, 128, 160}. Strides are in elements, for the b, s and
 // h dimensions of each tensor (d contiguous), and must be multiples of 8
 // elements (16 bytes), as must the base pointers: the wrapper checks both.
 // ``scale`` is D^-0.5 rounded to f32 by the caller.
@@ -362,6 +423,7 @@ extern "C" int repro_flash_attention_tc(
                           vsb, vss, vsh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = causal ? 1 : 0;
+  if (d == 160) return launch<160>(q, k, v, o, b, sq, sk, h, st, c, scale, s);
   if (d == 128) return launch<128>(q, k, v, o, b, sq, sk, h, st, c, scale, s);
   if (d == 64) return launch<64>(q, k, v, o, b, sq, sk, h, st, c, scale, s);
   return (int)cudaErrorInvalidValue;

@@ -28,8 +28,8 @@ _SCATTER_BLOCK_BYTES = 65536
 _SCATTER_MAX_ROWS = 8192
 
 
-_FLASH_DIMS = (16, 32, 64, 128)
-_FLASH_TC_DIMS = (64, 128)
+_FLASH_DIMS = (16, 32, 64, 128, 160)
+_FLASH_TC_DIMS = (64, 128, 160)
 _WKV_DIMS = (16, 32, 64)
 _WKV_TC_DIM = 64
 _WKV_MAX_CHUNK = 64
@@ -66,6 +66,18 @@ def launch_counts() -> dict:
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _refuse_grad(name: str, tensors, training_route: str) -> None:
+    """A forward-only kernel writes into a fresh buffer through ctypes, so
+    its output would carry no ``grad_fn``: under autograd a CUDA launch
+    would cut the gradient silently. Refused on every device, so a CPU run
+    shows what the card would do."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only (the reference's kernel has no "
+            f"backward), and an input requires grad: train through "
+            f"{training_route}, or call it under torch.no_grad()")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -235,9 +247,10 @@ def scatter_into(ids: torch.Tensor, rows: torch.Tensor, out: torch.Tensor,
 def flash_route(dtype: torch.dtype, d: int) -> str:
     """Which CUDA kernel ``flash_attention`` launches, from dtype and head
     dim alone: "tc" (csrc/flash_attention_tc.cu: wgmma, TMA) for bf16 with
-    D in {64, 128}; "scalar" (csrc/flash_attention.cu: f32 FMAs) for f32,
-    whose 2e-6 bar the TF32 tensor cores cannot meet, and for the narrow
-    bf16 heads."""
+    D in {64, 128, 160} (160 = two 64-column boxes and a 32-column one);
+    "scalar" (csrc/flash_attention.cu: f32 FMAs, D in {16, 32, 64, 128,
+    160}) for f32, whose 2e-6 bar the TF32 tensor cores cannot meet, and
+    for the narrow bf16 heads."""
     return "tc" if dtype == torch.bfloat16 and d in _FLASH_TC_DIMS \
         else "scalar"
 
@@ -260,10 +273,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16|f32 -> (B, Sq, H, D) in q's dtype: softmax(q k^T D^-0.5) v, causal
     positions counted from 0 on both sides. The kernels read the tensors
     through their strides (the head dimension must be contiguous) and take
-    D in {16, 32, 64, 128}; ``flash_route`` picks the kernel. The
-    tensor-core route also needs 16-byte aligned base pointers and b, s, h
-    strides. Both routes count in ``flash_attention.launches``, the
-    tensor-core route also in ``flash_attention.launches_tc``."""
+    D in {16, 32, 64, 128, 160}; ``flash_route`` picks the kernel (bf16 at
+    D 64, 128 and 160 on the tensor cores). The tensor-core route also
+    needs 16-byte aligned base pointers and b, s, h strides. Both routes
+    count in ``flash_attention.launches``, the tensor-core route also in
+    ``flash_attention.launches_tc``. Forward-only: an input that requires
+    grad under autograd is refused on every device (train through
+    ``models/attention.py``'s naive or chunked attention)."""
     _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
            f"q, k, v must be (B, S, H, D), got {tuple(q.shape)}, "
            f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -277,6 +293,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            f"{k.dtype}, {v.dtype}")
     _check(k.device == q.device and v.device == q.device,
            f"q on {q.device}, k on {k.device}, v on {v.device}")
+    _refuse_grad("flash_attention", (q, k, v),
+                 "attention_impl 'naive' or 'chunked'")
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
@@ -348,7 +366,9 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
     {16, 32, 64}; ``wkv_route`` picks the kernel. The tc and step routes
     also need a 16-byte aligned state, the tc route 16-byte aligned rows
     of r, k, v and lw. Every route counts in ``wkv.launches``, the tc and
-    step routes also in ``wkv.launches_tc`` and ``wkv.launches_step``."""
+    step routes also in ``wkv.launches_tc`` and ``wkv.launches_step``.
+    Forward-only: an input that requires grad under autograd is refused on
+    every device (train through ``models/rwkv.py::chunk_wkv``)."""
     _check(r.dim() == 4 and r.shape[1] >= 1,
            f"r must be (B, S >= 1, H, E), got {tuple(r.shape)}")
     b, s, h, e = r.shape
@@ -369,6 +389,8 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
            f"chunk must be in [1, {_WKV_MAX_CHUNK}], got {chunk}")
     _check(all(t.device == r.device for t in (k, v, lw, bonus, state)),
            "r, k, v, lw, bonus, state must lie on one device")
+    _refuse_grad("wkv", (r, k, v, lw, bonus, state),
+                 "models/rwkv.py::chunk_wkv (the reference's _chunk_wkv)")
     if r.device.type == "cpu":
         return ref.wkv_chunked_ref(r, k, v, lw, bonus, state, chunk=chunk)
     if r.device.type != "cuda":

@@ -1,15 +1,18 @@
 """Where the time of one training step goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
-        [--arch parallax-lm|parallax-nmt|phi3-medium-14b]
+        [--arch parallax-lm|parallax-nmt|phi3-medium-14b|
+                seamless-m4t-medium|hymba-1.5b|chameleon-34b|rwkv6-7b]
 
 Drives the same training path as chip_smoke.py's ``main`` (full-width
 parallax-lm, ShapeConfig("lm1b", 20, 128), default RunConfig), its
 ``nmt`` (full-width parallax-nmt, ShapeConfig("wmt", 50, 128), the
 reference's two-table knobs, AdamW at 1e-4) or its ``dense_train``
 (phi3-medium-14b at its published width with 8 of 40 layers,
-ShapeConfig("train", 512, 8), default RunConfig, Zipf(1.3) tokens) and
-prints JSON lines:
+ShapeConfig("train", 512, 8), default RunConfig, Zipf(1.3) tokens), or one
+of the other families' training paths at the same shape and RunConfig
+(``seamless_train``, ``hymba_train``, ``chameleon_train``, ``rwkv_train``;
+the depths in ``CELLS``), and prints JSON lines:
 
   stages    per-step device time of the forward (lookup, LSTM, head, loss),
             the backward, and the update (OPSW cast, clipping, AdamW), from
@@ -61,7 +64,17 @@ class Cell(NamedTuple):
 # 1e-3 its full-width loss spikes by the third step (in bf16 and f32, with
 # the embed kernels or their plain versions alike: the model's math).
 # phi3-medium-14b keeps 8 of its 40 layers: all 40 layers' bf16 params and
-# grads with f32 AdamW moments (~176 GB) do not fit the card's 80 GB
+# grads with f32 AdamW moments (~176 GB) do not fit the card's 80 GB.
+# The other families at launch/train.py's default shape and RunConfig, at
+# ~12 B a parameter: seamless-m4t-medium (0.98 B parameters, 12 + 12
+# layers, 128 stub frames a row) and hymba-1.5b (1.47 B) whole;
+# chameleon-34b at 4 of 48 layers (3.84 B, ~46 GB; all 48 would be
+# ~34 B, ~400 GB) and rwkv6-7b at 8 of 32 (2.28 B, ~27 GB; all 32 are
+# 7.5 B, ~90 GB). chameleon trains with AdamW at 1e-5: Adam's first step
+# moves every weight by ~lr whatever its gradient, and at d 8,192 its loss
+# jumps at step 2 at 1e-3 and at 1e-4 (12.08 -> 39.2, above 12.08 still at
+# step 12); phi3 at d 5,120 recovers at 1e-3
+_TRAIN = ShapeConfig("train", seq_len=512, global_batch=8, kind="train")
 CELLS = {
     "parallax-lm": Cell(ShapeConfig("lm1b", seq_len=20, global_batch=128,
                                     kind="train"), RunConfig(), {},
@@ -78,6 +91,17 @@ CELLS = {
     "phi3-medium-14b": Cell(ShapeConfig("train", seq_len=512, global_batch=8,
                                         kind="train"), RunConfig(),
                             {"zipf_a": 1.3}, "phi3_trace.json", n_layers=8),
+    "seamless-m4t-medium": Cell(_TRAIN, RunConfig(),
+                                {"zipf_a": 1.3, "is_encdec": True,
+                                 "frames_dim": 1024, "frames_len": 128},
+                                "seamless_trace.json"),
+    "hymba-1.5b": Cell(_TRAIN, RunConfig(), {"zipf_a": 1.3},
+                       "hymba_trace.json"),
+    "chameleon-34b": Cell(_TRAIN, RunConfig(learning_rate=1e-5),
+                          {"zipf_a": 1.3}, "chameleon_trace.json",
+                          n_layers=4),
+    "rwkv6-7b": Cell(_TRAIN, RunConfig(), {"zipf_a": 1.3}, "rwkv_trace.json",
+                     n_layers=8),
 }
 
 

@@ -12,18 +12,21 @@ otherwise, each running the trainer on its shard of the mesh.
 
 Mapped or refused, never ignored:
   * ``--arch``: the port trains the LSTM family (parallax-lm,
-    parallax-nmt) and the dense family (the default ``phi3-medium-14b``,
-    command-r-35b, ...); every other arch is refused by name (rwkv6's
-    training is ROADMAP slice 6 item 18, the other families slice 6);
+    parallax-nmt), the dense family (the default ``phi3-medium-14b``,
+    command-r-35b, ...), vlm (chameleon-34b), hybrid (hymba-1.5b), ssm
+    (rwkv6-7b, its WKV through the chunked form under autograd) and audio
+    (seamless-m4t-medium, whose batches carry ``frames`` (B, seq // 4,
+    d_model)); the moe family is refused by name (ROADMAP slice 6 item
+    14);
   * ``--embed-impl``: ``pallas`` (the default here) means the hand-written
     CUDA kernels on the card, their plain versions on the CPU, dispatched
     on the tensor's device; ``jnp`` (plain versions on the card) is
     refused;
   * ``--kernel-autotune`` reaches ``RunConfig.kernel_autotune``, which the
     runtime refuses (ROADMAP slice 8);
-  * ``--attention`` is ``RunConfig.attention_impl`` (the dense family's;
-    no LSTM reads it); ``pallas`` is refused for training (the flash
-    kernel is forward-only, as the reference's);
+  * ``--attention`` is ``RunConfig.attention_impl`` (every attention
+    family's; no LSTM reads it); ``pallas`` is refused for training (the
+    flash kernel is forward-only, as the reference's);
   * the elastic flags (``--remesh-on-straggle``, ``--heartbeat``,
     ``--max-staleness``, ``--stale-on-jitter``, ``--no-attribution``,
     ``--probation-*``, ``--min-data-parallel``) reach their config fields,
@@ -45,8 +48,8 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch.mesh import make_mesh, spawn
 from repro_torch.models.transformer import check_trainable
 
-TRAINABLE = ("lstm", "dense")
-_LATER = {"ssm": "ROADMAP slice 6 item 18 (training rwkv6)"}
+TRAINABLE = ("lstm", "dense", "vlm", "hybrid", "ssm", "audio")
+_LATER = {"moe": "ROADMAP slice 6 item 14 (models/moe.py)"}
 
 
 def _parse(argv=None):
@@ -123,8 +126,8 @@ def _check(args, cfg) -> None:
                                         "families)")
         raise NotImplementedError(
             f"training {cfg.name} (family {cfg.family!r}) is not ported "
-            f"yet: {where}; the port trains the lstm and dense families")
-    if cfg.family == "dense":
+            f"yet: {where}; the port trains the families {TRAINABLE}")
+    if cfg.family != "lstm":
         check_trainable(RunConfig(attention_impl=args.attention))
     if args.embed_route == "jnp":
         raise NotImplementedError(
@@ -197,7 +200,9 @@ def train(args, device=None, mesh=None) -> dict:
     from repro_torch.runtime.trainer import Trainer
     cfg, shape, run_cfg, tcfg = _configs(args)
     ds = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed,
-                     zipf_a=args.zipf_a, is_encdec=cfg.is_encdec)
+                     zipf_a=args.zipf_a, is_encdec=cfg.is_encdec,
+                     frames_dim=cfg.d_model if cfg.family == "audio" else 0,
+                     frames_len=max(args.seq // 4, 1))
     trainer = Trainer(cfg, shape, run_cfg, tcfg, ds, mesh=mesh,
                       device=device)
     plan0 = trainer.plan.tables()

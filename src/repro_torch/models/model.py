@@ -4,36 +4,39 @@
 parameters, with ``specs()``, ``param_specs()``, ``input_specs()``,
 ``loss_fn(batch)``, ``prefill_fn(batch)``, ``decode_fn(cache, tokens,
 cache_len)``, ``init_cache(batch, seq)`` and ``prefill_cache_fn(tokens)``
-(None for a family whose recurrent state cannot be bucket-prefilled under
-padding). Ported families: ``lstm`` (the paper's LM and its LSTM
-encoder-decoder NMT, trained; the NMT is not served, as in the reference),
-``dense`` (phi3, command-r and kin: trained and served) and ``ssm``
-(rwkv6, served; its training waits for a WKV backward, ROADMAP slice 6
-item 18, and ``RwkvLM.loss_fn`` refuses it). The others are refused by
-name.
+(None for a family whose cache cannot be bucket-prefilled under padding, or
+whose prefill needs encoder inputs). Ported families, each trained and
+served:
+  * ``lstm``: the paper's LM and its LSTM encoder-decoder NMT (the NMT is
+    not served, as in the reference);
+  * ``dense`` (phi3, stablelm, command-r, mistral) and ``vlm`` (chameleon,
+    the dense layers plus frontend ``embeds``): the paged engine;
+  * ``ssm`` (rwkv6) and ``hybrid`` (hymba, attention beside a selective
+    SSM): ``ToyServer``'s decode loop;
+  * ``audio`` (seamless-m4t, ``models/encdec.py``): ``ToyServer``.
+The ``moe`` family (grok-1, llama4-maverick) is refused by name: ROADMAP
+slice 6 item 14.
 """
 from __future__ import annotations
 
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lstm import LSTMLM
-from repro_torch.models.transformer import DenseLM, RwkvLM
+from repro_torch.models.transformer import DenseLM, HybridLM, RwkvLM
 
-# family -> the ROADMAP slice that ports it
-_LATER = {
-    "vlm": "slice 6 (the other families)",
-    "moe": "slice 6 (the other families)",
-    "hybrid": "slice 6 (the other families)",
-    "audio": "slice 6 item 16 (models/encdec.py)",
-}
+_FAMILIES = {"dense": DenseLM, "vlm": DenseLM, "ssm": RwkvLM,
+             "hybrid": HybridLM}
 
 
 def build_model(cfg, rt):
     if cfg.family == "lstm":
         return LSTMLM(cfg, rt)
-    if cfg.family == "dense":
-        return DenseLM(cfg, rt)
-    if cfg.family == "ssm":
-        return RwkvLM(cfg, rt)
-    where = _LATER.get(cfg.family, "a later slice")
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP "
-        f"{where}")
+    if cfg.is_encdec:
+        return EncDecLM(cfg, rt)
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"family 'moe' ({cfg.name}) is not ported yet: ROADMAP slice 6 "
+            "item 14 (models/moe.py)")
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) has "
+                                  "no model in the port")
+    return _FAMILIES[cfg.family](cfg, rt)

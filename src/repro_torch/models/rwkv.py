@@ -2,11 +2,17 @@
 decay, plus a squared-ReLU channel mix [arXiv:2404.05892] (the port of
 ``repro/models/rwkv.py``), single device.
 
-The time mix's WKV recurrence goes through ``kernels/ops.wkv``: on the card
-the hand-written CUDA kernel, on the CPU its plain chunked version. The
-reference runs its jnp ``_chunk_wkv`` there, the same function as its Pallas
-kernel (chunk 32, the clamps at 80); the port runs that function in the
-kernel. The reference's ``rt.constrain`` calls pin shardings and have
+The time mix's WKV recurrence has two routes, picked by autograd's mode:
+  * under autograd (training): ``chunk_wkv``, the port of the reference's
+    jnp ``_chunk_wkv`` in plain torch, whose autodiff is the backward, as
+    the reference trains through its ``_chunk_wkv`` and not its Pallas
+    kernel (which has no backward);
+  * without grad (serving: ``prefill_fn``, ``decode_fn``):
+    ``kernels/ops.wkv``, the hand-written CUDA kernel on the card, its
+    plain chunked version on the CPU — the same function (chunk 32, the
+    clamps at 80).
+The dense family splits the same way (plain attention in training, flash
+in serving). The reference's ``rt.constrain`` calls pin shardings and have
 nothing to pin on one device, so the blocks take no runtime.
 
 A decode step carries O(1) state per layer: the (B, H, E, E) f32 WKV state
@@ -54,6 +60,44 @@ def _token_shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
+CLAMP = 80.0  # fp32-safe clamp; exact while chunk * |log-decay| <= 80
+
+
+def chunk_wkv(r, k, v, lw, bonus, state, chunk: int) -> tuple:
+    """The chunked WKV of the reference (``_chunk_wkv``), differentiable:
+    r/k/v (B, S, H, E); lw (B, S, H, E) log-decay (<= 0); bonus (H, E);
+    state (B, H, E, E) carried. The tail is zero-padded to a whole chunk.
+    f32 inside -> (out (B, S, H, E) f32, state (B, H, E, E) f32)."""
+    b, s, h, e = r.shape
+    pad = (-s) % chunk
+    r, k, v, lw = (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+                   if pad else a for a in (r, k, v, lw))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    st = state.float()
+    outs = []
+    for c0 in range(0, s + pad, chunk):
+        rj, kj, vj, lwj = (a[:, c0:c0 + chunk].float()
+                           for a in (r, k, v, lw))
+        cum = torch.cumsum(lwj, dim=1)                       # inclusive
+        cin = cum - lwj                                      # exclusive
+        qf = rj * torch.exp(torch.clamp(cin, -CLAMP, 0.0))
+        kf = kj * torch.exp(torch.clamp(-cum, 0.0, CLAMP))
+        s_tt = torch.einsum("bthe,bihe->bhti", qf, kf)       # intra scores
+        s_tt = torch.where(mask[None, None], s_tt, 0.0)
+        out = torch.einsum("bhti,bihe->bthe", s_tt, vj)
+        # the diagonal bonus u * k_t
+        diag = torch.einsum("bthe,bthe->bth", rj * bonus, kj)
+        out = out + diag[..., None] * vj
+        out = out + torch.einsum("bthe,bhef->bthf", qf, st)  # inter-chunk
+        tot = cum[:, -1:]                                    # (B, 1, H, E)
+        kdec = kj * torch.exp(torch.clamp(tot - cum, -CLAMP, CLAMP))
+        st = st * torch.exp(torch.clamp(tot, -CLAMP, 0.0))[:, 0, ..., None] \
+            + torch.einsum("bthe,bthf->bhef", kdec, vj)
+        outs.append(out)
+    return torch.cat(outs, dim=1)[:, :s], st
+
+
 def time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
              state: torch.Tensor, *, cfg, chunk: int = 32) -> tuple:
     """x: (B, S, D). Returns (out, (x_last, new_state))."""
@@ -72,7 +116,10 @@ def time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
     w = p["w0"].float() + wdelta
     lw = -torch.exp(w).reshape(b, s, h, e)                   # log-decay <= 0
     bonus = torch.exp(p["bonus"].float()).reshape(h, e)
-    out, new_state = ops.wkv(r, k, v, lw, bonus, state, chunk=chunk)
+    if torch.is_grad_enabled():
+        out, new_state = chunk_wkv(r, k, v, lw, bonus, state, chunk)
+    else:
+        out, new_state = ops.wkv(r, k, v, lw, bonus, state, chunk=chunk)
     out = out.reshape(b, s, d).to(x.dtype)
     # per-head group norm, then the gate
     out = rms_norm(out.reshape(b, s, h, e), p["ln_w"].reshape(h, e),

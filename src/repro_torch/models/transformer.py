@@ -1,5 +1,5 @@
-"""Decoder LM of the dense and ssm families (the port of the dense and ssm
-paths of ``repro/models/transformer.py``), single device.
+"""Decoder LM of the dense, vlm, hybrid and ssm families (the port of
+``repro/models/transformer.py`` but for its moe path), single device.
 
 Parameters stay stacked over layers, under the reference's dotted names
 (``layers.attn.wq`` is (n_layers, d, H*hd), and so on), so
@@ -10,14 +10,21 @@ PS lookup (core/embedding.py, the ``embed_gather`` kernel on the card); with
 ``attention_impl="pallas"`` the cache-less attention goes to the
 ``flash_attention`` kernel.
 
-The ssm family (``rwkv6-7b``) swaps the decoder layer for
-``models/rwkv.py``'s block, whose WKV goes to the ``wkv`` kernel.
+The vlm family (``chameleon-34b``) runs the dense layers; ``forward`` adds
+its precomputed frontend ``embeds`` after the lookup, as the reference does.
+The hybrid family (``hymba-1.5b``) runs attention and ``models/ssm.py``'s
+selective SSM on the same normed input and averages them. The ssm family
+(``rwkv6-7b``) swaps the decoder layer for ``models/rwkv.py``'s block, whose
+WKV goes to the ``wkv`` kernel in serving and to the chunked form under
+autograd.
 
-The dense decode cache is the reference's tuple ``(k, v)`` of
-(n_layers, B, S, KV, hd) tensors; the ssm cache is its recurrent carry
+The dense and vlm decode cache is the reference's tuple ``(k, v)`` of
+(n_layers, B, S, KV, hd) tensors; the hybrid cache adds the SSM state,
+``(k, v, h (n_layers, B, D, N) f32)``; the ssm cache is its recurrent carry
 ``(tm_x (n_layers, B, D), state (n_layers, B, H, E, E) f32, cm_x
 (n_layers, B, D))``. Where JAX returns an updated cache, the port writes the
-new rows (or carry) into the given tensors in place and returns them.
+new rows (or carry, or state) into the given tensors in place and returns
+them.
 
 Training (``DenseLM.loss_fn``) runs the cache-less path under autograd
 through plain attention (``naive`` or ``chunked``): the reference's Pallas
@@ -31,9 +38,12 @@ the model axis outside ``vocab``) and only the head is vocab-sharded:
 ``coll.copy_to`` sums the activation's gradient over ``model`` before it,
 and a tied head reads this rank's rows of the table (below).
 
-Not ported here: the ssm family's training (ROADMAP slice 6 item 18), the
-tensor- and sequence-parallel execution (``core/sp.py``, slice 2's rest),
-the moe and hybrid families and cross attention (slice 6).
+``attn_block`` also takes the encoder-decoder's cross attention
+(``cross_kv``: K/V from the encoder, no RoPE, never causal) for
+``models/encdec.py``.
+
+Not ported here: the moe family (ROADMAP slice 6 item 14) and the tensor-
+and sequence-parallel execution (``core/sp.py``, slice 2's rest).
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ from repro_torch.core import embedding as emb
 from repro_torch.core.xent import sharded_xent
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, ParamTree, flatten_specs,
                                        rms_norm, stack_tree, swiglu)
 
@@ -104,16 +115,20 @@ def mlp_specs(cfg) -> dict:
 def layer_specs(cfg, rt) -> dict:
     if cfg.family == "ssm":
         return rwkv_mod.rwkv_block_specs(cfg)
-    if cfg.family != "dense":
-        _refuse(f"the {cfg.family} family's layers", "slice 6 (the other "
-                "families)")
+    if cfg.family == "moe":
+        _refuse("the moe family's layers (models/moe.py)", "slice 6 item 14")
+    if cfg.family not in ("dense", "vlm", "hybrid"):
+        raise ValueError(f"family {cfg.family!r} has no decoder-LM layers")
     d = cfg.d_model
-    return {
+    specs = {
         "ln1": ParamSpec((d,), (None,), init="ones"),
         "attn": attn_specs(cfg, rt),
         "ln2": ParamSpec((d,), (None,), init="ones"),
         "mlp": mlp_specs(cfg),
     }
+    if cfg.family == "hybrid":
+        specs["ssm"] = ssm_mod.ssm_specs(cfg)
+    return specs
 
 
 def model_specs(cfg, rt) -> dict:
@@ -165,9 +180,12 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_len) -> None:
 
 def attn_block(p: dict, x: torch.Tensor, *, cfg, rt, positions,
                layer_cache: Optional[tuple] = None, cache_len=None,
-               causal: bool = True, return_kv: bool = False) -> tuple:
-    """Self-attention sub-block. Returns (out, new_cache).
+               cross_kv: Optional[tuple] = None, causal: bool = True,
+               return_kv: bool = False) -> tuple:
+    """Self (or cross) attention sub-block. Returns (out, new_cache).
 
+    ``cross_kv``: (K, V) of the encoder, (B, Se, KV, hd); then q takes no
+    RoPE, the attention is never causal and nothing is cached.
     ``return_kv``: on the cache-less path, hand back this layer's (K, V) at
     the compute dtype — the serving engine's batched prefill collects them
     across layers and inserts the rows into the live decode cache."""
@@ -178,24 +196,31 @@ def attn_block(p: dict, x: torch.Tensor, *, cfg, rt, positions,
     qmap = _qmap(cfg.n_heads, kv, hp, x.device)
 
     q = (x @ p["wq"]).reshape(b, s, hp, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
-    if cfg.rope_theta:
-        q = attn_mod.rope(q, positions, cfg.rope_theta)
-        k = attn_mod.rope(k, positions, cfg.rope_theta)
+    if cross_kv is None:
+        k = (x @ p["wk"]).reshape(b, s, kv, hd)
+        v = (x @ p["wv"]).reshape(b, s, kv, hd)
+        if cfg.rope_theta:
+            q = attn_mod.rope(q, positions, cfg.rope_theta)
+            k = attn_mod.rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = cross_kv
 
     if layer_cache is not None:
         k_cache, v_cache = layer_cache
-        _write_cache(k_cache, k, cache_len)
-        _write_cache(v_cache, v, cache_len)
-        out = attn_mod.decode_attention(q, k_cache, v_cache, cache_len + 1,
-                                        qmap=qmap)
+        if cross_kv is None:
+            _write_cache(k_cache, k, cache_len)
+            _write_cache(v_cache, v, cache_len)
+        out = attn_mod.decode_attention(
+            q, k_cache, v_cache, cache_len + (1 if cross_kv is None else 0),
+            qmap=qmap)
         new_cache = (k_cache, v_cache)
     else:
         out = attn_mod.attention(
-            q, k, v, impl=rt.run_cfg.attention_impl, causal=causal,
+            q, k, v, impl=rt.run_cfg.attention_impl,
+            causal=causal and cross_kv is None,
             chunk=rt.run_cfg.attention_chunk, qmap=qmap)
-        new_cache = (k.to(rt.dtype), v.to(rt.dtype)) if return_kv else None
+        new_cache = (k.to(rt.dtype), v.to(rt.dtype)) \
+            if return_kv and cross_kv is None else None
     if hp > cfg.n_heads:
         # padded heads zeroed before the o-proj, as the reference does:
         # their columns get no gradient, so padding changes no value
@@ -208,11 +233,26 @@ def attn_block(p: dict, x: torch.Tensor, *, cfg, rt, positions,
 def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
                   layer_cache=None, cache_len=None,
                   collect_kv: bool = False) -> tuple:
-    """Pre-norm decoder layer; returns (x, new_cache, metrics)."""
+    """Pre-norm decoder layer; returns (x, new_cache, metrics). The hybrid
+    family (hymba) runs attention and the SSM on the same normed input and
+    averages them; its layer cache is (k, v, h_ssm), and the new one
+    carries the SSM's new state (a new tensor, not written in place)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    attn_out, new_cache = attn_block(
-        p["attn"], h, cfg=cfg, rt=rt, positions=positions,
-        layer_cache=layer_cache, cache_len=cache_len, return_kv=collect_kv)
+    if cfg.family == "hybrid":
+        kv_cache = layer_cache[:2] if layer_cache is not None else None
+        h_ssm = layer_cache[2] if layer_cache is not None else \
+            ssm_mod.init_ssm_state(cfg, x.shape[0], x.device)
+        attn_out, new_kv = attn_block(
+            p["attn"], h, cfg=cfg, rt=rt, positions=positions,
+            layer_cache=kv_cache, cache_len=cache_len, return_kv=collect_kv)
+        ssm_out, h_ssm = ssm_mod.ssm_mix(p["ssm"], h, h_ssm, cfg=cfg)
+        attn_out = (attn_out + ssm_out) * 0.5
+        new_cache = (*new_kv, h_ssm) if new_kv is not None else None
+    else:
+        attn_out, new_cache = attn_block(
+            p["attn"], h, cfg=cfg, rt=rt, positions=positions,
+            layer_cache=layer_cache, cache_len=cache_len,
+            return_kv=collect_kv)
     x = x + attn_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     mlp = p["mlp"]
@@ -224,29 +264,51 @@ def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
 # full model
 # ---------------------------------------------------------------------------
 
+def rt_residual_axes(rt, x: torch.Tensor) -> tuple:
+    """The residual stream's placement record: sequence-parallel when the
+    sequence divides the ``seq_sp`` axis. The reference pins it with
+    ``rt.constrain``; every rank of the port holds the layers whole, so
+    nothing reads it at run time (slice 2's rest)."""
+    s = x.shape[1]
+    m = rt.rules.axis_size("seq_sp")
+    if rt.shape_cfg.kind != "decode" and m > 1 and s % m == 0:
+        return ("batch", "seq_sp", None)
+    return ("batch", None, None)
+
+
+def _layer_carry_init(cfg, rt, batch: int, cache_seq: int,
+                      dtype: torch.dtype) -> tuple:
+    """One layer's zeroed decode cache (``init_cache`` stacks it)."""
+    hd, kv = cfg.head_dim, cfg.n_kv_heads
+    if cfg.family == "ssm":
+        return rwkv_mod.init_rwkv_carry(cfg, batch, dtype, rt.device)
+    kvc = tuple(torch.zeros((batch, cache_seq, kv, hd), dtype=dtype,
+                            device=rt.device) for _ in range(2))
+    if cfg.family == "hybrid":
+        return (*kvc, ssm_mod.init_ssm_state(cfg, batch, rt.device))
+    return kvc
+
+
 def init_cache(cfg, rt, batch: int, cache_seq: int,
                dtype: Optional[torch.dtype] = None) -> tuple:
-    """Zeroed decode cache: (k, v), each (n_layers, B, S, KV, hd); for the
-    ssm family the carry (tm_x, state, cm_x) of every layer, whatever
-    ``cache_seq``."""
-    dtype = dtype or rt.dtype
-    if cfg.family == "ssm":
-        one = rwkv_mod.init_rwkv_carry(cfg, batch, dtype, rt.device)
-        return tuple(a[None].repeat(cfg.n_layers, *([1] * a.dim()))
-                     for a in one)
-    shape = (cfg.n_layers, batch, cache_seq, cfg.n_kv_heads, cfg.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=rt.device),
-            torch.zeros(shape, dtype=dtype, device=rt.device))
+    """Zeroed decode cache, each layer's stacked: (k, v), each
+    (n_layers, B, S, KV, hd); hybrid adds the SSM state (n_layers, B, D, N)
+    f32; for the ssm family the carry (tm_x, state, cm_x) of every layer,
+    whatever ``cache_seq``."""
+    one = _layer_carry_init(cfg, rt, batch, cache_seq, dtype or rt.dtype)
+    return tuple(torch.zeros((cfg.n_layers, *a.shape), dtype=a.dtype,
+                             device=a.device) for a in one)
 
 
-def _layer_params(params: dict, i: int) -> dict:
-    """Layer i of the stacked ``layers.*`` parameters as the nested dict the
-    blocks read (``p["attn"]["wq"]``); each leaf is a view."""
+def _layer_params(params: dict, i: int, stack: str = _LAYERS) -> dict:
+    """Layer i of the stacked ``layers.*`` parameters (or another stack's,
+    e.g. ``enc_layers.``) as the nested dict the blocks read
+    (``p["attn"]["wq"]``); each leaf is a view."""
     out: dict = {}
     for name, t in params.items():
-        if not name.startswith(_LAYERS):
+        if not name.startswith(stack):
             continue
-        *path, leaf = name[len(_LAYERS):].split(".")
+        *path, leaf = name[len(stack):].split(".")
         node = out
         for key in path:
             node = node.setdefault(key, {})
@@ -255,29 +317,45 @@ def _layer_params(params: dict, i: int) -> dict:
 
 
 def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
-            cache_len=None, collect_kv: bool = False) -> tuple:
+            cache_len=None, embeds: Optional[torch.Tensor] = None,
+            collect_kv: bool = False) -> tuple:
     """tokens (B, S) -> logits (B, S, Vp), new cache, metrics.
 
     ``params``: {dotted_name: tensor}. ``cache_len`` may be a scalar
     (homogeneous batch) or a per-slot (B,) tensor (the serving engine's
     slot-paged decode). ``collect_kv`` makes the cache-less (prefill) path
     return the per-layer K/V stack, (n_layers, B, S, KV, hd) each, instead
-    of None. The ssm family always carries state: without a cache it starts
-    a fresh carry and returns it as the new cache, and it ignores
-    ``cache_len``."""
+    of None (hybrid: also the per-layer SSM states). ``embeds`` (B, S, D):
+    precomputed frontend embeddings (the vlm stub) added after the lookup.
+    The ssm family always carries state: without a cache it starts a fresh
+    carry and returns it as the new cache, and it ignores ``cache_len``."""
     b, s = tokens.shape
     x, metrics = emb.lookup(params["embed"], tokens, ctx=rt.embed_ctx(),
                             capacity=rt.embed_capacity_for("embed"))
     x = x.to(rt.dtype)
+    if embeds is not None:
+        x = x + embeds.to(rt.dtype)
     if cfg.family == "ssm":
-        if cache is None:
+        # a given cache is written in place; a fresh carry is stacked from
+        # the layers' new carries (autograd may still need the zeros read)
+        fresh = cache is None
+        if fresh:
             cache = init_cache(cfg, rt, b, 1)
+        block = rwkv_mod.rwkv_block
+        if torch.is_grad_enabled():
+            block = remat(block, rt.run_cfg.remat)
+        carries = []
         for i in range(cfg.n_layers):
-            x, new_carry = rwkv_mod.rwkv_block(
+            x, new_carry = block(
                 _layer_params(params, i), x, tuple(c[i] for c in cache),
                 cfg=cfg)
-            for c, new in zip(cache, new_carry):
-                c[i].copy_(new)
+            if fresh:
+                carries.append(new_carry)
+            else:
+                for c, new in zip(cache, new_carry):
+                    c[i].copy_(new)
+        if fresh:
+            cache = tuple(torch.stack(c) for c in zip(*carries))
         return _head(params, x, cfg, rt), cache, metrics
     dev = tokens.device
 
@@ -295,20 +373,21 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
     if cache is None and not collect_kv and torch.is_grad_enabled():
         # the training forward: each layer under the run's remat
         layer = remat(decoder_layer, rt.run_cfg.remat)
-    ks, vs = [], []
+    collected = []
     for i in range(cfg.n_layers):
-        layer_cache = None if cache is None else (cache[0][i], cache[1][i])
+        layer_cache = None if cache is None else tuple(c[i] for c in cache)
         x, new_c, _ = layer(
             _layer_params(params, i), x, cfg=cfg, rt=rt, positions=positions,
             layer_cache=layer_cache, cache_len=cache_len,
             collect_kv=collect_kv)
-        if cache is None and collect_kv:
-            ks.append(new_c[0])
-            vs.append(new_c[1])
+        if cache is not None and cfg.family == "hybrid":
+            cache[2][i].copy_(new_c[2])      # the SSM state, a new tensor
+        elif cache is None and collect_kv:
+            collected.append(new_c)
     if cache is not None:
         new_cache = cache
     elif collect_kv:
-        new_cache = (torch.stack(ks), torch.stack(vs))
+        new_cache = tuple(torch.stack(c) for c in zip(*collected))
     else:
         new_cache = None
     return _head(params, x, cfg, rt), new_cache, metrics
@@ -435,7 +514,7 @@ class DenseLM(ParamTree):
         """The training forward: -> (logits (B, S, Vp / M), None,
         metrics)."""
         return forward(self.params(), batch["tokens"], cfg=self.cfg,
-                       rt=self.rt)
+                       rt=self.rt, embeds=batch.get("embeds"))
 
     def loss_fn(self, batch: dict, params: dict = None) -> tuple:
         """-> (this replica's mean loss, metrics). ``params``: {dotted
@@ -457,9 +536,10 @@ class DenseLM(ParamTree):
 
     @torch.no_grad()
     def prefill_fn(self, batch: dict) -> tuple:
-        """-> (logits, None, metrics) over a whole prompt batch."""
+        """-> (logits, None, metrics) over a whole prompt batch (its
+        ``embeds``, if any, added after the lookup)."""
         return forward(self.params(), batch["tokens"], cfg=self.cfg,
-                       rt=self.rt)
+                       rt=self.rt, embeds=batch.get("embeds"))
 
     @torch.no_grad()
     def prefill_cache_fn(self, tokens: torch.Tensor) -> tuple:
@@ -485,14 +565,21 @@ class DenseLM(ParamTree):
 class RwkvLM(DenseLM):
     """An ssm-family LM (``rwkv6-7b``): the parameters under the
     reference's dotted names (layers.tm.mu, layers.tm.w_lora_a, ...,
-    layers.cm.w_recv, layers.ln1, layers.ln2). It serves through
-    ``ToyServer``'s decode loop and ``make_prefill_step``; ``prefill_fn``
-    returns the final carry as its cache."""
+    layers.cm.w_recv, layers.ln1, layers.ln2). It trains through
+    ``DenseLM.loss_fn`` (the WKV under autograd takes
+    ``models/rwkv.py::chunk_wkv``) and serves through ``ToyServer``'s
+    decode loop and ``make_prefill_step``; ``prefill_fn`` returns the final
+    carry as its cache."""
 
     # the recurrent carry cannot be bucket-prefilled exactly under padding:
     # serving runs it through ToyServer's decode loop
     prefill_cache_fn = None
 
-    def loss_fn(self, batch: dict):
-        _refuse("training the ssm family (rwkv6)", "slice 6 (after slice "
-                "4's dense training, with a port-only WKV backward)")
+
+class HybridLM(DenseLM):
+    """A hybrid-family LM (``hymba-1.5b``): the dense layers' names plus
+    layers.ssm.* (w_in, w_gate, w_b, w_c, w_dt, dt_bias, a_log, w_out).
+    Its cache carries the SSM state beside K/V, which padding would
+    corrupt, so it serves through ``ToyServer`` as the reference does."""
+
+    prefill_cache_fn = None

@@ -104,14 +104,15 @@ def test_loss_and_gradients_match_reference(dtype):
 
 
 def test_encdec_and_other_families_are_refused():
-    # parallax-nmt trains since its port (tests/test_torch_nmt.py) and the
+    # parallax-nmt trains since its port (tests/test_torch_nmt.py), the
     # dense family since its own (tests/test_torch_dense_train.py), though
-    # not through the forward-only flash kernel; rwkv6's training is not
-    # ported yet
+    # not through the forward-only flash kernel, and rwkv6 and the other
+    # slice-6 families since theirs (tests/test_torch_families.py); the moe
+    # family is not ported yet
     for arch, kw, match in (
             ("phi3-medium-14b", {"attention_impl": "pallas"},
              "pallas.*forward-only"),
-            ("rwkv6-7b", {}, "slice")):
+            ("grok-1-314b", {}, "slice 6 item 14")):
         cfg = tc.reduced(tc.get_config(arch))
         rt = Runtime(cfg, tc.RunConfig(**kw),
                      tc.ShapeConfig("t", 8, 2, "train"), device="cpu")

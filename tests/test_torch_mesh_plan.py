@@ -76,6 +76,14 @@ DENSE_MODES = {"hybrid": {}, "ps": {"comm_mode": "ps"},
                "auto": {"dense_strategy": "auto"}}
 DENSE_CASES = [(a, w, m, mode) for a in DENSE_ARCHS for w in DENSE_WIDTHS
                for m in MESHES for mode in DENSE_MODES]
+# seamless-m4t-medium (the encoder-decoder: encoder and decoder stacks, the
+# decoder's 256,206-row table, an untied head): reduced at f32 and the
+# published width at launch/train.py's default shape (bf16)
+ENCDEC = "seamless-m4t-medium"
+ENCDEC_MODES = {"hybrid": {}, "ps": {"comm_mode": "ps"},
+                "mpi": {"comm_mode": "mpi"}}
+ENCDEC_CASES = [(w, m, mode) for w in DENSE_WIDTHS for m in MESHES
+                for mode in ENCDEC_MODES]
 # the reference's test_serve_plan_flips_method_per_table
 SERVE_KW = dict(NMT_WIDTHS["reduced"][2], **TWO_TABLE)
 SERVE_KINDS = ("decode", "train")
@@ -180,6 +188,15 @@ def reference_dense_plans():
                        for a, w, m, mode in DENSE_CASES])
 
 
+@pytest.fixture(scope="module")
+def reference_encdec_plans():
+    return _reference([(_key(ENCDEC, w, m, mode), ENCDEC, m,
+                        {} if DENSE_WIDTHS[w][0] else None,
+                        DENSE_WIDTHS[w][1],
+                        dict(DENSE_WIDTHS[w][2], **ENCDEC_MODES[mode]))
+                       for w, m, mode in ENCDEC_CASES])
+
+
 def _tpu_hw_for_port():
     h = jroof.HW
     return troof.Hardware(name=h.name, peak_flops=h.peak_flops,
@@ -265,6 +282,31 @@ def test_dense_mesh_plan_matches_reference(reference_dense_plans,
     for name, p in got.params.items():
         if name not in ("embed", "head"):
             assert "model" not in str(p.held), (name, p.held)
+
+
+@pytest.mark.distributed
+@pytest.mark.parametrize("width,mesh,mode", ENCDEC_CASES,
+                         ids=["-".join((w, "x".join(map(str, m)), mode))
+                              for w, m, mode in ENCDEC_CASES])
+def test_encdec_mesh_plan_matches_reference(reference_encdec_plans,
+                                            monkeypatch, width, mesh, mode):
+    """seamless-m4t-medium's plans, field for field: the encoder's and the
+    decoder's stacks (``enc_layers.*``, ``dec_layers.*``, the cross
+    attention), the decoder table's method and capacity, the buckets over
+    the reversed flatten order, and the memory escalation at the published
+    width (on the meta device)."""
+    want = reference_encdec_plans[_key(ENCDEC, width, mesh, mode)]
+    monkeypatch.setattr(tcm, "HW", _tpu_hw_for_port())
+    red, shape, kw = DENSE_WIDTHS[width]
+    cfg = tc.get_config(ENCDEC)
+    if red:
+        cfg = tc.reduced(cfg)
+    rt, model, got = _port_plan(cfg, mesh, shape,
+                                dict(kw, **ENCDEC_MODES[mode]),
+                                device="meta")
+    assert set(got.tables()) == {"embed"}
+    assert any(n.startswith("dec_layers.cross.") for n in got.params)
+    _assert_plan_matches(want, rt, model, got)
 
 
 @pytest.mark.distributed

@@ -244,10 +244,15 @@ def test_carry_layout_matches_reference():
 
 
 def test_training_rwkv6_is_refused_and_prefill_cache_is_none():
+    """rwkv6 has no bucketed prefill. Its training is no longer refused
+    (ROADMAP slice 6 item 18): ``loss_fn`` runs through the chunked WKV
+    under autograd, held against the reference in
+    tests/test_torch_rwkv_train.py."""
     _, _, tm = _pair()
     assert tm.prefill_cache_fn is None
-    with pytest.raises(NotImplementedError, match="slice"):
-        tm.loss_fn({"tokens": torch.zeros((2, 4), dtype=torch.int32)})
+    loss, _ = tm.loss_fn({"tokens": torch.zeros((2, 4), dtype=torch.int32),
+                          "labels": torch.zeros((2, 4), dtype=torch.int32)})
+    assert torch.isfinite(loss) and loss.requires_grad
 
 
 @pytest.mark.parametrize("shape", [("serve", 2048, 4, "decode"),

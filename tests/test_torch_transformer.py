@@ -161,11 +161,13 @@ def test_dense_training_and_other_families_are_refused():
     with pytest.raises(NotImplementedError, match="pallas.*forward-only"):
         tm.loss_fn({"tokens": torch.zeros((2, 4), dtype=torch.int32),
                     "labels": torch.zeros((2, 4), dtype=torch.int32)})
-    for arch in ("grok-1-314b", "hymba-1.5b", "chameleon-34b"):
+    # hymba and chameleon build now (tests/test_torch_hybrid.py,
+    # test_torch_vlm.py); only the moe family waits
+    for arch in ("grok-1-314b", "llama4-maverick-400b-a17b"):
         cfg = tc.reduced(tc.get_config(arch))
         rt = Runtime(cfg, tc.RunConfig(), tc.ShapeConfig("s", 8, 2, "decode"),
                      device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 6"):
+        with pytest.raises(NotImplementedError, match="slice 6 item 14"):
             build_model(cfg, rt)
 
 
