@@ -237,6 +237,37 @@ and never prints the final line:
               seamless at f32 on (2, 2) over 4 gloo ranks on the card,
               default flags and comm_mode mpi, within 5e-4 + 1e-4 i of the
               one-device card run.
+ 13. moe_parity  reduced grok-1-314b (4 experts, top-2) and
+              llama4-maverick-400b-a17b (4 experts, top-1, the shared
+              expert) at f32: 3 training steps on the CPU and on the card
+              from the same parameters (losses within rtol 1e-4,
+              moe_dropped and the embed_* census equal, no flash launch in
+              training), then each through Server with attention "pallas":
+              a 40-token prompt's bucket-padded prefill logits within 1e-4
+              of their scale (its pad tokens routed too), at most 2 of 8
+              greedy tokens different; flash on the scalar route (f32).
+     grok_serve, llama4_serve  serve's run (8 requests of 200..1,800
+              tokens, 16 new each, bf16, ServerConfig(max_batch=4,
+              max_seq=2048), attention "pallas") at the published widths
+              cut to profile_serve.SERVE_LAYERS: grok-1-314b at 4 of 64
+              layers (d 6,144, 48 q / 8 KV heads of 128, 8 experts of d_ff
+              32,768 top-2, vocab 131,072; 21,290,539,008 parameters,
+              42.6 GB), llama4-maverick-400b-a17b at 1 of 48 (d 5,120, 40 /
+              8 heads of 128, 128 experts of d_ff 8,192 top-1 and the
+              shared expert, vocab 202,048; 36.7 GB). Every flash launch on
+              the tc route; moe_dropped of one 2,048-token prefill; the
+              decode step beside its byte floor (every weight but the
+              embedding read once: the dispatch computes every expert at a
+              capacity of at least 4); peak at init and serving under 72 GB.
+     mesh_card_moe = mesh_card (g): reduced grok-1 (capacity factor 8,
+              SGD at 0.3, f32) on (2, 2) over 4 gloo ranks on the card: the
+              default moe_exec (ep: each rank's w_gate holds 2 of the 4
+              experts, the tokens moved by all_to_all, staged through the
+              host) under hybrid and mpi within 5e-4 + 1e-4 i of the
+              one-device card run; moe_exec "tp" (every expert on every
+              rank) within that bar of a (2, 1) run on 2 more ranks (its
+              aux is averaged over the data shards, as the JAX package's
+              is); each rank's expert bytes.
 
 Each path (main, main_no_la, nmt, train (its adaptive run), train_growth,
 train_resume (both runs), dense_parity (its card runs), dense_train,
@@ -244,7 +275,8 @@ mesh_one_rank, mesh_card (a) + (b), mesh_card_nmt = mesh_card (c),
 mesh_card_dense = mesh_card (e), replan_replay (both phases, rank 0's),
 serve, rwkv_serve, stablelm_parity (its card prefills and serving),
 stablelm_serve, families_parity (its card runs), seamless_train,
-hymba_train, chameleon_train, rwkv_train, mesh_card_encdec) runs with
+hymba_train, chameleon_train, rwkv_train, mesh_card_encdec, moe_parity
+(its card runs), grok_serve, llama4_serve, mesh_card_moe) runs with
 every launch
 count set to 0 just before it and read just after: the mesh phases in
 each rank's own process (mesh_card's (a), (b) and (c)'s two runs each so,
@@ -287,9 +319,12 @@ from repro_torch.core.transform import (analyze, get_runner,  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
+from repro_torch.launch.profile_serve import (SERVE_LAYERS,  # noqa: E402
+                                              serve_config)
 from repro_torch.launch.profile_step import (CELLS,  # noqa: E402
                                              cell_config)
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.moe import pick_exec_mode  # noqa: E402
 from repro_torch.optim.optimizer import is_fused  # noqa: E402
 from repro_torch.runtime.server import (Request, Server,  # noqa: E402
                                         ServerConfig, ToyServer, bucket_len)
@@ -413,7 +448,16 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 "mesh_card_dense": ("embed_gather", "embed_scatter_add"),
                 # the adaptive_replan replay's 8 ranks (rank 0's): ps's
                 # owner push one-pass, ps_gather's plain
-                "replan_replay": ("embed_gather", "embed_scatter_add")}
+                "replan_replay": ("embed_gather", "embed_scatter_add"),
+                # the moe family: its card-against-CPU training pulls and
+                # pushes, its f32 engine prefills take flash's scalar
+                # route; full-width serving takes flash's tc route (D 128
+                # bf16); on the mesh hybrid's owner push is one-pass
+                "moe_parity": ("embed_gather", "embed_scatter_add",
+                               "flash_attention"),
+                "grok_serve": ("embed_gather", "flash_attention"),
+                "llama4_serve": ("embed_gather", "flash_attention"),
+                "mesh_card_moe": ("embed_gather", "embed_scatter_add")}
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
 NMT_CENSUS = tuple(f"{t}_{k}" for t in ("embed", "enc_embed")
                    for k in ("rows", "unique", "dropped"))
@@ -438,6 +482,11 @@ FAMILY_TRAIN = {"seamless_train": "seamless-m4t-medium",
 FAMILY_STEPS = 12
 PEAK_LIMIT = 72e9
 STABLELM = "stablelm-12b"
+# the moe family: grok-1 (8 experts, top-2) and llama4-maverick (128
+# experts, top-1 and a shared expert); served at their published widths cut
+# to profile_serve.SERVE_LAYERS, trained reduced (one layer of either at 12
+# B a parameter passes the 80 GB card)
+GROK, LLAMA4 = "grok-1-314b", "llama4-maverick-400b-a17b"
 # the reference correctness test's RunConfig (f32 end to end, plain
 # attention, no remat): dense_parity and mesh_card (e)
 DENSE_F32 = dict(param_dtype="float32", compute_dtype="float32",
@@ -1702,10 +1751,13 @@ def phase_rwkv_recurrence(dev, n_tokens: int = 300) -> None:
 def phase_serve(dev, n_requests: int = 8, new: int = 16,
                 arch: str = "phi3-medium-14b", phase: str = "serve") -> dict:
     """Full-width ``arch`` served on the card through the paged engine, bf16
-    and attention "pallas": phi3-medium-14b (``serve``) or stablelm-12b
+    and attention "pallas": phi3-medium-14b (``serve``), stablelm-12b
     (``stablelm_serve``, its 160-wide heads on flash's tensor-core
-    route). Every prefill launches flash once a layer on the tc route."""
-    cfg = get_config(arch)
+    route), or the moe family at its published width with the layers cut
+    to ``SERVE_LAYERS`` (``grok_serve``, ``llama4_serve``). Every prefill
+    launches flash once a layer on the tc route; the peak memory at init
+    and at serve stays under PEAK_LIMIT."""
+    cfg = serve_config(arch)
     scfg = ServerConfig(max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1751,6 +1803,8 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16,
     check(counts["embed_gather_bulk"] == counts["embed_gather"],
           f"{counts['embed_gather'] - counts['embed_gather_bulk']} of "
           f"{counts['embed_gather']} gathers missed the bulk route")
+    check(max(init_peak, serve_peak) < PEAK_LIMIT,
+          f"{phase}: peak {init_peak} at init, {serve_peak} serving")
     ttft = sorted(r.ttft for r in done.values())
     # decode over the counted window: every token after a request's first
     # comes from a decode step, with later requests' prefills interleaved
@@ -1774,8 +1828,11 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16,
     sv.lens.fill_(1024)
     decode_ms = timer.ms(lambda: sv._decode(sv.cache, sv.lens, sv.tok,
                                              active, sv._gen), 10)
+    moe = _moe_serve_numbers(sv, cfg, rng, decode_ms) \
+        if cfg.family == "moe" else {}
     sv.close()
     res = {"phase": phase, "arch": cfg.name, "requests": n_requests,
+           "n_layers": cfg.n_layers, **moe,
            "flash_route": ops.flash_route(sv.rt.dtype, cfg.head_dim),
            "prompt_lens": [int(x) for x in lens],
            "buckets": sorted(sv.stats["buckets"]),
@@ -1799,6 +1856,29 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16,
                "clocks.sm,power.draw,power.limit,temperature.gpu")}
     emit(res)
     return res
+
+
+def _moe_serve_numbers(sv, cfg, rng, decode_ms: float) -> dict:
+    """A moe serve path's routing and its decode step beside its byte
+    floor. ``moe_dropped`` of one 2,048-token prefill (summed over the
+    layers; the engine's prefill step does not return it). The floor: every
+    weight but the embedding table read once over the card's memory rate —
+    the dispatch computes every expert at a capacity of at least 4 slots,
+    so a decode step reads every expert."""
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, SERVE_MAX_SEQ))
+                            .astype(np.int32)).to(sv.rt.device)
+    _, _, met = sv.model.prefill_fn({"tokens": toks})
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in sv.params.items() if n != "embed")
+    floor = bound_ms(weights)
+    return {"cut": f"n_layers {cfg.n_layers} of "
+                   f"{get_config(cfg.name).n_layers}",
+            "params": sum(p.numel() for p in sv.params.values()),
+            "moe_dropped_prefill_2048": int(met["moe_dropped"]),
+            "moe_aux_prefill_2048": float(met["moe_aux"]),
+            "decode_floor_bytes": weights, "decode_floor_ms": floor,
+            "decode_share_of_floor": floor / decode_ms}
 
 
 def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
@@ -1846,6 +1926,8 @@ def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
     check(counts["embed_gather_bulk"] == counts["embed_gather"],
           f"{counts['embed_gather'] - counts['embed_gather_bulk']} of "
           f"{counts['embed_gather']} gathers missed the bulk route")
+    check(max(init_peak, serve_peak) < PEAK_LIMIT,
+          f"rwkv_serve: peak {init_peak} at init, {serve_peak} serving")
     ttft = sorted(r.ttft for r in done.values())
     tokens = sum(len(r.out_tokens) for r in done.values())
     window_s = (max(r.token_times[-1] for r in done.values())
@@ -3191,6 +3273,205 @@ def phase_mesh_card_encdec() -> dict:
     return res
 
 
+def _moe_engine_parity(cfg) -> dict:
+    """Reduced ``cfg`` through the paged engine on the CPU and on the card,
+    f32 and attention "pallas", the same parameters: one 40-token prompt's
+    bucket-padded prefill logits (its 24 pad tokens are routed too) within
+    1e-4 of their scale, then 8 greedy tokens of it, at most 2 different
+    (the reference's allowance for argmax near-ties)."""
+    rc = RunConfig(attention_impl="pallas", param_dtype="float32",
+                   compute_dtype="float32")
+    scfg = ServerConfig(max_batch=1, max_seq=64)
+    cpu = Server(cfg, rc, scfg, seed=0, device="cpu")
+    gpu = Server(cfg, rc, scfg, device="cuda",
+                 params={k: p.to("cuda") for k, p in cpu.params.items()})
+    prompt = _prompts(np.random.default_rng(0), (40,), cfg.vocab_size)
+    toks = torch.zeros((1, bucket_len(40, 64)), dtype=torch.int32)
+    toks[0, :40] = torch.from_numpy(prompt[0])
+    lc, _ = cpu.model.prefill_cache_fn(toks)
+    lg, _ = gpu.model.prefill_cache_fn(toks.cuda())
+    lg = lg.cpu()
+    scale = float(lc.abs().max())
+    diff = float((lg - lc).abs().max())
+    check(torch.allclose(lg, lc, rtol=1e-4, atol=1e-4 * scale),
+          f"moe_parity {cfg.name}: prefill logits max abs diff {diff} "
+          f"(scale {scale})")
+    got = _drain(gpu, prompt, 8)
+    want = _drain(cpu, prompt, 8)
+    cpu.close()
+    gpu.close()
+    differ = sum(a != b for a, b in zip(got[0].out_tokens,
+                                        want[0].out_tokens))
+    check(differ <= 2, f"moe_parity {cfg.name}: {differ} of 8 greedy tokens "
+          f"differ: {got[0].out_tokens} vs {want[0].out_tokens}")
+    return {"prompt_len": 40, "bucket": int(toks.shape[1]),
+            "decode_steps": gpu.stats["decode_steps"],
+            "logits_max_abs_diff": diff, "logits_max_abs": scale,
+            "tokens_cpu": want[0].out_tokens,
+            "tokens_cuda": got[0].out_tokens, "tokens_differ": differ}
+
+
+def phase_moe_parity() -> dict:
+    """Reduced grok-1-314b (4 experts, top-2) and llama4-maverick-400b-a17b
+    (4 experts, top-1, the shared expert) at f32 (naive attention, no
+    remat), the same parameters and Zipf(1.3) batches, 3 training steps on
+    the CPU and on the card: losses within rtol 1e-4, moe_dropped and the
+    embed_* census equal, a bulk gather and a one-pass scatter a step, no
+    flash launch in training. Then each through the paged engine with
+    attention "pallas" (``_moe_engine_parity``): 2 prefills of flash's
+    scalar route (f32) a layer."""
+    shape = ShapeConfig("parity", 32, 4, "train")
+    out, total = {}, None
+    for arch in (GROK, LLAMA4):
+        cfg = reduced(get_config(arch))
+        ds = _family_data(cfg, 32, 4)
+        rc = RunConfig(**DENSE_F32, attention_impl="naive")
+        cpu = get_runner(cfg, shape, rc, seed=0, device="cpu")
+        gpu = get_runner(cfg, shape, rc, device="cuda", params={
+            k: p.detach().to("cuda") for k, p in named_parameters(
+                cpu.model).items()})
+        rows = []
+        ops.reset_launch_counts()
+        for i in range(3):
+            b = ds.batch(i)
+            mc, mg = cpu.run(b), gpu.run(b)
+            lc, lg = float(mc["loss"]), float(mg["loss"])
+            check(math.isclose(lc, lg, rel_tol=1e-4),
+                  f"moe_parity {arch} step {i}: cpu loss {lc} vs card {lg}")
+            for k in CENSUS + ("moe_dropped",):
+                check(float(mc[k]) == float(mg[k]),
+                      f"moe_parity {arch} step {i}: {k} cpu "
+                      f"{float(mc[k])} vs card {float(mg[k])}")
+            rows.append({"cpu": lc, "cuda": lg, "rel": abs(lc - lg) / abs(lc),
+                         "moe_dropped": float(mg["moe_dropped"]),
+                         "moe_aux_cpu": float(mc["moe_aux"]),
+                         "moe_aux_cuda": float(mg["moe_aux"])})
+        del cpu, gpu
+        engine = _moe_engine_parity(cfg)
+        counts = ops.launch_counts()
+        gathers = 3 + 2 + engine["decode_steps"]
+        check(counts["embed_gather"] == counts["embed_gather_bulk"] == gathers
+              and counts["embed_scatter_add"] == 3
+              and counts["embed_scatter_add_fused"] == 3
+              and counts["flash_attention"] == 2 * cfg.n_layers
+              and counts["flash_attention_tc"] == 0,
+              f"moe_parity {arch}: launches {counts} (3 training steps, "
+              f"2 engine prefills, {engine['decode_steps']} decode steps)")
+        total = counts if total is None else {
+            k: total[k] + v for k, v in counts.items()}
+        out[arch] = {"train": rows, "engine": engine}
+    res = {"phase": "moe_parity", **out, "launches": total}
+    emit(res)
+    return res
+
+
+# mesh_card (g): reduced grok-1 as tests/test_transform_correctness.py runs
+# it (capacity factor 8: no drops; SGD at 0.3), f32, on (2, 2): the default
+# moe_exec (ep: 2 of the 4 experts a rank) under hybrid and mpi, and tp
+MOE_MESH_RUNS = {"hybrid": {}, "mpi": {"comm_mode": "mpi"},
+                 "tp": {"moe_exec": "tp"}}
+MOE_MESH_KW = dict(DENSE_F32, attention_impl="naive", optimizer="sgd",
+                   learning_rate=0.3)
+
+
+def _moe_mesh_setup() -> tuple:
+    cfg = replace(reduced(get_config(GROK)), moe_capacity_factor=8.0)
+    ds = SyntheticLM(cfg.vocab_size, 32, 4)
+    return (cfg, ShapeConfig("mesh", 32, 4, "train"),
+            [ds.batch(i) for i in range(3)])
+
+
+def _moe_card_rank(rank: int, world: int, shape: tuple, runs: tuple) -> dict:
+    """One of the ranks on the one card over gloo: reduced grok-1 on
+    ``shape``, 3 steps under each of ``runs``, every rank drawing the
+    seed-0 init; its expert leaves' shapes and bytes."""
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(shape, ("data", "model"), device=dev)
+    cfg, sh, batches = _moe_mesh_setup()
+    out, total = {}, None
+    for name in runs:
+        runner = get_runner(cfg, sh, RunConfig(**MOE_MESH_KW,
+                                               **MOE_MESH_RUNS[name]),
+                            mesh=mesh, seed=0)
+        r = _timed_steps(runner, batches, dev)
+        experts = {n: p for n, p in named_parameters(runner.model).items()
+                   if n.split(".")[-1] in ("w_gate", "w_up", "w_down")}
+        out[name] = {"losses": r["losses"], "step_ms": r["step_ms"],
+                     "method": runner.plan.table_methods["embed"],
+                     "exec": pick_exec_mode(cfg, runner.rt),
+                     "w_gate_shape": list(experts["layers.moe.w_gate"]
+                                          .shape),
+                     "expert_bytes": sum(p.numel() * p.element_size()
+                                         for p in experts.values()),
+                     "launches": r["launches"]}
+        total = r["launches"] if total is None else {
+            k: total[k] + v for k, v in r["launches"].items()}
+    out["launches"] = total
+    return out
+
+
+def phase_mesh_card_moe() -> dict:
+    """mesh_card (g): four gloo ranks on the one card, reduced grok-1 on
+    (2, 2). ep (hybrid, mpi) within 5e-4 + 1e-4 i of the one-device card
+    run (the reference test's bar), each rank's w_gate holding 2 of the 4
+    experts. tp holds the experts whole and routes each replica's rows
+    whole, so it is held to the data-parallel (2, 1) run (two more ranks)
+    within the same bar: its aux is averaged over the two data shards, as
+    the JAX package's is on a (2, 1) mesh."""
+    cfg, shape, batches = _moe_mesh_setup()
+    one = get_runner(cfg, shape, RunConfig(**MOE_MESH_KW), device="cuda",
+                     seed=0)
+    single = [float(one.run(b)["loss"]) for b in batches]
+    del one
+    torch.cuda.empty_cache()
+    ranks = spawn(_moe_card_rank, 4, "gloo", "cuda",
+                  args=((2, 2), tuple(MOE_MESH_RUNS)), timeout=600)
+    dp = spawn(_moe_card_rank, 2, "gloo", "cuda", args=((2, 1), ("hybrid",)),
+               timeout=600)[0]["hybrid"]
+    rows = {}
+    e = cfg.n_experts
+    for name in MOE_MESH_RUNS:
+        rs = [r[name] for r in ranks]
+        got = rs[0]["losses"]
+        check(all(r["losses"] == got for r in rs),
+              f"mesh_card (g) {name}: ranks disagree "
+              f"{[r['losses'] for r in rs]}")
+        ep = name != "tp"
+        want = single if ep else dp["losses"]
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(abs(a - b) < 5e-4 + 1e-4 * i,
+                  f"mesh_card (g) {name} step {i}: {got} vs "
+                  f"{'one device' if ep else 'the (2, 1) mesh'} {want}")
+        check(all(r["exec"] == ("ep" if ep else "tp")
+                  and r["w_gate_shape"][1] == (e // 2 if ep else e)
+                  for r in rs),
+              f"mesh_card (g) {name}: {[r['w_gate_shape'] for r in rs]}")
+        pushes = _one_pass_pushes(rs[0]["method"], len(got))
+        for m, r in enumerate(rs):
+            c = r["launches"]
+            check(c["embed_scatter_add"] == c["embed_scatter_add_fused"]
+                  == pushes,
+                  f"mesh_card (g) {name} rank {m}: pushes {c}, want "
+                  f"{pushes} one-pass on {r['method']}")
+        rows[name] = {"losses": got, "method": rs[0]["method"],
+                      "exec": rs[0]["exec"],
+                      "w_gate_shape": rs[0]["w_gate_shape"],
+                      "expert_bytes_per_rank": rs[0]["expert_bytes"],
+                      "median_step_ms": statistics.median(rs[0]["step_ms"]),
+                      "max_abs_diff": max(abs(a - b) for a, b in
+                                          zip(got, want))}
+    counts = ranks[0]["launches"]
+    check(counts["embed_gather"] == counts["embed_gather_bulk"]
+          == 3 * len(MOE_MESH_RUNS), f"mesh_card (g): gathers {counts}")
+    res = {"phase": "mesh_card_moe", "backend": "gloo", "world": 4,
+           "mesh": [2, 2], "arch": cfg.name, "one_device": single,
+           "data_parallel_2x1": dp["losses"], "runs": rows,
+           "launches": counts,
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    emit(res)
+    return res
+
+
 def _check_nmt_card(ranks: list, nmt_losses: list, steps: int) -> dict:
     """mesh_card (c)'s checks, over every rank's record."""
     f0, p0 = ranks[0]["fused"], ranks[0]["per_param"]
@@ -3299,6 +3580,13 @@ def main() -> None:
                            FAMILY_STEPS)["launches"]
     paths["mesh_card_encdec"] = run("mesh_card_encdec",
                                     phase_mesh_card_encdec)["launches"]
+    paths["moe_parity"] = run("moe_parity", phase_moe_parity)["launches"]
+    moe_serve = {}
+    for arch, phase in ((GROK, "grok_serve"), (LLAMA4, "llama4_serve")):
+        moe_serve[phase] = run(phase, phase_serve, dev, 8, 16, arch, phase)
+        paths[phase] = moe_serve[phase]["launches"]
+    paths["mesh_card_moe"] = run("mesh_card_moe",
+                                 phase_mesh_card_moe)["launches"]
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} not launched on {path}")
@@ -3367,6 +3655,10 @@ def main() -> None:
                 "launches": {p: paths[p]["flash_attention"] for p in (
                     "stablelm_serve", "stablelm_parity")},
                 "launches_tc": stablelm["flash_attention_launches_tc"]}
+            # the moe family's serve paths (D 128 bf16: the tc route)
+            rows[-1]["moe_launches_tc"] = {
+                p: r["flash_attention_launches_tc"]
+                for p, r in moe_serve.items()}
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,16 +10,26 @@ friends inline; the port names the same operations here).
                           row-major order (``P(axes)``'s shard order);
 ``reduce_scatter``        sum, then keep this rank's block along ``dim``;
 ``all_reduce_async``      the bucketed exchange's non-blocking all-reduce;
+``all_to_all``            chunk j of ``split_dim`` to rank j, the received
+                          chunks concatenated along ``concat_dim`` in rank
+                          order (the reference's ``jax.lax.all_to_all``),
+                          an autograd function whose backward is the
+                          inverse all-to-all: the MoE's expert-parallel
+                          dispatch;
 ``copy_to`` / ``reduce_from``  the model-axis pair as autograd functions:
                           identity forward / all-reduce backward, and its
-                          mirror.
+                          mirror;
+``gather_from``           all-gather forward, this rank's block backward:
+                          a result every rank of ``axes`` then uses whole,
+                          with the whole gradient on every rank.
 
 A collective over a group of one rank (``Mesh.group`` is None) is the
 identity and returns its input untouched.
 
 Under gloo, a collective that gloo has no CUDA path for is staged through
 host memory: gloo lists only broadcast and all-reduce for CUDA tensors, so
-``all_gather`` and ``reduce_scatter`` of a CUDA tensor copy it to the host,
+``all_gather``, ``reduce_scatter`` and ``all_to_all`` of a CUDA tensor copy
+it to the host,
 run there and copy the result back. That staging exists in this module
 only; compute never moves to the CPU. Several ranks on one card run over
 gloo (NCCL takes one card per rank), so this is what the card's multi-rank
@@ -115,6 +125,78 @@ def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=g)
     return out.to(home).movedim(0, dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The forward of ``all_to_all``; the backward sends each gradient
+    block home: the all-to-all with the two dims swapped."""
+
+    @staticmethod
+    def forward(fctx, x, g, mesh, split_dim, concat_dim):
+        fctx.g, fctx.mesh = g, mesh
+        fctx.dims = (split_dim, concat_dim)
+        n = dist.get_world_size(g)
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim of {x.shape[split_dim]} "
+                             f"over {n} ranks")
+        # (n, chunk, *the other dims): block j goes to rank j, and block i
+        # of the result came from rank i
+        src = x.movedim(split_dim, 0)
+        src = src.reshape((n, src.shape[0] // n) + tuple(src.shape[1:]))
+        src = src.contiguous()
+        home = src.device
+        if _staged(mesh, src):
+            src = src.cpu()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=g)
+        # the chunk back in split_dim's place, then the rank blocks merged
+        # into concat_dim
+        out = out.to(home).movedim(1, split_dim + 1).movedim(0, concat_dim)
+        shape = list(out.shape)
+        shape[concat_dim:concat_dim + 2] = [shape[concat_dim]
+                                            * shape[concat_dim + 1]]
+        return out.reshape(shape)
+
+    @staticmethod
+    def backward(fctx, gy):
+        split_dim, concat_dim = fctx.dims
+        return (_AllToAll.apply(gy, fctx.g, fctx.mesh, concat_dim,
+                                split_dim), None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis, mesh, split_dim: int = 0,
+               concat_dim: int = 0) -> torch.Tensor:
+    """``x``'s ``split_dim`` cut into one block per rank of ``axis``, block
+    j sent to rank j; the blocks this rank receives concatenated along
+    ``concat_dim`` in rank order (``jax.lax.all_to_all(x, axis,
+    split_axis, concat_axis)``). Differentiable: the backward is the
+    inverse all-to-all."""
+    g = mesh.group(axis)
+    if g is None:
+        return x
+    return _AllToAll.apply(x, g, mesh, split_dim, concat_dim)
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather forward, this rank's block backward: every rank of
+    ``axes`` uses the gathered result whole and so already holds its
+    whole gradient; summing it would count it once per rank."""
+
+    @staticmethod
+    def forward(fctx, x, axes, mesh, dim):
+        fctx.block = (mesh.index(axes), x.shape[dim], dim)
+        return all_gather(x, axes, mesh, dim=dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        i, n, dim = fctx.block
+        return g.narrow(dim, i * n, n), None, None, None
+
+
+def gather_from(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
+    if mesh.group(axes) is None:
+        return x
+    return _GatherFrom.apply(x, axes, mesh, dim)
 
 
 class _CopyTo(torch.autograd.Function):

@@ -11,11 +11,12 @@ reference's ``PartitionSpec`` as a tuple: one entry per dimension, each
 model in global semantics, so its LSTM weights are tensor-parallel over
 ``model`` (``lstm_hidden``); the port runs every rank's LSTM whole and
 keeps a parameter sharded over ``model`` only on its vocab dimension (the
-PS tables and the head). ``held`` is ``placement`` with the model axis
-dropped elsewhere; the data-axis (FSDP) entries stay. The values are the
-same either way (ROADMAP Queue 3). The step refuses optimizer state
-sharded apart from its parameter (ZeRO-1), which the plan records but the
-port does not execute yet.
+PS tables and the head) or its experts dimension (the MoE's experts under
+expert-parallel execution: E/M on each rank). ``held`` is ``placement``
+with the model axis dropped elsewhere; the data-axis (FSDP) entries
+stay. The values are the same either way (ROADMAP Queue 3). The step
+refuses optimizer state sharded apart from its parameter (ZeRO-1), which
+the plan records but the port does not execute yet.
 
 ``plan_diff`` is the replan loop's test of whether a plan recomputed from
 an observed census differs enough from the live one to rebuild the step.
@@ -305,12 +306,15 @@ def add_fsdp(pspec: tuple, shape: tuple, mesh,
 def held_placement(placement: tuple, logical: tuple, batch_axes: tuple,
                    model_axis: str = "model") -> tuple:
     """The placement the port executes: ``placement`` with the model axis
-    kept only on a ``vocab`` dimension (batch-axis entries always kept)."""
+    kept only on a ``vocab`` dimension (the tables' rows) or an
+    ``experts`` one (the MoE's experts under ``ep``; batch-axis entries
+    always kept)."""
     out = []
     for e, name in zip(placement, logical):
         keep = tuple(a for a in entry_axes(e)
                      if a in batch_axes or (a == model_axis
-                                            and name == "vocab"))
+                                            and name in ("vocab",
+                                                         "experts")))
         out.append(keep[0] if len(keep) == 1 else (keep or None))
     return tuple(out)
 

@@ -56,7 +56,7 @@ from repro_torch.core.plan import (ParamPlan, Plan, add_fsdp, entry_axes,
                                    plan_diff)
 from repro_torch.core.runtime import Runtime, check_ported, mesh_dims
 from repro_torch.launch.mesh import Mesh, MeshShape
-from repro_torch.models.layers import flatten_specs, init_param
+from repro_torch.models.layers import flatten_specs, init_std
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizer import (Optimizer, TrainState, fuse_state,
                                          is_fused, make_optimizer,
@@ -388,22 +388,59 @@ def load_params_(model, named: dict) -> None:
             p.copy_(src)
 
 
-def _draw_params(model, seed: int) -> dict:
-    """Fresh whole parameters from ``seed``: one torch.Generator on the
-    model's device, drawing each parameter in flatten order (every rank of
-    a mesh draws the same whole parameters, then keeps its shards)."""
+# A leaf whose f32 draw would pass this many bytes is drawn one slice of
+# its leading dimension at a time (a layer, then an expert), so that the
+# init never holds more than this in scratch. At full width only the moe
+# family's expert leaves are that large (grok-1's stacked w_gate at 4
+# layers is a 25.8 GB draw); every other leaf is drawn whole.
+INIT_DRAW_BYTES = 16 << 30
+
+
+def _draw_(gen: torch.Generator, out: torch.Tensor, std: float,
+           budget: int) -> None:
+    """Draw N(0, std) into ``out`` in place, in f32 then cast; past
+    ``budget`` bytes of f32, slice by slice along the first dimension."""
+    if out.numel() * 4 > budget and out.dim() > 1:
+        for part in out:
+            _draw_(gen, part, std, budget)
+        return
+    out.copy_(torch.randn(out.shape, generator=gen, dtype=torch.float32,
+                          device=out.device).mul_(std))
+
+
+def _draw_all_(model, seed: int, targets: dict) -> None:
+    """Fresh whole parameters from ``seed`` into ``targets`` ({name:
+    tensor of the spec's shape}), one leaf at a time: one torch.Generator
+    on the model's device drawing each parameter in flatten order (every
+    rank of a mesh draws the same whole parameters, then keeps its
+    shards)."""
     gen = torch.Generator(device=model.rt.device)
     gen.manual_seed(seed)
-    return {n: init_param(gen, spec, model.rt.param_dtype)
-            for n, spec in model.param_specs()}
+    with torch.no_grad():
+        for n, spec in model.param_specs():
+            out = targets[n]
+            if spec.init == "zeros":
+                out.zero_()
+            elif spec.init == "ones":
+                out.fill_(1)
+            else:
+                _draw_(gen, out, init_std(spec), INIT_DRAW_BYTES)
+
+
+def _draw_params(model, seed: int) -> dict:
+    """Fresh whole parameters from ``seed`` as new tensors (the values
+    ``init_params_`` draws)."""
+    dev, dtype = model.rt.device, model.rt.param_dtype
+    out = {n: torch.empty(spec.shape, dtype=spec.dtype or dtype, device=dev)
+           for n, spec in model.param_specs()}
+    _draw_all_(model, seed, out)
+    return out
 
 
 def init_params_(model, seed: int) -> None:
-    """Fresh init from ``seed`` into the model's parameters."""
-    own = named_parameters(model)
-    with torch.no_grad():
-        for n, t in _draw_params(model, seed).items():
-            own[n].copy_(t)
+    """Fresh init from ``seed``, drawn straight into the model's
+    parameters (no second copy of the model)."""
+    _draw_all_(model, seed, named_parameters(model))
 
 
 def place_params_(model, plan: Plan, mesh) -> None:

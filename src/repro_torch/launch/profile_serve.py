@@ -7,7 +7,10 @@ ServerConfig(max_batch=4, max_seq=2048), seed 0, and runs torch.profiler
 over
 
   phi3-medium-14b (default; the paged engine, RunConfig(attention_impl=
-            "pallas")), after warming every prefill bucket:
+            "pallas")), and the moe family on the same engine at its
+            published width with the layers cut (``SERVE_LAYERS``:
+            grok-1-314b 4 of 64, llama4-maverick-400b-a17b 1 of 48), after
+            warming every prefill bucket:
     prefill   one engine prefill step per bucket (256 ... 2048 tokens);
     decode    10 engine decode steps over the full batch of 4;
   rwkv6-7b (ToyServer, the loop of the recurrent family), after one warm
@@ -27,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +44,18 @@ from repro_torch.runtime.server import (Server, ServerConfig, ToyServer,
 
 OUT = Path(__file__).resolve().parents[3] / "results" / "profile_serve"
 DECODE_STEPS = 10
+# the serve paths whose published depth does not fit the 80 GB card: the
+# layers kept (bf16 weights: grok-1 at 4 layers 42.6 GB, 64 would be
+# ~630 GB; llama4-maverick at 1 layer 36.7 GB, 2 would be 69 GB)
+SERVE_LAYERS = {"grok-1-314b": 4, "llama4-maverick-400b-a17b": 1}
+
+
+def serve_config(arch: str):
+    """``arch``'s published config, cut to ``SERVE_LAYERS`` where listed."""
+    cfg = get_config(arch)
+    if arch in SERVE_LAYERS:
+        cfg = replace(cfg, n_layers=SERVE_LAYERS[arch])
+    return cfg
 
 
 def _emit(obj: dict) -> None:
@@ -78,16 +94,18 @@ def _toy(cfg, scfg: ServerConfig) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi3-medium-14b",
-                    choices=("phi3-medium-14b", "rwkv6-7b"))
+                    choices=("phi3-medium-14b", "rwkv6-7b",
+                             *SERVE_LAYERS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_serve: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch)
+    cfg = serve_config(args.arch)
     scfg = ServerConfig(max_batch=4, max_seq=2048)
     if cfg.family == "ssm":
         return _toy(cfg, scfg)
     sv = Server(cfg, RunConfig(attention_impl="pallas"), scfg, seed=0)
+    tag = f"{cfg.name}_" if args.arch in SERVE_LAYERS else ""
     dev = sv.rt.device
     rng = np.random.default_rng(0)
     buckets = [b for b in prefill_buckets(scfg.max_seq) if b >= 256]
@@ -110,13 +128,14 @@ def main(argv=None) -> None:
         prefill(lb)
     decode()
     for lb in buckets:
-        _emit({"phase": "prefill", "tokens": lb,
+        _emit({"phase": "prefill", "arch": cfg.name, "tokens": lb,
                "device": torch.cuda.get_device_name(0),
                **profiled(lambda: prefill(lb), scfg.max_batch,
-                          OUT / f"prefill_{lb}.json")})
+                          OUT / f"{tag}prefill_{lb}.json")})
     sv.lens.fill_(1024)
-    _emit({"phase": "decode", "batch": scfg.max_batch, "cache_len": 1024,
-           **profiled(decode, DECODE_STEPS, OUT / "decode.json")})
+    _emit({"phase": "decode", "arch": cfg.name, "batch": scfg.max_batch,
+           "cache_len": 1024,
+           **profiled(decode, DECODE_STEPS, OUT / f"{tag}decode.json")})
     sv.close()
 
 

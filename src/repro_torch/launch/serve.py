@@ -8,19 +8,23 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \
       --full --max-seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \
+      --reduced
 
 It runs on the card. ``--engine paged`` (default) runs the engine: one
 prefill step per admission, slot-paged decode, device-side sampling; it
 serves the dense family (phi3, stablelm-12b with its 160-wide heads,
-command-r, mistral) and vlm (chameleon-34b). ``--engine toy`` runs the
+command-r, mistral), moe (grok-1, llama4-maverick: the bucket-padded
+prompt's pad tokens are routed too, as in the reference) and vlm
+(chameleon-34b). ``--engine toy`` runs the
 teacher-forced baseline loop, the one loop for the families the engine
 refuses, as the reference's does: rwkv6-7b (ssm) and hymba-1.5b (hybrid),
 whose recurrent state padding would corrupt, and seamless-m4t-medium
 (audio), whose prefill needs encoder inputs (the loop decodes against the
-cache's zero cross K/V, as the reference's). The moe family is refused by
-name (ROADMAP slice 6 item 14). As in the
-reference, the launcher serves with ``RunConfig(attention_impl="naive")``. ``--devices`` and ``--mesh`` belong
-to the distributed port (ROADMAP slice 2 item 9) and are refused.
+cache's zero cross K/V, as the reference's). As in the reference, the
+launcher serves with ``RunConfig(attention_impl="naive")``. ``--devices``
+and ``--mesh`` belong to the distributed port (ROADMAP slice 2 item 9) and
+are refused.
 """
 from __future__ import annotations
 

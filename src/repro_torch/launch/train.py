@@ -13,11 +13,11 @@ otherwise, each running the trainer on its shard of the mesh.
 Mapped or refused, never ignored:
   * ``--arch``: the port trains the LSTM family (parallax-lm,
     parallax-nmt), the dense family (the default ``phi3-medium-14b``,
-    command-r-35b, ...), vlm (chameleon-34b), hybrid (hymba-1.5b), ssm
-    (rwkv6-7b, its WKV through the chunked form under autograd) and audio
-    (seamless-m4t-medium, whose batches carry ``frames`` (B, seq // 4,
-    d_model)); the moe family is refused by name (ROADMAP slice 6 item
-    14);
+    command-r-35b, ...), moe (grok-1-314b, llama4-maverick-400b-a17b:
+    expert-parallel on a mesh whose model axis divides the experts), vlm
+    (chameleon-34b), hybrid (hymba-1.5b), ssm (rwkv6-7b, its WKV through
+    the chunked form under autograd) and audio (seamless-m4t-medium, whose
+    batches carry ``frames`` (B, seq // 4, d_model));
   * ``--embed-impl``: ``pallas`` (the default here) means the hand-written
     CUDA kernels on the card, their plain versions on the CPU, dispatched
     on the tensor's device; ``jnp`` (plain versions on the card) is
@@ -48,8 +48,7 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch.mesh import make_mesh, spawn
 from repro_torch.models.transformer import check_trainable
 
-TRAINABLE = ("lstm", "dense", "vlm", "hybrid", "ssm", "audio")
-_LATER = {"moe": "ROADMAP slice 6 item 14 (models/moe.py)"}
+TRAINABLE = ("lstm", "dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
 
 def _parse(argv=None):
@@ -122,11 +121,9 @@ def _parse(argv=None):
 def _check(args, cfg) -> None:
     """Refuse, by name, what the port does not train or run."""
     if cfg.family not in TRAINABLE:
-        where = _LATER.get(cfg.family, "ROADMAP slice 6 (the other "
-                                        "families)")
         raise NotImplementedError(
-            f"training {cfg.name} (family {cfg.family!r}) is not ported "
-            f"yet: {where}; the port trains the families {TRAINABLE}")
+            f"training {cfg.name} (family {cfg.family!r}) is not ported: "
+            f"the port trains the families {TRAINABLE}")
     if cfg.family != "lstm":
         check_trainable(RunConfig(attention_impl=args.attention))
     if args.embed_route == "jnp":

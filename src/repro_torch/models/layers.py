@@ -57,6 +57,19 @@ def flatten_specs(specs: Any) -> list:
     return flatten(specs, is_leaf=is_spec)
 
 
+def init_std(spec: ParamSpec) -> float:
+    """The standard deviation of a ``normal`` or ``embed`` parameter's
+    draw."""
+    if spec.init == "embed":
+        return 0.02
+    if spec.scale is not None:
+        return spec.scale
+    fan_in = 1
+    for a in (spec.fan_in_axes or (0,)):
+        fan_in *= spec.shape[a]
+    return 1.0 / math.sqrt(max(fan_in, 1))
+
+
 def init_param(generator: torch.Generator, spec: ParamSpec,
                default_dtype: torch.dtype) -> torch.Tensor:
     """One parameter, drawn on the generator's device. The draws differ
@@ -68,18 +81,9 @@ def init_param(generator: torch.Generator, spec: ParamSpec,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    if spec.init == "embed":
-        std = 0.02
-    elif spec.scale is not None:
-        std = spec.scale
-    else:
-        fan_in = 1
-        for a in (spec.fan_in_axes or (0,)):
-            fan_in *= spec.shape[a]
-        std = 1.0 / math.sqrt(max(fan_in, 1))
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return x.mul_(std).to(dtype)
+    return x.mul_(init_std(spec)).to(dtype)
 
 
 def init_tree(generator: torch.Generator, specs: Any,

@@ -9,13 +9,13 @@ whose prefill needs encoder inputs). Ported families, each trained and
 served:
   * ``lstm``: the paper's LM and its LSTM encoder-decoder NMT (the NMT is
     not served, as in the reference);
-  * ``dense`` (phi3, stablelm, command-r, mistral) and ``vlm`` (chameleon,
-    the dense layers plus frontend ``embeds``): the paged engine;
+  * ``dense`` (phi3, stablelm, command-r, mistral), ``moe`` (grok-1,
+    llama4-maverick: ``models/moe.py``'s experts in place of the MLP) and
+    ``vlm`` (chameleon, the dense layers plus frontend ``embeds``): the
+    paged engine;
   * ``ssm`` (rwkv6) and ``hybrid`` (hymba, attention beside a selective
     SSM): ``ToyServer``'s decode loop;
   * ``audio`` (seamless-m4t, ``models/encdec.py``): ``ToyServer``.
-The ``moe`` family (grok-1, llama4-maverick) is refused by name: ROADMAP
-slice 6 item 14.
 """
 from __future__ import annotations
 
@@ -23,8 +23,8 @@ from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lstm import LSTMLM
 from repro_torch.models.transformer import DenseLM, HybridLM, RwkvLM
 
-_FAMILIES = {"dense": DenseLM, "vlm": DenseLM, "ssm": RwkvLM,
-             "hybrid": HybridLM}
+_FAMILIES = {"dense": DenseLM, "moe": DenseLM, "vlm": DenseLM,
+             "ssm": RwkvLM, "hybrid": HybridLM}
 
 
 def build_model(cfg, rt):
@@ -32,10 +32,6 @@ def build_model(cfg, rt):
         return LSTMLM(cfg, rt)
     if cfg.is_encdec:
         return EncDecLM(cfg, rt)
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"family 'moe' ({cfg.name}) is not ported yet: ROADMAP slice 6 "
-            "item 14 (models/moe.py)")
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) has "
                                   "no model in the port")

@@ -1,5 +1,5 @@
-"""Decoder LM of the dense, vlm, hybrid and ssm families (the port of
-``repro/models/transformer.py`` but for its moe path), single device.
+"""Decoder LM of the dense, moe, vlm, hybrid and ssm families (the port of
+``repro/models/transformer.py``).
 
 Parameters stay stacked over layers, under the reference's dotted names
 (``layers.attn.wq`` is (n_layers, d, H*hd), and so on), so
@@ -9,6 +9,12 @@ the reference's ``lax.scan`` over that stack becomes a Python loop over
 PS lookup (core/embedding.py, the ``embed_gather`` kernel on the card); with
 ``attention_impl="pallas"`` the cache-less attention goes to the
 ``flash_attention`` kernel.
+
+The moe family (``grok-1-314b``, ``llama4-maverick-400b-a17b``) swaps the
+dense MLP for ``models/moe.py``'s routed experts (``layers.moe.*``); its
+``moe_aux`` and ``moe_dropped`` are summed over the layers, and the loss
+adds ``0.01 * moe_aux / n_layers``, as the reference's. The expert
+execution (``ep`` / ``tp``) is picked once per forward, as there.
 
 The vlm family (``chameleon-34b``) runs the dense layers; ``forward`` adds
 its precomputed frontend ``embeds`` after the lookup, as the reference does.
@@ -42,8 +48,8 @@ and a tied head reads this rank's rows of the table (below).
 (``cross_kv``: K/V from the encoder, no RoPE, never causal) for
 ``models/encdec.py``.
 
-Not ported here: the moe family (ROADMAP slice 6 item 14) and the tensor-
-and sequence-parallel execution (``core/sp.py``, slice 2's rest).
+Not ported here: the tensor- and sequence-parallel execution
+(``core/sp.py``, slice 2's rest).
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ from repro_torch.core import collectives as coll
 from repro_torch.core import embedding as emb
 from repro_torch.core.xent import sharded_xent
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, ParamTree, flatten_specs,
@@ -70,10 +77,6 @@ def _qmap(n_heads: int, n_kv: int, padded: int, device: torch.device):
     building it as a device tensor in every layer of every step would be a
     host-to-device copy each time. Nothing mutates the cached tensor."""
     return attn_mod.make_qmap(n_heads, n_kv, padded, device=device)
-
-
-def _refuse(what: str, where: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {where}")
 
 
 def check_trainable(run_cfg) -> None:
@@ -112,20 +115,21 @@ def mlp_specs(cfg) -> dict:
     }
 
 
-def layer_specs(cfg, rt) -> dict:
+def layer_specs(cfg, rt, moe_exec: str = "tp") -> dict:
     if cfg.family == "ssm":
         return rwkv_mod.rwkv_block_specs(cfg)
-    if cfg.family == "moe":
-        _refuse("the moe family's layers (models/moe.py)", "slice 6 item 14")
-    if cfg.family not in ("dense", "vlm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
         raise ValueError(f"family {cfg.family!r} has no decoder-LM layers")
     d = cfg.d_model
     specs = {
         "ln1": ParamSpec((d,), (None,), init="ones"),
         "attn": attn_specs(cfg, rt),
         "ln2": ParamSpec((d,), (None,), init="ones"),
-        "mlp": mlp_specs(cfg),
     }
+    if cfg.family == "moe":
+        specs["moe"] = moe_mod.moe_specs(cfg, moe_exec)
+    else:
+        specs["mlp"] = mlp_specs(cfg)
     if cfg.family == "hybrid":
         specs["ssm"] = ssm_mod.ssm_specs(cfg)
     return specs
@@ -134,10 +138,11 @@ def layer_specs(cfg, rt) -> dict:
 def model_specs(cfg, rt) -> dict:
     d = cfg.d_model
     vp = rt.padded_vocab
+    moe_exec = moe_mod.pick_exec_mode(cfg, rt) if cfg.n_experts else "tp"
     specs = {
         "embed": ParamSpec((vp, d), ("vocab", "embed"), init="embed",
                            sparse=True),
-        "layers": stack_tree(layer_specs(cfg, rt), cfg.n_layers),
+        "layers": stack_tree(layer_specs(cfg, rt, moe_exec), cfg.n_layers),
         "final_norm": ParamSpec((d,), (None,), init="ones"),
     }
     if not cfg.tie_embeddings:
@@ -231,12 +236,15 @@ def attn_block(p: dict, x: torch.Tensor, *, cfg, rt, positions,
 
 
 def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
-                  layer_cache=None, cache_len=None,
+                  layer_cache=None, cache_len=None, moe_exec: str = "tp",
                   collect_kv: bool = False) -> tuple:
     """Pre-norm decoder layer; returns (x, new_cache, metrics). The hybrid
     family (hymba) runs attention and the SSM on the same normed input and
     averages them; its layer cache is (k, v, h_ssm), and the new one
-    carries the SSM's new state (a new tensor, not written in place)."""
+    carries the SSM's new state (a new tensor, not written in place). The
+    moe family's FFN is ``moe_ffn`` under ``moe_exec``, whose routing
+    metrics the layer returns; a remat recompute routes the same inputs
+    to the same dispatch."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.family == "hybrid":
         kv_cache = layer_cache[:2] if layer_cache is not None else None
@@ -255,6 +263,10 @@ def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
             return_kv=collect_kv)
     x = x + attn_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        ffn_out, metrics = moe_mod.moe_ffn(p["moe"], h2, cfg=cfg, rt=rt,
+                                           exec_mode=moe_exec)
+        return x + ffn_out, new_cache, metrics
     mlp = p["mlp"]
     x = x + swiglu(h2, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
     return x, new_cache, {}
@@ -369,17 +381,22 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
         else:
             positions = base + torch.arange(s, device=dev)
 
+    moe_exec = moe_mod.pick_exec_mode(cfg, rt) if cfg.n_experts else "tp"
     layer = decoder_layer
     if cache is None and not collect_kv and torch.is_grad_enabled():
         # the training forward: each layer under the run's remat
         layer = remat(decoder_layer, rt.run_cfg.remat)
     collected = []
+    layer_metrics: dict = {}
     for i in range(cfg.n_layers):
         layer_cache = None if cache is None else tuple(c[i] for c in cache)
-        x, new_c, _ = layer(
+        x, new_c, lm = layer(
             _layer_params(params, i), x, cfg=cfg, rt=rt, positions=positions,
-            layer_cache=layer_cache, cache_len=cache_len,
+            layer_cache=layer_cache, cache_len=cache_len, moe_exec=moe_exec,
             collect_kv=collect_kv)
+        for k, v in lm.items():         # summed over the layers
+            layer_metrics[k] = v if k not in layer_metrics \
+                else layer_metrics[k] + v
         if cache is not None and cfg.family == "hybrid":
             cache[2][i].copy_(new_c[2])      # the SSM state, a new tensor
         elif cache is None and collect_kv:
@@ -390,7 +407,7 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
         new_cache = tuple(torch.stack(c) for c in zip(*collected))
     else:
         new_cache = None
-    return _head(params, x, cfg, rt), new_cache, metrics
+    return _head(params, x, cfg, rt), new_cache, {**layer_metrics, **metrics}
 
 
 # matmuls with no batch dimension: ``x @ w`` of a (B, S, D) activation
@@ -532,6 +549,9 @@ class DenseLM(ParamTree):
                                vocab=self.cfg.vocab_size)
         loss = per_tok.mean()
         metrics["xent"] = loss.detach()
+        if "moe_aux" in metrics:
+            loss = loss + 0.01 * metrics["moe_aux"] / self.cfg.n_layers
+            metrics["moe_aux"] = metrics["moe_aux"].detach()
         return loss, metrics
 
     @torch.no_grad()

@@ -50,7 +50,9 @@ def test_importing_the_port_pulls_in_no_jax():
               # the top-level API, the examples and the replay
               "repro_torch", "repro_torch.examples.quickstart",
               "repro_torch.examples.train_lm",
-              "repro_torch.benchmarks.adaptive_replan"):
+              "repro_torch.benchmarks.adaptive_replan",
+              # the moe family's experts and their all-to-all
+              "repro_torch.models.moe"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib.util, json, sys

@@ -105,14 +105,15 @@ def test_loss_and_gradients_match_reference(dtype):
 
 def test_encdec_and_other_families_are_refused():
     # parallax-nmt trains since its port (tests/test_torch_nmt.py), the
-    # dense family since its own (tests/test_torch_dense_train.py), though
-    # not through the forward-only flash kernel, and rwkv6 and the other
-    # slice-6 families since theirs (tests/test_torch_families.py); the moe
-    # family is not ported yet
+    # dense family since its own (tests/test_torch_dense_train.py), and
+    # rwkv6, the moe family and the other slice-6 families since theirs
+    # (tests/test_torch_families.py, test_torch_moe.py); none through the
+    # forward-only flash kernel
     for arch, kw, match in (
             ("phi3-medium-14b", {"attention_impl": "pallas"},
              "pallas.*forward-only"),
-            ("grok-1-314b", {}, "slice 6 item 14")):
+            ("grok-1-314b", {"attention_impl": "pallas"},
+             "pallas.*forward-only")):
         cfg = tc.reduced(tc.get_config(arch))
         rt = Runtime(cfg, tc.RunConfig(**kw),
                      tc.ShapeConfig("t", 8, 2, "train"), device="cpu")

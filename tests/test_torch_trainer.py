@@ -263,8 +263,10 @@ LM = ["--arch", "parallax-lm", "--reduced", "--seq", "16", "--batch", "4"]
     # the default arch (phi3) trains; its flash kernel does not
     (["--reduced", "--attention", "pallas"], NotImplementedError,
      "pallas.*forward-only"),
-    # rwkv6, hymba, chameleon and seamless train; the moe family waits
-    (["--arch", "grok-1-314b"], NotImplementedError, "slice 6 item 14"),
+    # rwkv6, hymba, chameleon, seamless and the moe family train, none
+    # through the flash kernel
+    (["--arch", "grok-1-314b", "--reduced", "--attention", "pallas"],
+     NotImplementedError, "pallas.*forward-only"),
     (LM + ["--embed-impl", "jnp"], NotImplementedError, "embed-impl jnp"),
     (LM + ["--kernel-autotune"], NotImplementedError, "slice 8"),
     (LM + ["--remesh-on-straggle"], NotImplementedError,

@@ -161,14 +161,17 @@ def test_dense_training_and_other_families_are_refused():
     with pytest.raises(NotImplementedError, match="pallas.*forward-only"):
         tm.loss_fn({"tokens": torch.zeros((2, 4), dtype=torch.int32),
                     "labels": torch.zeros((2, 4), dtype=torch.int32)})
-    # hymba and chameleon build now (tests/test_torch_hybrid.py,
-    # test_torch_vlm.py); only the moe family waits
+    # hymba, chameleon and the moe family build now (tests/test_torch_
+    # hybrid.py, test_torch_vlm.py, test_torch_moe.py): the moe layers hold
+    # the routed experts in place of the MLP
     for arch in ("grok-1-314b", "llama4-maverick-400b-a17b"):
         cfg = tc.reduced(tc.get_config(arch))
         rt = Runtime(cfg, tc.RunConfig(), tc.ShapeConfig("s", 8, 2, "decode"),
                      device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 6 item 14"):
-            build_model(cfg, rt)
+        names = {n for n, _ in build_model(cfg, rt).param_specs()}
+        assert "layers.moe.w_gate" in names and "layers.mlp.w_gate" not in \
+            names
+        assert ("layers.moe.shared_gate" in names) == cfg.shared_expert
 
 
 def test_cache_layout_matches_reference():
