@@ -27,7 +27,8 @@ and never prints the final line:
               kernel and the library's zeros + index_copy_, an empty
               kernel's launch floor under the same timer,
               flash_attention within 2e-5 at f32 and 2e-2 at bf16 on the
-              route ops.flash_route gives each case (bf16 at D 64/128/160:
+              route ops.flash_route gives each case (phi3's prefill whole
+              and at a (1, 2) rank's 20 heads; bf16 at D 64/128/160:
               the tensor-core kernel, also at Sq 96/Sk 160 and 160/96
               causal, B 4 with Sq 200, an 8-row q tile and strided views;
               f32 and D 16/32: the scalar kernel; stablelm-12b's D 160 at
@@ -192,7 +193,10 @@ and never prints the final line:
               bulk route. TTFT, inter-token gaps and decode tokens/s over
               the run's window,
               prefill ms per bucket, one synthetic decode step (lens 1024),
-              peak memory, clocks and power.
+              peak memory, clocks and power; each request's prompt and
+              tokens through one cache-less prefill (the greedy token at
+              every generated position against the decode loop's: the
+              near-ties mesh_card_serve is held to).
  10. rwkv_serve  full-width rwkv6-7b (32 layers, nothing cut), bf16,
               ToyServer(..., ServerConfig(max_batch=4, max_seq=2048)) on
               the card: 8 requests with prompts of 16..64 tokens (an
@@ -268,6 +272,30 @@ and never prints the final line:
               rank) within that bar of a (2, 1) run on 2 more ranks (its
               aux is averaged over the data shards, as the JAX package's
               is); each rank's expert bytes.
+     mesh_card_serve = mesh_card (h): the serve mesh. Full-width
+              phi3-medium-14b, all 40 layers, served on (1, 2) by two gloo
+              ranks on the card (bf16, attention "pallas", the 8 requests
+              of serve): the attention and MLP tensor-parallel over model
+              (each rank 20 of the 40 q heads, half of d_ff, half the vocab
+              rows), each rank's decode cache (40, 4, 1,024, 10, 128) its
+              block of the positions, the decode's partial softmaxes merged
+              over model. Every prefill launches flash once a layer on
+              every rank on the tc route; every prefill and decode step one
+              bulk gather a rank. serve's greedy tokens teacher-forced
+              through one prefill on the mesh: every differing greedy
+              token a near-tie (no wider than one device's own prefill
+              and decode loop disagree, at least 2 bf16 steps); the
+              logits' deviation from one device's and the free-running
+              runs' first divergences reported. Each rank's parameter bytes the plan's; init and
+              serve peaks under 72 GB a rank; per-rank prefill (2,048) and
+              decode-step ms, TTFT. Over gloo on one card these are not
+              exchange times.
+     mesh_card_tp = mesh_card (i): reduced phi3 and command-r (tied) at
+              f32 on (2, 2) over 4 gloo ranks on the card: 3 training
+              steps with the layers tensor-parallel, plain and under
+              explicit_sp (core/sp.py), within 5e-4 + 1e-4 i of one
+              device; the serve mesh's prefill and decode logits within
+              rtol 1e-4 of a one-device Server's, the same greedy tokens.
 
 Each path (main, main_no_la, nmt, train (its adaptive run), train_growth,
 train_resume (both runs), dense_parity (its card runs), dense_train,
@@ -276,7 +304,8 @@ mesh_card_dense = mesh_card (e), replan_replay (both phases, rank 0's),
 serve, rwkv_serve, stablelm_parity (its card prefills and serving),
 stablelm_serve, families_parity (its card runs), seamless_train,
 hymba_train, chameleon_train, rwkv_train, mesh_card_encdec, moe_parity
-(its card runs), grok_serve, llama4_serve, mesh_card_moe) runs with
+(its card runs), grok_serve, llama4_serve, mesh_card_moe,
+mesh_card_serve, mesh_card_tp) runs with
 every launch
 count set to 0 just before it and read just after: the mesh phases in
 each rank's own process (mesh_card's (a), (b) and (c)'s two runs each so,
@@ -457,7 +486,14 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                                "flash_attention"),
                 "grok_serve": ("embed_gather", "flash_attention"),
                 "llama4_serve": ("embed_gather", "flash_attention"),
-                "mesh_card_moe": ("embed_gather", "embed_scatter_add")}
+                "mesh_card_moe": ("embed_gather", "embed_scatter_add"),
+                # the serve mesh: each rank's prefills take flash's tc
+                # route at its 20 q heads, every step gathers its vocab
+                # rows; the tensor-parallel training pulls and pushes, its
+                # f32 serve mesh takes flash's scalar route
+                "mesh_card_serve": ("embed_gather", "flash_attention"),
+                "mesh_card_tp": ("embed_gather", "embed_scatter_add",
+                                 "flash_attention")}
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
 NMT_CENSUS = tuple(f"{t}_{k}" for t in ("embed", "enc_embed")
                    for k in ("rows", "unique", "dropped"))
@@ -1076,6 +1112,8 @@ def _flash_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
     worst = {}
     for case, (b, sq, sk, h, d), causals, dtypes in (
             ("main", (1, 2048, 2048, 40, 128), (True,), None),
+            # a rank's 20 of the 40 q heads on mesh_card_serve's (1, 2)
+            ("tp_rank", (1, 2048, 2048, 20, 128), (True,), None),
             ("ragged", (1, 200, 200, 4, 64), (True, False), None),
             ("cross_lengths", (2, 96, 160, 2, 64), (False,), None),
             ("b2_d32", (2, 64, 64, 8, 32), (True, False), None),
@@ -1830,6 +1868,9 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16,
                                              active, sv._gen), 10)
     moe = _moe_serve_numbers(sv, cfg, rng, decode_ms) \
         if cfg.family == "moe" else {}
+    forced = _teacher_forced(sv, dict(enumerate(prompts)),
+                             {u: r.out_tokens for u, r in done.items()},
+                             keep=True) if phase == "serve" else None
     sv.close()
     res = {"phase": phase, "arch": cfg.name, "requests": n_requests,
            "n_layers": cfg.n_layers, **moe,
@@ -1852,9 +1893,13 @@ def phase_serve(dev, n_requests: int = 8, new: int = 16,
            "setup_s": setup_s, "init_peak_bytes": init_peak,
            "max_memory_allocated": serve_peak,
            "first_tokens": {u: r.out_tokens[:4] for u, r in done.items()},
+           "teacher_forced": forced and {
+               k: v for k, v in forced.items() if k != "logits"},
            "nvidia_smi": nvidia_smi(
                "clocks.sm,power.draw,power.limit,temperature.gpu")}
     emit(res)
+    res["tokens"] = {u: list(r.out_tokens) for u, r in done.items()}
+    res["teacher_forced_logits"] = forced and forced["logits"]
     return res
 
 
@@ -3472,6 +3517,382 @@ def phase_mesh_card_moe() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the serve mesh and tensor-parallel blocks (two and four gloo ranks on the
+# one card: their times are not exchange times)
+# ---------------------------------------------------------------------------
+
+SERVE_MESH = (1, 2)
+
+
+def _param_bytes(sv) -> tuple:
+    """(this rank's parameter bytes, the plan's parameter term: each
+    leaf's whole bytes over the shards of its placement)."""
+    whole = dict(sv.model.param_specs())
+    got = want = 0
+    for n, t in sv.params.items():
+        p = sv.plan.params[n]
+        shards = math.prod(sv.rt.mesh.axes_size(a) for a in p.held
+                           if a is not None)
+        got += t.numel() * t.element_size()
+        want += math.prod(whole[n].shape) * t.element_size() // shards
+    return got, want
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=1e-30)))
+                      - 7)
+
+
+def _teacher_forced(sv, prompts: dict, tokens: dict,
+                    keep: bool = False) -> dict:
+    """Each request's prompt and its generated tokens through one
+    cache-less prefill (``prefill_fn``, flash under "pallas"): the greedy
+    token at every generated position against ``tokens`` (a run's
+    decode-loop tokens). Where they differ, the gap between the largest
+    logit and ``tokens``' one in bf16 steps of the row's largest magnitude
+    (a near-tie is a step or two). ``keep``: the logits of the generated
+    positions too (f32, {uid: (new, vocab)})."""
+    from repro_torch.core import collectives as coll
+    rt = sv.rt
+    out = {"positions": 0, "differ": 0, "gap_steps": [], "scale_max": 0.0}
+    if keep:
+        out["logits"] = {}
+    for u, toks in sorted(tokens.items()):
+        prompt = prompts[u]
+        seq = np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])
+        t = torch.from_numpy(seq[None]).to(rt.device)
+        logits, _, _ = sv.model.prefill_fn({"tokens": t})
+        logits = logits[0, len(prompt) - 1:].float()
+        if rt.vocab_shards > 1:
+            logits = coll.all_gather(logits, "model", rt.mesh, dim=-1)
+        logits = logits[:, :rt.model_cfg.vocab_size]
+        want = torch.tensor(toks, device=logits.device)
+        scale = logits.abs().max(dim=-1).values
+        gap = (logits.max(dim=-1).values
+               - logits.gather(1, want[:, None])[:, 0]) / _bf16_step(scale)
+        bad = logits.argmax(dim=-1) != want
+        out["positions"] += len(toks)
+        out["differ"] += int(bad.sum())
+        out["gap_steps"] += gap[bad].tolist()
+        out["scale_max"] = max(out["scale_max"], float(scale.max()))
+        if keep:
+            out["logits"][u] = logits.cpu().numpy()
+    return out
+
+
+def _serve_mesh_rank(rank: int, world: int, new: int,
+                     serve_tokens: dict) -> dict:
+    """One of two ranks on the one card over gloo: full-width
+    phi3-medium-14b served on (1, 2) as ``serve`` serves it (the same
+    seed, prompts and warm-up request), every rank holding half the q
+    heads, half of d_ff and half the vocab rows, and the cache's positions
+    [rank * 1,024, (rank + 1) * 1,024)."""
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(SERVE_MESH, ("data", "model"), device=dev)
+    cfg = serve_config(DENSE_ARCH)
+    scfg = ServerConfig(max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sv = Server(cfg, RunConfig(attention_impl="pallas"), scfg, mesh=mesh,
+                seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    lens, prompts = _serve_prompts(rng, cfg.vocab_size)
+    _drain(sv, _prompts(rng, (100,), cfg.vocab_size), 2)
+    before = {k: sv.stats[k] for k in ("prefill_calls", "decode_steps")}
+    sv.completed.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    done = _drain(sv, prompts, new)
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    flash_tc = ops.flash_attention.launches_tc
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    ttft = sorted(r.ttft for r in done.values())
+    timer = Timer(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2048))
+                            .astype(np.int32)).to(dev)
+    prefill_ms = timer.ms(lambda: sv._prefill(
+        sv.cache, sv.lens, sv.tok, toks, 2048, 0, sv._gen), 3)
+    active = torch.ones(sv._local, dtype=torch.bool, device=dev)
+    sv.lens.fill_(1024)
+    decode_ms = timer.ms(lambda: sv._decode(sv.cache, sv.lens, sv.tok,
+                                             active, sv._gen), 10)
+    got, want = _param_bytes(sv)
+    forced = _teacher_forced(sv, dict(enumerate(prompts)), serve_tokens,
+                             keep=rank == 0)
+    return {"rank": rank, "teacher_forced": forced,
+            "tokens": {u: list(r.out_tokens)
+                                     for u, r in done.items()},
+            "prefill_calls": sv.stats["prefill_calls"]
+            - before["prefill_calls"],
+            "decode_steps": sv.stats["decode_steps"] - before["decode_steps"],
+            "cross_slot_mismatches": sv.stats["cross_slot_mismatches"],
+            "launches": counts, "flash_attention_launches_tc": flash_tc,
+            "cache_shape": list(sv.cache[0].shape),
+            "wq_shape": list(sv.params["layers.attn.wq"].shape),
+            "param_bytes": got, "plan_param_bytes": want,
+            "setup_s": setup_s, "init_peak_bytes": init_peak,
+            "max_memory_allocated": serve_peak, "run_s": wall,
+            "ttft_ms_p50": ttft[len(ttft) // 2] * 1e3,
+            "ttft_ms_max": ttft[-1] * 1e3,
+            "prefill_2048_ms": prefill_ms, "decode_step_ms": decode_ms}
+
+
+def phase_mesh_card_serve(serve: dict, new: int = 16) -> dict:
+    """mesh_card (h): full-width phi3-medium-14b, all 40 layers, served on
+    a (1, 2) mesh of two gloo ranks on the one card (bf16, attention
+    "pallas", the 8 requests of ``serve``): the attention and MLP
+    tensor-parallel over ``model``, each rank's decode cache (40, 4,
+    1,024, 10, 128), its block of the positions. Every prefill launches
+    flash once a layer on every rank on the tc route, at the rank's 20 q
+    heads; every prefill and decode step one bulk gather of the rank's
+    table. The tokens: every request's prompt and ``serve``'s greedy
+    tokens through one cache-less prefill on the mesh
+    (``_teacher_forced``): where the mesh's greedy token differs, the gap
+    to ``serve``'s token is a near-tie, no wider than the gaps by which
+    one device's own prefill and decode loop disagree (``serve``'s
+    teacher-forced pass) and at least 2 bf16 steps of the row's scale. At
+    bf16 the random-weight logits hold many such ties, so free-running
+    runs diverge for good at the first: their first divergences, and the
+    logits' largest deviation from one device's, are reported. Each
+    rank's parameter bytes the plan's; the peaks under 72 GB."""
+    cfg = serve_config(DENSE_ARCH)
+    ranks = spawn(_serve_mesh_rank, 2, "gloo", "cuda",
+                  args=(new, serve["tokens"]), timeout=900)
+    r0 = ranks[0]
+    check(all(r["tokens"] == r0["tokens"] for r in ranks),
+          "mesh_card (h): the ranks' tokens differ")
+    # free-running greedy tokens diverge for good at the first argmax
+    # near-tie; the teacher-forced pass holds each position on its own
+    differ = {u: next(i for i, (a, b) in enumerate(zip(
+        toks, serve["tokens"][u])) if a != b)
+        for u, toks in r0["tokens"].items() if toks != serve["tokens"][u]}
+    forced = r0["teacher_forced"]
+    mine = forced.pop("logits")
+    logit_err = max(float(np.abs(mine[u] - w).max())
+                    for u, w in serve["teacher_forced_logits"].items())
+    # a near-tie: no wider than one device's own prefill and decode loop
+    # disagree (serve's teacher-forced gaps), and at least 2 bf16 steps
+    near = max([2.0] + serve["teacher_forced"]["gap_steps"])
+    check(len(r0["tokens"]) == len(serve["tokens"]),
+          f"mesh_card (h): {len(r0['tokens'])} requests served")
+    check(all(g <= near for g in forced["gap_steps"]),
+          f"mesh_card (h): greedy tokens off serve's by more than a "
+          f"near-tie ({near} bf16 steps): gaps {forced['gap_steps']}")
+    for r in ranks:
+        m = r["rank"]
+        c = r["launches"]
+        check(r["cross_slot_mismatches"] == 0,
+              f"mesh_card (h) rank {m}: cross-slot mismatches")
+        check(c["flash_attention"] == cfg.n_layers * r["prefill_calls"]
+              == r["flash_attention_launches_tc"],
+              f"mesh_card (h) rank {m}: flash {c['flash_attention']} "
+              f"launches ({r['flash_attention_launches_tc']} tc) in "
+              f"{r['prefill_calls']} prefills")
+        check(c["embed_gather"] == c["embed_gather_bulk"]
+              == r["prefill_calls"] + r["decode_steps"],
+              f"mesh_card (h) rank {m}: gathers {c}")
+        check(r["param_bytes"] == r["plan_param_bytes"],
+              f"mesh_card (h) rank {m}: {r['param_bytes']} parameter "
+              f"bytes, the plan's {r['plan_param_bytes']}")
+        check(r["cache_shape"] == [cfg.n_layers, SERVE_BATCH,
+                                   SERVE_MAX_SEQ // 2, cfg.n_kv_heads,
+                                   cfg.head_dim],
+              f"mesh_card (h) rank {m}: cache {r['cache_shape']}")
+        check(max(r["init_peak_bytes"], r["max_memory_allocated"])
+              < PEAK_LIMIT, f"mesh_card (h) rank {m}: peaks "
+              f"{r['init_peak_bytes']}, {r['max_memory_allocated']}")
+    keys = ("param_bytes", "plan_param_bytes", "wq_shape", "cache_shape",
+            "setup_s", "init_peak_bytes", "max_memory_allocated", "run_s",
+            "ttft_ms_p50", "ttft_ms_max", "prefill_2048_ms",
+            "decode_step_ms", "prefill_calls", "decode_steps")
+    res = {"phase": "mesh_card_serve", "backend": "gloo", "world": 2,
+           "mesh": list(SERVE_MESH), "arch": cfg.name,
+           "n_layers": cfg.n_layers,
+           "free_running_first_divergence": differ,
+           "teacher_forced": forced,
+           "serve_teacher_forced": serve["teacher_forced"],
+           "teacher_forced_max_abs_err": logit_err,
+           "near_tie_steps": near,
+           "serve_prefill_2048_ms": serve["prefill_ms_by_bucket"].get(2048),
+           "serve_decode_step_ms": serve["decode_step_ms_median"],
+           "by_rank": [{k: r[k] for k in keys} for r in ranks],
+           "launches": r0["launches"],
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "flash_attention_launches_tc": r0["flash_attention_launches_tc"],
+           "first_tokens": {u: t[:4] for u, t in r0["tokens"].items()},
+           "nvidia_smi": nvidia_smi("power.limit")}
+    emit(res)
+    return res
+
+
+TP_ARCHS = (DENSE_ARCH, "command-r-35b")
+TP_SCFG = dict(max_batch=4, max_seq=64)
+# prefill slot 0 (3 positions, all in the first rank's block) and slot 2
+# (37: across the boundary at 32), then 4 decode steps over both
+TP_SCRIPT = ((0, 3), (2, 37))
+TP_DECODE = 4
+
+
+def _tp_logits(sv, rng) -> dict:
+    """The engine's own prefill and decode steps on TP_SCRIPT, the logits
+    gathered whole (over the vocab shards and the data ranks)."""
+    from repro_torch.core import collectives as coll
+    rt, rec = sv.rt, []
+
+    def whole(logits):
+        if rt.vocab_shards > 1:
+            logits = coll.all_gather(logits, "model", rt.mesh, dim=-1)
+        return logits[..., :rt.model_cfg.vocab_size].float()
+
+    pre, dec = sv.model.prefill_cache_fn, sv.model.decode_fn
+
+    def prefill(tokens):
+        logits, kv = pre(tokens)
+        rec.append(whole(logits))
+        return logits, kv
+
+    def decode(cache, tokens, lens):
+        logits, cache = dec(cache, tokens, lens)
+        rec.append(sv._gather_slots(whole(logits)))
+        return logits, cache
+
+    sv.model.prefill_cache_fn, sv.model.decode_fn = prefill, decode
+    out = {"prefill": {}, "decode": [], "tokens": []}
+    try:
+        for slot, n in TP_SCRIPT:
+            prompt = rng.integers(1, rt.model_cfg.vocab_size, n)
+            padded = torch.zeros((1, bucket_len(n, TP_SCFG["max_seq"])),
+                                 dtype=torch.int32, device=rt.device)
+            padded[0, :n] = torch.from_numpy(prompt)
+            j = slot - sv._first
+            if 0 <= j < sv._local:
+                sv._prefill(sv.cache, sv.lens, sv.tok, padded, n, j, sv._gen)
+                out["prefill"][slot] = rec[-1][0, :n].cpu().numpy()
+            out["tokens"].append(sv._gather_slots(sv.tok)[:, 0].tolist())
+        active = torch.zeros(TP_SCFG["max_batch"], dtype=torch.bool)
+        active[[s for s, _ in TP_SCRIPT]] = True
+        active = active[sv._first:sv._first + sv._local].to(rt.device)
+        for _ in range(TP_DECODE):
+            *_, toks = sv._decode(sv.cache, sv.lens, sv.tok, active, sv._gen)
+            out["decode"].append(rec[-1][:, 0].cpu().numpy())
+            out["tokens"].append(sv._gather_slots(toks).tolist())
+    finally:
+        sv.model.prefill_cache_fn, sv.model.decode_fn = pre, dec
+    return out
+
+
+def _tp_card_rank(rank: int, world: int) -> dict:
+    """One of four ranks on the one card over gloo, (2, 2): reduced phi3
+    and command-r at f32, 3 training steps with the layers tensor-parallel
+    (plain and explicit_sp), then the serve mesh's logits."""
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+    out, total = {}, None
+    for arch in TP_ARCHS:
+        cfg, shape, batches = _dense_mesh_setup(arch)
+        for explicit_sp in (False, True):
+            runner = get_runner(
+                cfg, shape, RunConfig(**DENSE_F32, attention_impl="naive",
+                                      explicit_sp=explicit_sp),
+                mesh=mesh, seed=0)
+            r = _timed_steps(runner, batches, dev)
+            out[f"{arch}/{'sp' if explicit_sp else 'tp'}"] = {
+                "losses": r["losses"], "step_ms": r["step_ms"],
+                "method": runner.plan.table_methods["embed"],
+                "wq_shape": list(runner.model.get_parameter(
+                    "layers.attn.wq").shape)}
+            total = r["launches"] if total is None else {
+                k: total[k] + v for k, v in r["launches"].items()}
+        ops.reset_launch_counts()
+        sv = Server(cfg, RunConfig(**DENSE_F32, attention_impl="pallas"),
+                    ServerConfig(**TP_SCFG), mesh=mesh, seed=0)
+        logits = _tp_logits(sv, np.random.default_rng(0))
+        logits["cache_shape"] = list(sv.cache[0].shape)
+        out[f"{arch}/serve"] = logits
+        total = {k: total[k] + v for k, v in ops.launch_counts().items()}
+    out["launches"] = total
+    return out
+
+
+def phase_mesh_card_tp() -> dict:
+    """mesh_card (i): four gloo ranks on the one card, (2, 2), reduced phi3
+    and command-r (tied) at f32: 3 training steps with the attention and
+    MLP tensor-parallel, plain and under explicit_sp (core/sp.py's
+    sequence-parallel blocks), each within 5e-4 + 1e-4 i of the one-device
+    card run; the serve mesh's prefill and decode logits (flash on the
+    scalar route at each rank's 2 q heads) within rtol 1e-4 of a
+    one-device card Server's (scaled by the largest logit), no greedy token
+    different, each rank's cache (2, 2, 32, 2, 16)."""
+    single, one_serve = {}, {}
+    for arch in TP_ARCHS:
+        cfg, shape, batches = _dense_mesh_setup(arch)
+        one = get_runner(cfg, shape, RunConfig(**DENSE_F32,
+                                               attention_impl="naive"),
+                         device="cuda", seed=0)
+        single[arch] = [float(one.run(b)["loss"]) for b in batches]
+        del one
+        sv = Server(cfg, RunConfig(**DENSE_F32, attention_impl="pallas"),
+                    ServerConfig(**TP_SCFG), seed=0)
+        one_serve[arch] = _tp_logits(sv, np.random.default_rng(0))
+        sv.close()
+    torch.cuda.empty_cache()
+    ranks = spawn(_tp_card_rank, 4, "gloo", "cuda", timeout=600)
+    rows = {}
+    for arch in TP_ARCHS:
+        for mode in ("tp", "sp"):
+            key = f"{arch}/{mode}"
+            got = ranks[0][key]["losses"]
+            check(all(r[key]["losses"] == got for r in ranks),
+                  f"mesh_card (i) {key}: ranks disagree")
+            for i, (a, b) in enumerate(zip(got, single[arch])):
+                check(abs(a - b) < 5e-4 + 1e-4 * i,
+                      f"mesh_card (i) {key} step {i}: {got} vs one device "
+                      f"{single[arch]}")
+            rows[key] = {"losses": got, "method": ranks[0][key]["method"],
+                         "wq_shape": ranks[0][key]["wq_shape"],
+                         "median_step_ms": statistics.median(
+                             ranks[0][key]["step_ms"]),
+                         "max_abs_diff": max(abs(a - b) for a, b in
+                                             zip(got, single[arch]))}
+        want, err = one_serve[arch], 0.0
+        for r in ranks:
+            s = r[f"{arch}/serve"]
+            check(s["tokens"] == want["tokens"],
+                  f"mesh_card (i) {arch} serve: tokens {s['tokens']} vs one "
+                  f"device {want['tokens']}")
+            pairs = [(g, want["prefill"][k]) for k, g in s["prefill"].items()]
+            pairs += list(zip(s["decode"], want["decode"]))
+            for g, w in pairs:
+                e = float(np.abs(g - w).max() / np.abs(w).max())
+                check(e <= 1e-4, f"mesh_card (i) {arch} serve: logits "
+                      f"{e} of their scale from one device")
+                err = max(err, e)
+            check(s["cache_shape"] == [2, 2, 32, 2, 16],
+                  f"mesh_card (i) {arch}: cache {s['cache_shape']}")
+        rows[f"{arch}/serve"] = {"max_scaled_err": err,
+                                 "tokens": want["tokens"][-1]}
+    counts = ranks[0]["launches"]
+    pushes = sum(_one_pass_pushes(ranks[0][f"{a}/{m}"]["method"], 3)
+                 for a in TP_ARCHS for m in ("tp", "sp"))
+    check(counts["embed_scatter_add"] == counts["embed_scatter_add_fused"]
+          == pushes, f"mesh_card (i): pushes {counts}, want {pushes}")
+    check(counts["flash_attention"] > 0, f"mesh_card (i): flash {counts}")
+    res = {"phase": "mesh_card_tp", "backend": "gloo", "world": 4,
+           "mesh": [2, 2], "one_device": single, "runs": rows,
+           "launches": counts,
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    emit(res)
+    return res
+
+
 def _check_nmt_card(ranks: list, nmt_losses: list, steps: int) -> dict:
     """mesh_card (c)'s checks, over every rank's record."""
     f0, p0 = ranks[0]["fused"], ranks[0]["per_param"]
@@ -3587,6 +4008,10 @@ def main() -> None:
         paths[phase] = moe_serve[phase]["launches"]
     paths["mesh_card_moe"] = run("mesh_card_moe",
                                  phase_mesh_card_moe)["launches"]
+    mesh_serve = run("mesh_card_serve", phase_mesh_card_serve, serve)
+    mesh_tp = run("mesh_card_tp", phase_mesh_card_tp)
+    paths["mesh_card_serve"] = mesh_serve["launches"]
+    paths["mesh_card_tp"] = mesh_tp["launches"]
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} not launched on {path}")
@@ -3659,6 +4084,14 @@ def main() -> None:
             rows[-1]["moe_launches_tc"] = {
                 p: r["flash_attention_launches_tc"]
                 for p, r in moe_serve.items()}
+    for row in rows:
+        if row["name"] in ("embed_gather", "embed_scatter_add",
+                           "flash_attention"):
+            # the tensor-parallel paths' launches on every rank
+            row["mesh_launches_by_rank"] = {
+                p: [c[row["name"]] for c in res["launches_by_rank"]]
+                for p, res in (("mesh_card_serve", mesh_serve),
+                               ("mesh_card_tp", mesh_tp))}
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,16 @@ friends inline; the port names the same operations here).
                           mirror;
 ``gather_from``           all-gather forward, this rank's block backward:
                           a result every rank of ``axes`` then uses whole,
-                          with the whole gradient on every rank.
+                          with the whole gradient on every rank;
+``split_to``              its mirror: this rank's block forward, the
+                          blocks' gradients all-gathered backward (a whole
+                          value entering a sequence-sharded region);
+``gather_rs`` / ``reduce_scatter_ag``  the sequence-parallel pair
+                          (core/sp.py): all-gather forward, reduce-scatter
+                          backward (each rank's gradient of the gathered
+                          value is its partial sum), and reduce-scatter
+                          forward, all-gather backward; both ride a wire
+                          dtype each way, as the reference's casts do.
 
 A collective over a group of one rank (``Mesh.group`` is None) is the
 identity and returns its input untouched.
@@ -197,6 +206,88 @@ def gather_from(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
     if mesh.group(axes) is None:
         return x
     return _GatherFrom.apply(x, axes, mesh, dim)
+
+
+class _SplitTo(torch.autograd.Function):
+    """This rank's block forward, the blocks' gradients all-gathered
+    backward: the mirror of ``_GatherFrom``."""
+
+    @staticmethod
+    def forward(fctx, x, axes, mesh, dim):
+        fctx.args = (axes, mesh, dim)
+        n = mesh.axes_size(axes)
+        size = x.shape[dim] // n
+        return x.narrow(dim, mesh.index(axes) * size, size)
+
+    @staticmethod
+    def backward(fctx, g):
+        axes, mesh, dim = fctx.args
+        return all_gather(g, axes, mesh, dim=dim), None, None, None
+
+
+def split_to(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
+    if mesh.group(axes) is None:
+        return x
+    if x.shape[dim] % mesh.axes_size(axes):
+        raise ValueError(f"split_to: dim of {x.shape[dim]} over "
+                         f"{mesh.axes_size(axes)} ranks")
+    return _SplitTo.apply(x, axes, mesh, dim)
+
+
+def _wired(fn, x: torch.Tensor, wire, *args, **kw) -> torch.Tensor:
+    """``fn`` on ``x`` cast to ``wire`` (None: as it is), cast back."""
+    if wire is None or wire == x.dtype:
+        return fn(x, *args, **kw)
+    return fn(x.to(wire), *args, **kw).to(x.dtype)
+
+
+class _GatherRS(torch.autograd.Function):
+    """All-gather forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(fctx, x, axes, mesh, dim, wire):
+        fctx.args = (axes, mesh, dim, wire)
+        return _wired(all_gather, x, wire, axes, mesh, dim=dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        axes, mesh, dim, wire = fctx.args
+        return (_wired(reduce_scatter, g, wire, axes, mesh, dim=dim),
+                None, None, None, None)
+
+
+class _ReduceScatterAG(torch.autograd.Function):
+    """Reduce-scatter forward, all-gather backward."""
+
+    @staticmethod
+    def forward(fctx, x, axes, mesh, dim, wire):
+        fctx.args = (axes, mesh, dim, wire)
+        return _wired(reduce_scatter, x, wire, axes, mesh, dim=dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        axes, mesh, dim, wire = fctx.args
+        return (_wired(all_gather, g, wire, axes, mesh, dim=dim),
+                None, None, None, None)
+
+
+def gather_rs(x: torch.Tensor, axes, mesh, dim: int = 0,
+              wire=None) -> torch.Tensor:
+    """Every rank's block of ``axes`` concatenated along ``dim``; the
+    backward sums each rank's gradient of the whole and keeps this rank's
+    block. ``wire``: the dtype both collectives ride."""
+    if mesh.group(axes) is None:
+        return x
+    return _GatherRS.apply(x, axes, mesh, dim, wire)
+
+
+def reduce_scatter_ag(x: torch.Tensor, axes, mesh, dim: int = 0,
+                      wire=None) -> torch.Tensor:
+    """The sum over ``axes`` of ``x``, this rank's block along ``dim``;
+    the backward all-gathers the blocks' gradients."""
+    if mesh.group(axes) is None:
+        return x
+    return _ReduceScatterAG.apply(x, axes, mesh, dim, wire)
 
 
 class _CopyTo(torch.autograd.Function):

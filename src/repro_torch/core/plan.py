@@ -7,16 +7,20 @@ dtype its gradient rides (OPSW) and its placement. A placement is the
 reference's ``PartitionSpec`` as a tuple: one entry per dimension, each
 ``None``, an axis name or a tuple of axis names (``()`` on one device).
 
-``held`` is the placement the port executes. The reference runs the dense
-model in global semantics, so its LSTM weights are tensor-parallel over
-``model`` (``lstm_hidden``); the port runs every rank's LSTM whole and
-keeps a parameter sharded over ``model`` only on its vocab dimension (the
-PS tables and the head) or its experts dimension (the MoE's experts under
-expert-parallel execution: E/M on each rank). ``held`` is ``placement``
-with the model axis dropped elsewhere; the data-axis (FSDP) entries
-stay. The values are the same either way (ROADMAP Queue 3). The step
-refuses optimizer state sharded apart from its parameter (ZeRO-1), which
-the plan records but the port does not execute yet.
+``held`` is the placement the port executes, decided by parameter
+(``tp_sharded``): the model axis stays on a ``vocab`` dimension (the PS
+tables and the head), an ``experts`` one (the MoE's experts under
+expert-parallel execution: E/M on each rank), and the ``q_heads`` /
+``heads_hd`` / ``mlp`` dimension of the blocks that run tensor-parallel
+over ``model`` -- the attention block's ``wq`` / ``wo`` (self and cross),
+the SwiGLU MLP's ``w_gate`` / ``w_up`` / ``w_down`` and the MoE shared
+expert's ``shared_*``. Elsewhere it drops the model axis: the LSTM
+(``lstm_hidden``), the RWKV and selective-SSM blocks and the routed
+experts' d_ff run whole on every model rank (ROADMAP slice 2's rest; the
+values are the same). The data-axis (FSDP) entries stay. So for the dense
+and vlm families ``held == placement`` on every leaf. The step refuses
+optimizer state sharded apart from its parameter (ZeRO-1), which the plan
+records but the port does not execute yet.
 
 ``plan_diff`` is the replan loop's test of whether a plan recomputed from
 an observed census differs enough from the live one to rebuild the step.
@@ -303,18 +307,34 @@ def add_fsdp(pspec: tuple, shape: tuple, mesh,
     return tuple(entries)
 
 
+# the leaves whose model-axis dimension the port shards (the blocks that
+# run tensor-parallel): the attention projections of q and of the output,
+# self and cross, the SwiGLU MLP and the MoE shared expert, by the last two
+# components of the dotted name
+TP_LEAVES = frozenset({"attn.wq", "attn.wo", "cross.wq", "cross.wo",
+                       "mlp.w_gate", "mlp.w_up", "mlp.w_down",
+                       "moe.shared_gate", "moe.shared_up", "moe.shared_down"})
+TP_AXES = ("q_heads", "heads_hd", "mlp")
+
+
+def tp_sharded(name: str) -> bool:
+    """Does the port shard this parameter's ``q_heads`` / ``heads_hd`` /
+    ``mlp`` dimension over ``model`` (a tensor-parallel block's leaf)?"""
+    return ".".join(name.split(".")[-2:]) in TP_LEAVES
+
+
 def held_placement(placement: tuple, logical: tuple, batch_axes: tuple,
-                   model_axis: str = "model") -> tuple:
+                   model_axis: str = "model", name: str = "") -> tuple:
     """The placement the port executes: ``placement`` with the model axis
-    kept only on a ``vocab`` dimension (the tables' rows) or an
-    ``experts`` one (the MoE's experts under ``ep``; batch-axis entries
-    always kept)."""
+    kept on a ``vocab`` or ``experts`` dimension, and on a ``q_heads`` /
+    ``heads_hd`` / ``mlp`` one of a ``tp_sharded`` parameter ``name``;
+    batch-axis entries always kept."""
+    keep_names = ("vocab", "experts") + (TP_AXES if tp_sharded(name) else ())
     out = []
-    for e, name in zip(placement, logical):
+    for e, axis in zip(placement, logical):
         keep = tuple(a for a in entry_axes(e)
                      if a in batch_axes or (a == model_axis
-                                            and name in ("vocab",
-                                                         "experts")))
+                                            and axis in keep_names))
         out.append(keep[0] if len(keep) == 1 else (keep or None))
     return tuple(out)
 

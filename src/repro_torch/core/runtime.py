@@ -45,10 +45,6 @@ def check_ported(run_cfg: RunConfig, mesh: Any = None) -> None:
          "slice 8 (tooling)"),
         (run_cfg.verify_contract, "RunConfig.verify_contract",
          "slice 8 (tooling)"),
-        # every rank runs the dense layers whole: an explicit
-        # sequence-parallel block would be accepted and do nothing
-        (run_cfg.explicit_sp, "RunConfig.explicit_sp (core/sp.py)",
-         "slice 2's rest (tensor-parallel execution)"),
     ]
     for hit, what, where in refusals:
         if hit:
@@ -98,6 +94,15 @@ class Runtime:
         # parameters; a rebuilt step takes them off first)
         self.overlap: Optional[Any] = None
 
+    @property
+    def param_device(self) -> torch.device:
+        """Where a model allocates its parameters: the meta device on a
+        process mesh (``core/transform.py::place_params_`` then gives each
+        its shard's shape on ``device``, so no rank ever holds a whole
+        sharded leaf), else ``device``."""
+        return torch.device("meta") if isinstance(self.mesh, Mesh) \
+            else self.device
+
     # ---- dtypes ----
     @property
     def dtype(self) -> torch.dtype:
@@ -141,6 +146,47 @@ class Runtime:
     def bucketed(self) -> bool:
         return self.plan is not None and self.plan.bucket_plan is not None
 
+    @property
+    def model_size(self) -> int:
+        """Ranks on the ``model`` axis of a process mesh (1 off one)."""
+        mesh = self.mesh
+        if mesh is None or "model" not in mesh.axis_names:
+            return 1
+        return mesh.shape["model"]
+
+    @property
+    def model_index(self) -> int:
+        """This rank's index on ``model``: its block of the q heads, of
+        the MLP's d_ff and of the decode cache's positions (0 off a
+        process mesh)."""
+        if self.model_size == 1 or not isinstance(self.mesh, Mesh):
+            return 0
+        return self.mesh.index("model")
+
+    @property
+    def cache_seq_axes(self) -> tuple:
+        """The process mesh's axes the decode cache's positions are sharded
+        over (the rules' ``kv_seq``, size > 1; the reference's
+        ``cache_pspec_tree``); () off a process mesh."""
+        if not isinstance(self.mesh, Mesh):
+            return ()
+        axes = self.rules.rules.get("kv_seq") or ()
+        return tuple(a for a in axes if self.mesh.shape[a] > 1)
+
+    def cache_shard(self, batch: int, cache_seq: int) -> tuple:
+        """(slots, positions, first position) of this rank's block of a
+        (batch, cache_seq) decode cache: the slots over the batch axes, the
+        positions over ``cache_seq_axes``."""
+        if not isinstance(self.mesh, Mesh):
+            return batch, cache_seq, 0
+        n_b, n_s = self.replicas, self.mesh.axes_size(self.cache_seq_axes)
+        if batch % n_b or cache_seq % n_s:
+            raise ValueError(f"a ({batch}, {cache_seq}) cache does not "
+                             f"split over {n_b} x {n_s} ranks")
+        s_loc = cache_seq // n_s
+        return (batch // n_b, s_loc,
+                self.mesh.index(self.cache_seq_axes) * s_loc)
+
     def pad_heads(self, h: int) -> int:
         """q heads padded to the model-axis shard count."""
         shards = self.rules.axis_size("q_heads")
@@ -177,7 +223,9 @@ class Runtime:
             batch_axes=tuple(self.batch_axes),
             model_axis=("model" if self.mesh is not None
                         and "model" in self.mesh.axis_names else ""),
-            bucketed=self.bucketed,
+            # a serving lookup dedupes its own rows: a serve mesh's
+            # prefill runs on the replica that owns the slot
+            bucketed=self.bucketed or self.shape_cfg.kind == "decode",
             deferred=self.deferred_pushes if defer else None,
         )
 

@@ -22,7 +22,10 @@ Everything runs on ``device`` (default: the card, or the mesh's). On a
 mesh (``launch/mesh.py::make_mesh``) every rank runs this step on its own
 shards: ``Runner.run`` takes the global batch and feeds this replica its
 contiguous rows, as ``P(batch_axes)`` shards them; each rank holds only
-its shards of the parameters (``ParamPlan.held``); an ``fsdp`` parameter
+its shards of the parameters (``ParamPlan.held``: the model is built on the
+meta device and ``place_params_`` allocates each shard, which the seeded
+draw or the given weights fill), the attention and MLP blocks running
+tensor-parallel over ``model``; an ``fsdp`` parameter
 is all-gathered over its data axes before the forward and its gradient
 reduce-scattered after the backward; the dense gradients are averaged over
 the replicas at their wire dtype, in buckets where the plan has them; the
@@ -63,7 +66,7 @@ from repro_torch.optim.optimizer import (Optimizer, TrainState, fuse_state,
                                          unfuse_state)
 from repro_torch.utils.dtypes import torch_dtype
 from repro_torch.utils.tree import named_parameters
-from repro_torch.weights import gather_state, shard_params, shard_state
+from repro_torch.weights import gather_state, shard_state, shard_tensor
 
 
 def estimate_census(model, rt: Runtime) -> sparsity.Census:
@@ -182,7 +185,7 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census,
     for name, spec in specs:
         p = plan.params[name]
         p.held = (held_placement(p.placement, spec.axes,
-                                 tuple(rt.batch_axes))
+                                 tuple(rt.batch_axes), name=name)
                   if mesh is not None else ())
     return plan
 
@@ -371,16 +374,23 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
     return train_step
 
 
-def load_params_(model, named: dict) -> None:
+def load_params_(model, named: dict, plan: Optional[Plan] = None) -> None:
+    """Copy ``named`` ({dotted_name: tensor}) into the model's parameters.
+    ``plan`` (on a process mesh): a tensor of the parameter's whole shape
+    is cut to this rank's shard first (``ParamPlan.held``)."""
     own = named_parameters(model)
     missing = sorted(set(own) - set(named))
     extra = sorted(set(named) - set(own))
     if missing or extra:
         raise ValueError(f"params mismatch: missing {missing}, "
                          f"unexpected {extra}")
+    whole = dict(model.param_specs())
     with torch.no_grad():
         for n, p in own.items():
             src = named[n]
+            if plan is not None and plan.mesh is not None and \
+                    tuple(src.shape) == tuple(whole[n].shape):
+                src = shard_tensor(src, plan.params[n].held, plan.mesh)
             if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
                 raise ValueError(
                     f"{n}: got {src.dtype} {tuple(src.shape)}, want "
@@ -396,24 +406,40 @@ def load_params_(model, named: dict) -> None:
 INIT_DRAW_BYTES = 16 << 30
 
 
-def _draw_(gen: torch.Generator, out: torch.Tensor, std: float,
-           budget: int) -> None:
-    """Draw N(0, std) into ``out`` in place, in f32 then cast; past
-    ``budget`` bytes of f32, slice by slice along the first dimension."""
-    if out.numel() * 4 > budget and out.dim() > 1:
-        for part in out:
-            _draw_(gen, part, std, budget)
+def _draw_blocks(gen: torch.Generator, shape: tuple, std: float,
+                 budget: int, device, prefix: tuple = ()):
+    """The draw of an N(0, std) leaf of ``shape``, in f32, as (index
+    prefix, block) pairs in draw order: the whole leaf, or past ``budget``
+    bytes of f32 one slice along the first dimension at a time."""
+    if math.prod(shape) * 4 > budget and len(shape) > 1:
+        for i in range(shape[0]):
+            yield from _draw_blocks(gen, shape[1:], std, budget, device,
+                                    prefix + (i,))
         return
-    out.copy_(torch.randn(out.shape, generator=gen, dtype=torch.float32,
-                          device=out.device).mul_(std))
+    yield prefix, torch.randn(shape, generator=gen, dtype=torch.float32,
+                              device=device).mul_(std)
 
 
-def _draw_all_(model, seed: int, targets: dict) -> None:
-    """Fresh whole parameters from ``seed`` into ``targets`` ({name:
-    tensor of the spec's shape}), one leaf at a time: one torch.Generator
-    on the model's device drawing each parameter in flatten order (every
-    rank of a mesh draws the same whole parameters, then keeps its
-    shards)."""
+def _shard_region(shape: tuple, held: tuple, mesh) -> list:
+    """[(start, size)] per dimension of this rank's block under ``held``."""
+    out = [(0, n) for n in shape]
+    for d, e in enumerate(held):
+        axes = entry_axes(e)
+        k = mesh.axes_size(axes)
+        if k > 1:
+            size = shape[d] // k
+            out[d] = (mesh.index(axes) * size, size)
+    return out
+
+
+def _draw_all_(model, seed: int, targets: dict,
+               plan: Optional[Plan] = None) -> None:
+    """Fresh parameters from ``seed`` into ``targets`` ({name: tensor}),
+    one leaf at a time: one torch.Generator on the model's device drawing
+    each parameter whole, in flatten order. ``plan`` (on a process mesh):
+    a target holds this rank's shard (``ParamPlan.held``), so every rank
+    gets its block of the one-device draw without holding the whole
+    model."""
     gen = torch.Generator(device=model.rt.device)
     gen.manual_seed(seed)
     with torch.no_grad():
@@ -424,7 +450,32 @@ def _draw_all_(model, seed: int, targets: dict) -> None:
             elif spec.init == "ones":
                 out.fill_(1)
             else:
-                _draw_(gen, out, init_std(spec), INIT_DRAW_BYTES)
+                region = None
+                if plan is not None and tuple(out.shape) != tuple(spec.shape):
+                    region = _shard_region(spec.shape, plan.params[n].held,
+                                           plan.mesh)
+                for idx, blk in _draw_blocks(gen, spec.shape, init_std(spec),
+                                             INIT_DRAW_BYTES, out.device):
+                    if region is None:
+                        out[idx].copy_(blk)
+                    else:
+                        _copy_block_(out, idx, blk, region)
+                    # freed before the next block is drawn: one block of
+                    # scratch at a time
+                    del blk
+
+
+def _copy_block_(out: torch.Tensor, idx: tuple, blk: torch.Tensor,
+                 region: list) -> None:
+    """Copy the part of draw block ``blk`` (the leaf at index prefix
+    ``idx``) that lies in this rank's ``region`` into its shard ``out``."""
+    for i, (lo, n) in zip(idx, region):
+        if not lo <= i < lo + n:
+            return
+    dst = out[tuple(i - lo for i, (lo, _) in zip(idx, region))]
+    for d, (lo, n) in enumerate(region[len(idx):]):
+        blk = blk.narrow(d, lo, n)
+    dst.copy_(blk)
 
 
 def _draw_params(model, seed: int) -> dict:
@@ -437,19 +488,28 @@ def _draw_params(model, seed: int) -> dict:
     return out
 
 
-def init_params_(model, seed: int) -> None:
+def init_params_(model, seed: int, plan: Optional[Plan] = None) -> None:
     """Fresh init from ``seed``, drawn straight into the model's
-    parameters (no second copy of the model)."""
-    _draw_all_(model, seed, named_parameters(model))
+    parameters (no second copy of the model); ``plan`` on a process mesh:
+    into this rank's shards."""
+    _draw_all_(model, seed, named_parameters(model), plan)
 
 
 def place_params_(model, plan: Plan, mesh) -> None:
-    """Replace each whole parameter of ``model`` by this rank's shard of
-    it (``ParamPlan.held``)."""
-    whole = {n: p.detach() for n, p in named_parameters(model).items()}
-    for n, shard in shard_params(whole, plan, mesh).items():
-        if shard.shape != whole[n].shape:
-            _set_param(model, n, shard)
+    """Give each parameter the model holds on the meta device (a model
+    built on a process mesh, ``Runtime.param_device``) an uninitialized
+    tensor of this rank's shard's shape (``ParamPlan.held``) on the
+    runtime's device; the seeded draw, the given weights or a state fill
+    it. No rank ever holds a whole sharded leaf."""
+    dev = model.rt.device
+    for n, p in named_parameters(model).items():
+        if p.device.type != "meta":
+            continue
+        shape = [k for _, k in _shard_region(tuple(p.shape),
+                                             plan.params[n].held, mesh)]
+        *path, attr = n.split(".")
+        setattr(model.get_submodule(".".join(path)), attr, nn.Parameter(
+            torch.empty(shape, dtype=p.dtype, device=dev)))
 
 
 def _set_param(model, name: str, t: torch.Tensor) -> None:
@@ -521,13 +581,14 @@ def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
                     f"{p.name}: optimizer state sharded apart from its "
                     f"parameter (ZeRO-1, zero_stage {plan.zero_stage}) is "
                     "not ported yet: ROADMAP Queue 1")
+    if rt.mesh is not None:
+        place_params_(model, plan, rt.mesh)
+    mesh_plan = plan if rt.mesh is not None else None
     if state is None:
         if params is None:
-            init_params_(model, seed)
+            init_params_(model, seed, mesh_plan)
         else:
-            load_params_(model, params)
-        if rt.mesh is not None:
-            place_params_(model, plan, rt.mesh)
+            load_params_(model, params, mesh_plan)
         state = optimizer.init(named_parameters(model))
     else:
         state = load_state(model, rt, plan, state)
@@ -660,11 +721,33 @@ def make_prefill_step(model, rt: Runtime, plan: Plan) -> Callable:
 
 
 def sample_tokens(logits: torch.Tensor, *, greedy: bool, temperature: float,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  rt: Optional[Runtime] = None) -> torch.Tensor:
     """Device-side sampling: (B, V) logits -> (B,) int32 token ids. Greedy
     argmax (the first maximum on ties, as ``jnp.argmax``), or a draw from
     softmax(logits / temperature) on ``generator``: a different stream from
-    ``jax.random``'s by construction, so only greedy tokens compare."""
+    ``jax.random``'s by construction, so only greedy tokens compare.
+
+    ``rt`` with a vocab-sharded head (a serve mesh): ``logits`` are this
+    rank's (B, V/M) block. The padded vocab rows are masked; greedy takes
+    each rank's first maximum and then, over ``model``, the first rank
+    holding the largest (the lowest global index, as one device's argmax);
+    a draw gathers the whole row on every rank, whose generators share a
+    seed, so every rank draws the same token."""
+    if rt is not None and rt.vocab_shards > 1:
+        mesh, vs = rt.mesh, logits.shape[-1]
+        off = rt.model_index * vs
+        gidx = off + torch.arange(vs, device=logits.device)
+        logits = logits.float().masked_fill(
+            gidx >= rt.model_cfg.vocab_size, float("-inf"))
+        if greedy:
+            arg = logits.argmax(dim=-1)
+            best = torch.stack([logits.gather(1, arg[:, None])[:, 0].double(),
+                                (arg + off).double()], dim=-1)
+            both = coll.all_gather(best[:, None], "model", mesh, dim=1)
+            pick = both[..., 0].argmax(dim=1, keepdim=True)  # (B, 1)
+            return both[..., 1].gather(1, pick)[:, 0].to(torch.int32)
+        logits = coll.all_gather(logits, "model", mesh, dim=-1)
     if greedy:
         return logits.argmax(dim=-1).to(torch.int32)
     t = max(float(temperature), 1e-4)
@@ -688,7 +771,9 @@ def make_serve_prefill_step(model, rt: Runtime, plan: Plan, *,
 
     ``prefill_step(cache, lens, tok, tokens (1, Lb), length, slot,
     generator=None) -> (cache, lens, tok, first (1,))``; cache, lens and tok
-    are updated in place and returned."""
+    are updated in place and returned. On a serve mesh ``slot`` is this
+    rank's slot (of its B/D) and each rank inserts the rows of its block
+    of the cache's positions."""
     if model.prefill_cache_fn is None:
         raise ValueError(
             f"family {model.cfg.family!r} has no positional KV cache; "
@@ -701,10 +786,15 @@ def make_serve_prefill_step(model, rt: Runtime, plan: Plan, *,
         logits, kv = model.prefill_cache_fn(tokens)
         last = logits[:1, int(length) - 1, :]                  # (1, Vp)
         nxt = sample_tokens(last, greedy=greedy, temperature=temperature,
-                            generator=generator)               # (1,)
+                            generator=generator, rt=rt)        # (1,)
+        # this rank's block of the positions (all of them off a mesh)
         lb = tokens.shape[1]
+        s_loc = cache[0].shape[2]
+        off = (rt.mesh.index(rt.cache_seq_axes) * s_loc
+               if rt.cache_seq_axes else 0)
+        n = max(0, min(lb - off, s_loc))
         for c, p in zip(cache, kv):
-            c[:, slot, :lb] = p[:, 0].to(c.dtype)
+            c[:, slot, :n] = p[:, 0, off:off + n].to(c.dtype)
         lens[slot] = int(length)
         tok[slot, 0] = nxt[0]
         return cache, lens, tok, nxt
@@ -729,7 +819,8 @@ def make_serve_decode_step(model, rt: Runtime, plan: Plan, *, max_seq: int,
     def decode_step(cache, lens, tok, active, generator=None):
         logits, cache = model.decode_fn(cache, tok, lens)
         nxt = sample_tokens(logits[:, -1, :], greedy=greedy,
-                            temperature=temperature, generator=generator)
+                            temperature=temperature, generator=generator,
+                            rt=rt)
         act = active & (lens > 0)
         tok.copy_(torch.where(act[:, None], nxt[:, None], tok))
         lens.copy_(torch.where(act, torch.clamp(lens + 1, max=max_seq),

@@ -8,10 +8,15 @@ Implementations, chosen by ``RunConfig.attention_impl``:
            the hand-written CUDA kernel (kernels/ops.py::flash_attention),
            or to its plain version for CPU tensors.
 
-Layouts are the reference's: q (B, Sq, H, D), k/v (B, Sk, KV, D). The
-sharding notes of the reference (padded q heads, sequence-sharded decode
-cache) have no single-device meaning: ``make_qmap`` still maps padded heads
-to KV 0, but one device pads nothing.
+Layouts are the reference's: q (B, Sq, H, D), k/v (B, Sk, KV, D). On a
+process mesh each rank holds a contiguous block of the padded q heads
+(``make_qmap``'s ``lo`` / ``count`` map that block to its global KV heads)
+and, in serving, a block of the decode cache's positions:
+``decode_attention`` then computes the partial softmax of every q head over
+its positions and merges the partials over ``model`` (flash-decoding's
+combine: the running maxima's max, then one sum of the rescaled sums and
+outputs). A rank with no valid position contributes exact zeros: masked
+scores are -1e30, the kernels' convention, never -inf.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import collectives as coll
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -39,14 +45,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def make_qmap(n_heads: int, n_kv: int, padded_heads: int,
-              device=None) -> Optional[torch.Tensor]:
-    """q-head -> kv-head index map (int64); padded q heads point at kv 0.
-    None when the map is the identity (MHA, no padding)."""
+def make_qmap(n_heads: int, n_kv: int, padded_heads: int, device=None,
+              lo: int = 0, count: Optional[int] = None
+              ) -> Optional[torch.Tensor]:
+    """q-head -> kv-head index map (int64) of the padded q heads
+    ``lo .. lo + count`` (default: all of them; a rank's block on a mesh);
+    padded q heads point at kv 0. None when the map is the identity (MHA,
+    no padding, the whole set)."""
     q_per_kv = max(n_heads // max(n_kv, 1), 1)
+    count = padded_heads - lo if count is None else count
     idx = [min(i // q_per_kv, n_kv - 1) if i < n_heads else 0
-           for i in range(padded_heads)]
-    if idx == list(range(padded_heads)):
+           for i in range(lo, lo + count)]
+    if idx == list(range(count)) and count == n_kv:
         return None
     return torch.tensor(idx, dtype=torch.int64, device=device)
 
@@ -124,24 +134,41 @@ def chunked_attention(q, k, v, *, causal: bool = True, chunk: int = 1024,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *,
-                     qmap=None) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, cache_len, *, qmap=None,
+                     mesh=None, axes="model", kv_offset: int = 0
+                     ) -> torch.Tensor:
     """One-step attention against a KV cache. q: (B, 1, H, D); caches
     (B, S, KV, D). ``cache_len`` is a scalar (homogeneous batch) or a
     per-slot (B,) tensor (the serving engine's slot-paged decode: each slot
-    masks exactly its own valid prefix)."""
+    masks exactly its own valid prefix).
+
+    ``mesh``: the caches hold this rank's block of the positions, from
+    ``kv_offset``; every q head's partial attention over them is merged
+    over ``axes`` (the cache's sequence axes)."""
     kq = _expand_kv(k_cache, qmap).float()
     vq = _expand_kv(v_cache, qmap).float()
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kq)
-    kpos = torch.arange(k_cache.shape[1], device=q.device)[None, None, None, :]
+    kpos = kv_offset + torch.arange(k_cache.shape[1], device=q.device)
+    kpos = kpos[None, None, None, :]
     cl = torch.as_tensor(cache_len, device=q.device)
     if cl.dim() == 1:
         cl = cl[:, None, None, None]
     s = torch.where(kpos < cl, s, torch.full((), NEG_INF, device=q.device))
-    probs = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, vq)
-    return out.to(q.dtype)
+    if mesh is None or mesh.group(axes) is None:
+        probs = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, vq)
+        return out.to(q.dtype)
+    m = s.amax(dim=-1)                                      # (B, H, 1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bhqd", p, vq)
+    m_all = coll.all_reduce_max(m, axes, mesh)
+    w = torch.exp(m - m_all)         # 0 where this rank held no position
+    part = torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1)
+    part = coll.all_reduce(part, axes, mesh)
+    out = part[..., :-1] / part[..., -1:]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def attention(q, k, v, *, impl: str = "chunked", causal: bool = True,

@@ -7,7 +7,9 @@ frames are time-compressed ~4x by the (stubbed) conformer adaptor, so a
 batch carries ``frames`` (B, S // 4, D) beside ``tokens``. Parameters stay
 stacked under the reference's dotted names (``enc_layers.attn.wq``,
 ``dec_layers.cross.wk``, ...); the reference's ``lax.scan`` becomes a
-Python loop over the stack. The decoder's table ``embed`` goes through the
+Python loop over the stack. On a process mesh the attention (self and
+cross) and the MLP run tensor-parallel over ``model`` as the decoder LM's
+do (``transformer.attn_block`` / ``mlp_block``). The decoder's table ``embed`` goes through the
 PS lookup (the ``embed_gather`` kernel on the card), the head is untied.
 With ``attention_impl="pallas"`` outside autograd the encoder's and the
 cross attention's non-causal, Sq != Sk products go to the
@@ -33,10 +35,10 @@ import torch
 from repro_torch.core import embedding as emb
 from repro_torch.core.xent import sharded_xent
 from repro_torch.models.layers import (ParamSpec, ParamTree, flatten_specs,
-                                       rms_norm, stack_tree, swiglu)
+                                       rms_norm, stack_tree)
 from repro_torch.models.transformer import (_head, _layer_params, attn_block,
                                             attn_specs, check_trainable,
-                                            mlp_specs, remat)
+                                            mlp_block, mlp_specs, remat)
 
 
 def enc_ratio(cfg) -> int:
@@ -75,17 +77,16 @@ def model_specs(cfg, rt) -> dict:
     }
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def _ffn(p: dict, x: torch.Tensor, cfg, rt) -> torch.Tensor:
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                      p["mlp"]["w_down"])
+    return x + mlp_block(p["mlp"], h, cfg=cfg, rt=rt)
 
 
 def _enc_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, _ = attn_block(p["attn"], h, cfg=cfg, rt=rt, positions=positions,
                       causal=False)
-    return _ffn(p, x + a, cfg)
+    return _ffn(p, x + a, cfg, rt)
 
 
 def encode(params: dict, frames: torch.Tensor, *, cfg, rt) -> torch.Tensor:
@@ -128,7 +129,7 @@ def _dec_layer(p: dict, x: torch.Tensor, enc_out, layer_cache, *, cfg, rt,
     h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
     c, _ = attn_block(p["cross"], h, cfg=cfg, rt=rt, positions=positions,
                       cross_kv=(cross_k, cross_v), causal=False)
-    return _ffn(p, x + c, cfg)
+    return _ffn(p, x + c, cfg, rt)
 
 
 def decode_stack(params: dict, tokens: torch.Tensor,
@@ -182,8 +183,9 @@ def init_cache(cfg, rt, batch: int, cache_seq: int, enc_seq: int,
 
 def cache_pspec_tree(cfg, rt) -> Optional[tuple]:
     """The reference's placement of the 4-tuple cache, as a record (axis
-    names per dimension); None off a mesh. The port serves on one device
-    (the serve mesh is slice 2's rest), so nothing reads it at run time."""
+    names per dimension); None off a mesh. The family serves through
+    ``ToyServer``, which runs on one device (a mesh is refused), so nothing
+    reads it at run time."""
     if rt.mesh is None:
         return None
     kvspec = (None, rt.rules.rules.get("batch"), rt.rules.rules.get("kv_seq"),
@@ -201,7 +203,8 @@ class EncDecLM(ParamTree):
     prefill_cache_fn = None
 
     def __init__(self, cfg, rt):
-        super().__init__(model_specs(cfg, rt), rt.param_dtype, rt.device)
+        super().__init__(model_specs(cfg, rt), rt.param_dtype,
+                         rt.param_device)
         self.cfg, self.rt = cfg, rt
 
     def specs(self) -> dict:

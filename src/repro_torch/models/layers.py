@@ -16,6 +16,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from repro_torch.core import collectives as coll
 from repro_torch.utils.tree import flatten
 
 
@@ -122,8 +123,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP (the reference's ``constrain`` pins a sharding; one
-    device has none to pin)."""
+           w_down: torch.Tensor, mesh=None) -> torch.Tensor:
+    """SwiGLU MLP. ``mesh``: the weights are this rank's d_ff block
+    (column-parallel ``w_gate`` / ``w_up``, row-parallel ``w_down``) and
+    the block runs tensor-parallel over ``model`` in Megatron's form: the
+    input's gradient summed over ``model`` (``copy_to``), the output summed
+    over it (``reduce_from``). The reference's ``constrain`` pins the same
+    d_ff sharding on its global-semantics product."""
+    if mesh is not None:
+        x = coll.copy_to(x, "model", mesh)
     h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    out = h @ w_down
+    return out if mesh is None else coll.reduce_from(out, "model", mesh)

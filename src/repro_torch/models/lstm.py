@@ -117,7 +117,7 @@ class LSTMLM(nn.Module):
         super().__init__()
         self.cfg, self.rt = cfg, rt
         specs = model_specs(cfg, rt)
-        dev, pdt = rt.device, rt.param_dtype
+        dev, pdt = rt.param_device, rt.param_dtype
         for name in sorted(specs):
             s = specs[name]
             if isinstance(s, dict):

@@ -9,8 +9,9 @@ k of E experts (α = k/E). Two executions, as in the reference:
       (core/collectives.py), the PS push/pull pattern applied to
       activations. Picked when the model axis divides the expert count.
   tp  every expert on every rank. The reference shards the experts' d_ff
-      over ``model`` and sums the outputs; the port holds them whole, as it
-      holds the dense layers (ROADMAP Queue 3): the same values.
+      over ``model`` and sums the outputs; the port holds the routed
+      experts whole (ROADMAP Queue 3): the same values. The shared expert
+      runs tensor-parallel over ``model`` as the dense MLP does.
 
 Dispatch is sort-based (a stable argsort by expert id, then each slot's
 position within its expert against the capacity), bit for bit the
@@ -20,9 +21,9 @@ does not). Tokens run in groups of ``group_tokens``, the reference's
 ``lax.map``.
 
 The reference runs ``moe_ffn`` on a mesh as a ``shard_map``; the port runs
-it per rank, each rank holding its replica's whole activation (the dense
-layers run whole on every model rank), with the autograd pairing that gives
-each rank the gradient of its replica:
+it per rank, each rank holding its replica's whole activation (the
+residual stream is whole on every model rank), with the autograd pairing
+that gives each rank the gradient of its replica:
 
   * ep with the sequence divisible by M: each model rank routes its own
     s/M slice of the sequence (the capacity is that slice's), and the
@@ -222,7 +223,9 @@ def moe_ffn(params: dict, x: torch.Tensor, *, cfg, rt, exec_mode: str,
         aux = torch.stack([r[1] for r in runs]).mean()
         dropped = torch.stack([r[2] for r in runs]).sum()
     out = out[:t].reshape(x_loc.shape)
-    if mesh is not None:
+    if mesh is not None and rt.shape_cfg.kind != "decode":
+        # (a serve mesh's prefill runs on one replica: its metrics stay
+        # that replica's)
         token_axes = tuple(rt.batch_axes) + \
             ((model_axis,) if seq_shardable else ())
         if token_axes:
@@ -236,9 +239,11 @@ def moe_ffn(params: dict, x: torch.Tensor, *, cfg, rt, exec_mode: str,
     metrics = {"moe_aux": aux, "moe_dropped": dropped}
     if cfg.shared_expert:
         # beside the routed experts, on every token (the whole activation
-        # on every rank: its gradient is whole too)
+        # on every rank: its gradient is whole too), tensor-parallel over
+        # model where the plan shards its d_ff
+        tp = params["shared_gate"].shape[-1] < cfg.d_ff
         shared = swiglu(x, params["shared_gate"], params["shared_up"],
-                        params["shared_down"])
+                        params["shared_down"], mesh=mesh if tp else None)
         out = out + shared.to(out.dtype)
     return out, metrics
 

@@ -39,17 +39,29 @@ a training step. ``RunConfig.remat`` recomputes each layer in the
 backward as the reference's ``jax.checkpoint`` does (``block``: the
 matmul outputs saved, the counterpart of
 ``dots_with_no_batch_dims_saveable``; ``full``: the whole layer
-recomputed). On a mesh every rank runs the layers whole (``held`` drops
-the model axis outside ``vocab``) and only the head is vocab-sharded:
-``coll.copy_to`` sums the activation's gradient over ``model`` before it,
-and a tied head reads this rank's rows of the table (below).
+recomputed).
+
+On a process mesh the attention block and the SwiGLU MLP (and the MoE's
+shared expert) run tensor-parallel over ``model`` in Megatron's form: each
+rank holds its block of the padded q heads (``wq`` / ``wo``) and of d_ff
+(``ParamPlan.held``), ``copy_to`` before the column-parallel products,
+``reduce_from`` after the row-parallel ones; K/V come from the replicated
+``wk`` / ``wv`` on every rank. The residual stream is whole on every model
+rank, and the head is vocab-sharded: ``coll.copy_to`` sums the
+activation's gradient over ``model`` before it, and a tied head reads this
+rank's rows of the table (below). Under ``RunConfig.explicit_sp`` the
+dense and vlm families hold the residual sequence-sharded between the
+blocks and run them through ``core/sp.py`` (``sp_residual``). The hybrid
+family's SSM, the ssm family's RWKV blocks and the routed experts run
+whole on every model rank. In serving the decode cache is sequence-sharded
+over ``model`` ((n_layers, B/D, S/M, KV, hd) a rank, ``init_cache``): each
+rank writes the positions it holds, attends with every q head over them
+and merges the partial softmaxes over ``model``
+(``attention.decode_attention``).
 
 ``attn_block`` also takes the encoder-decoder's cross attention
 (``cross_kv``: K/V from the encoder, no RoPE, never causal) for
 ``models/encdec.py``.
-
-Not ported here: the tensor- and sequence-parallel execution
-(``core/sp.py``, slice 2's rest).
 """
 from __future__ import annotations
 
@@ -60,6 +72,7 @@ import torch
 
 from repro_torch.core import collectives as coll
 from repro_torch.core import embedding as emb
+from repro_torch.core import sp
 from repro_torch.core.xent import sharded_xent
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -71,12 +84,22 @@ from repro_torch.models.layers import (ParamSpec, ParamTree, flatten_specs,
 _LAYERS = "layers."
 
 
-@functools.lru_cache(maxsize=32)
-def _qmap(n_heads: int, n_kv: int, padded: int, device: torch.device):
-    """``make_qmap`` once per shape and device: the map is a host list, and
-    building it as a device tensor in every layer of every step would be a
-    host-to-device copy each time. Nothing mutates the cached tensor."""
-    return attn_mod.make_qmap(n_heads, n_kv, padded, device=device)
+@functools.lru_cache(maxsize=64)
+def _qmap(n_heads: int, n_kv: int, padded: int, device: torch.device,
+          lo: int = 0, count: int = None):
+    """``make_qmap`` once per shape, head block and device: the map is a
+    host list, and building it as a device tensor in every layer of every
+    step would be a host-to-device copy each time. Nothing mutates the
+    cached tensor."""
+    return attn_mod.make_qmap(n_heads, n_kv, padded, device=device, lo=lo,
+                              count=count)
+
+
+# the families whose every block runs the explicit sequence-parallel
+# schedule (attention and the SwiGLU MLP); the others keep the residual
+# whole on every model rank and run their attention and MLP
+# tensor-parallel (the same values)
+SP_FAMILIES = ("dense", "vlm")
 
 
 def check_trainable(run_cfg) -> None:
@@ -154,17 +177,21 @@ def model_specs(cfg, rt) -> dict:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_len) -> None:
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_len,
+                 offset: int = 0, total: Optional[int] = None) -> None:
     """Write this step's K or V rows into one layer's (B, S, KV, hd) cache,
-    in place.
+    in place. ``offset``: the global position of the cache's first row (a
+    rank's block of a sequence-sharded cache of ``total`` positions); a
+    row whose position lies outside the block is written on the rank that
+    holds it.
 
     Per-slot ``cache_len`` (a (B,) tensor): row b lands at position
-    cache_len[b], and a slot with cache_len outside [0, S) writes nowhere
-    (the reference's one-hot select). Computed without a host sync: the
-    position is clamped into range and an out-of-range slot writes back
-    the bits it read. Scalar ``cache_len``: the rows land at cache_len,
-    with the start clamped into [0, S - s] as ``dynamic_update_slice``
-    clamps it."""
+    cache_len[b], and a slot with cache_len outside this block writes
+    nowhere (the reference's one-hot select). Computed without a host
+    sync: the position is clamped into range and an out-of-range slot
+    writes back the bits it read. Scalar ``cache_len``: the rows land at
+    cache_len, with the start clamped into [0, total - s] as
+    ``dynamic_update_slice`` clamps it."""
     b, s_cache = cache.shape[:2]
     new = new.to(cache.dtype)
     cl = cache_len
@@ -173,51 +200,116 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_len) -> None:
             raise ValueError("a per-slot cache write takes one token per "
                              f"slot, got {new.shape[1]}")
         rows = torch.arange(b, device=cache.device)
-        cl = cl.to(cache.device).long()
+        cl = cl.to(cache.device).long() - offset
         pos = cl.clamp(0, s_cache - 1)
         hit = ((cl >= 0) & (cl < s_cache))[:, None, None]
         cache[rows, pos] = torch.where(hit, new[:, 0], cache[rows, pos])
         return
     s = new.shape[1]
-    start = max(0, min(int(cl), s_cache - s))
-    cache[:, start:start + s] = new
+    total = s_cache if total is None else total
+    start = max(0, min(int(cl), total - s))
+    lo, hi = max(start, offset), min(start + s, offset + s_cache)
+    if lo < hi:
+        cache[:, lo - offset:hi - offset] = new[:, lo - start:hi - start]
+
+
+def _tp_mesh(rt, local: int, whole: int):
+    """The mesh a block runs tensor-parallel over when its weights hold
+    ``local`` of ``whole`` columns on this rank (``ParamPlan.held``), else
+    None."""
+    return rt.mesh if local < whole else None
 
 
 def attn_block(p: dict, x: torch.Tensor, *, cfg, rt, positions,
                layer_cache: Optional[tuple] = None, cache_len=None,
                cross_kv: Optional[tuple] = None, causal: bool = True,
-               return_kv: bool = False) -> tuple:
+               return_kv: bool = False, sp_on: bool = False,
+               cache_axes: tuple = ()) -> tuple:
     """Self (or cross) attention sub-block. Returns (out, new_cache).
 
     ``cross_kv``: (K, V) of the encoder, (B, Se, KV, hd); then q takes no
     RoPE, the attention is never causal and nothing is cached.
     ``return_kv``: on the cache-less path, hand back this layer's (K, V) at
     the compute dtype — the serving engine's batched prefill collects them
-    across layers and inserts the rows into the live decode cache."""
+    across layers and inserts the rows into the live decode cache.
+
+    On a process mesh whose ``wq`` / ``wo`` hold this rank's block of the
+    padded q heads the block runs tensor-parallel over ``model``
+    (Megatron's form): ``copy_to`` before the column-parallel ``wq``, K/V
+    on every rank from the replicated ``wk`` / ``wv`` (their gradient
+    summed over ``model``, as the reference's replicated K/V's is), the
+    attention of this rank's heads, and ``reduce_from`` after the
+    row-parallel ``wo``. ``sp_on``: ``x`` is this rank's sequence block and
+    the projections run ``core/sp.py``'s schedule. ``cache_axes``: the
+    mesh axes ``layer_cache``'s positions are sharded over; then every
+    rank attends with all q heads over its positions, the partials are
+    merged (``attention.decode_attention``) and the rank keeps its own
+    heads for the o-proj."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     hp = rt.pad_heads(cfg.n_heads)
     kv = cfg.n_kv_heads
-    qmap = _qmap(cfg.n_heads, kv, hp, x.device)
+    hl = p["wq"].shape[-1] // hd                 # this rank's q heads
+    mesh = _tp_mesh(rt, hl, hp)
+    lo = rt.model_index * hl if mesh is not None else 0
+    qmap = _qmap(cfg.n_heads, kv, hp, x.device, lo, hl)
 
-    q = (x @ p["wq"]).reshape(b, s, hp, hd)
-    if cross_kv is None:
-        k = (x @ p["wk"]).reshape(b, s, kv, hd)
-        v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    replicated_kv = True
+    if sp_on:
+        if sp.kv_local_favorable(rt, cfg):
+            # replicated K/V weights: a sequence-local matmul and a small
+            # output all-gather, whose cotangent stays each rank's share
+            (qf,) = sp.proj_in(rt, x, [p["wq"]], [True])
+            kf, vf = sp.local_proj(rt, x, [p["wk"], p["wv"]])
+            replicated_kv = False
+        else:
+            qf, kf, vf = sp.proj_in(rt, x, [p["wq"], p["wk"], p["wv"]],
+                                    [True, False, False])
+        s = qf.shape[1]
+        q = qf.reshape(b, s, hl, hd)
+        k = kf.reshape(b, s, kv, hd)
+        v = vf.reshape(b, s, kv, hd)
         if cfg.rope_theta:
             q = attn_mod.rope(q, positions, cfg.rope_theta)
             k = attn_mod.rope(k, positions, cfg.rope_theta)
     else:
-        k, v = cross_kv
+        xq = x if mesh is None else coll.copy_to(x, "model", mesh)
+        q = (xq @ p["wq"]).reshape(b, s, hl, hd)
+        if cross_kv is None:
+            k = (x @ p["wk"]).reshape(b, s, kv, hd)
+            v = (x @ p["wv"]).reshape(b, s, kv, hd)
+            if cfg.rope_theta:
+                q = attn_mod.rope(q, positions, cfg.rope_theta)
+                k = attn_mod.rope(k, positions, cfg.rope_theta)
+        else:
+            k, v = cross_kv
+    if mesh is not None and replicated_kv:
+        # every rank's heads read K/V: the gradient is summed over model
+        k, v = coll.copy_to(k, "model", mesh), coll.copy_to(v, "model", mesh)
 
     if layer_cache is not None:
         k_cache, v_cache = layer_cache
+        off = total = 0
+        if cache_axes:
+            off = rt.mesh.index(cache_axes) * k_cache.shape[1]
+            total = k_cache.shape[1] * rt.mesh.axes_size(cache_axes)
         if cross_kv is None:
-            _write_cache(k_cache, k, cache_len)
-            _write_cache(v_cache, v, cache_len)
-        out = attn_mod.decode_attention(
-            q, k_cache, v_cache, cache_len + (1 if cross_kv is None else 0),
-            qmap=qmap)
+            _write_cache(k_cache, k, cache_len, off, total or None)
+            _write_cache(v_cache, v, cache_len, off, total or None)
+        if mesh is not None and cache_axes:
+            # all q heads over this rank's positions; own heads kept below
+            qa = coll.all_gather(q, "model", mesh, dim=2)
+            out = attn_mod.decode_attention(
+                qa, k_cache, v_cache,
+                cache_len + (1 if cross_kv is None else 0),
+                qmap=_qmap(cfg.n_heads, kv, hp, x.device), mesh=rt.mesh,
+                axes=cache_axes, kv_offset=off)[:, :, lo:lo + hl]
+        else:
+            out = attn_mod.decode_attention(
+                q, k_cache, v_cache,
+                cache_len + (1 if cross_kv is None else 0), qmap=qmap,
+                mesh=rt.mesh if cache_axes else None, axes=cache_axes,
+                kv_offset=off)
         new_cache = (k_cache, v_cache)
     else:
         out = attn_mod.attention(
@@ -227,32 +319,57 @@ def attn_block(p: dict, x: torch.Tensor, *, cfg, rt, positions,
         new_cache = (k.to(rt.dtype), v.to(rt.dtype)) \
             if return_kv and cross_kv is None else None
     if hp > cfg.n_heads:
-        # padded heads zeroed before the o-proj, as the reference does:
-        # their columns get no gradient, so padding changes no value
-        keep = torch.arange(hp, device=out.device) < cfg.n_heads
+        # padded heads zeroed before the o-proj, as the reference does
+        # (per shard: this rank's heads lo .. lo + hl): their columns get
+        # no gradient, so padding changes no value
+        keep = lo + torch.arange(hl, device=out.device) < cfg.n_heads
         out = out * keep.to(out.dtype)[None, None, :, None]
-    out = out.reshape(b, s, hp * hd) @ p["wo"]
+    out = out.reshape(b, out.shape[1], hl * hd)
+    if sp_on:
+        return sp.proj_out(rt, out, p["wo"]), new_cache
+    out = out @ p["wo"]
+    if mesh is not None:
+        out = coll.reduce_from(out, "model", mesh)
     return out, new_cache
+
+
+def mlp_block(p: dict, x: torch.Tensor, *, cfg, rt,
+              sp_on: bool = False) -> torch.Tensor:
+    """The SwiGLU MLP: tensor-parallel over ``model`` where ``p`` holds
+    this rank's d_ff block; under ``sp_on`` through ``core/sp.py``."""
+    if sp_on:
+        g, u = sp.proj_in(rt, x, [p["w_gate"], p["w_up"]], [True, True])
+        return sp.proj_out(rt, torch.nn.functional.silu(g) * u, p["w_down"])
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"],
+                  mesh=_tp_mesh(rt, p["w_gate"].shape[-1], cfg.d_ff))
 
 
 def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
                   layer_cache=None, cache_len=None, moe_exec: str = "tp",
-                  collect_kv: bool = False) -> tuple:
+                  collect_kv: bool = False, sp_on: bool = False) -> tuple:
     """Pre-norm decoder layer; returns (x, new_cache, metrics). The hybrid
     family (hymba) runs attention and the SSM on the same normed input and
     averages them; its layer cache is (k, v, h_ssm), and the new one
     carries the SSM's new state (a new tensor, not written in place). The
     moe family's FFN is ``moe_ffn`` under ``moe_exec``, whose routing
     metrics the layer returns; a remat recompute routes the same inputs
-    to the same dispatch."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    to the same dispatch. ``sp_on``: ``x`` is this rank's sequence block
+    (``core/sp.py``); the norms' weights then see only its tokens, so
+    their gradients are summed over ``model``."""
+    ln1, ln2 = p["ln1"], p["ln2"]
+    if sp_on:
+        ln1 = coll.copy_to(ln1, "model", rt.mesh)
+        ln2 = coll.copy_to(ln2, "model", rt.mesh)
+    cache_axes = rt.cache_seq_axes if layer_cache is not None else ()
+    h = rms_norm(x, ln1, cfg.norm_eps)
     if cfg.family == "hybrid":
         kv_cache = layer_cache[:2] if layer_cache is not None else None
         h_ssm = layer_cache[2] if layer_cache is not None else \
             ssm_mod.init_ssm_state(cfg, x.shape[0], x.device)
         attn_out, new_kv = attn_block(
             p["attn"], h, cfg=cfg, rt=rt, positions=positions,
-            layer_cache=kv_cache, cache_len=cache_len, return_kv=collect_kv)
+            layer_cache=kv_cache, cache_len=cache_len, return_kv=collect_kv,
+            cache_axes=cache_axes)
         ssm_out, h_ssm = ssm_mod.ssm_mix(p["ssm"], h, h_ssm, cfg=cfg)
         attn_out = (attn_out + ssm_out) * 0.5
         new_cache = (*new_kv, h_ssm) if new_kv is not None else None
@@ -260,16 +377,15 @@ def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
         attn_out, new_cache = attn_block(
             p["attn"], h, cfg=cfg, rt=rt, positions=positions,
             layer_cache=layer_cache, cache_len=cache_len,
-            return_kv=collect_kv)
+            return_kv=collect_kv, sp_on=sp_on, cache_axes=cache_axes)
     x = x + attn_out
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h2 = rms_norm(x, ln2, cfg.norm_eps)
     if cfg.family == "moe":
         ffn_out, metrics = moe_mod.moe_ffn(p["moe"], h2, cfg=cfg, rt=rt,
                                            exec_mode=moe_exec)
         return x + ffn_out, new_cache, metrics
-    mlp = p["mlp"]
-    x = x + swiglu(h2, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
-    return x, new_cache, {}
+    return x + mlp_block(p["mlp"], h2, cfg=cfg, rt=rt, sp_on=sp_on), \
+        new_cache, {}
 
 
 # ---------------------------------------------------------------------------
@@ -277,10 +393,11 @@ def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
 # ---------------------------------------------------------------------------
 
 def rt_residual_axes(rt, x: torch.Tensor) -> tuple:
-    """The residual stream's placement record: sequence-parallel when the
-    sequence divides the ``seq_sp`` axis. The reference pins it with
-    ``rt.constrain``; every rank of the port holds the layers whole, so
-    nothing reads it at run time (slice 2's rest)."""
+    """The residual stream's placement: sequence-parallel when the
+    sequence divides the ``seq_sp`` axis (the reference pins it with
+    ``rt.constrain``). Under ``RunConfig.explicit_sp`` it drives execution:
+    ``forward`` holds each rank's sequence block between the blocks where
+    it reads ``seq_sp`` (``sp_residual``)."""
     s = x.shape[1]
     m = rt.rules.axis_size("seq_sp")
     if rt.shape_cfg.kind != "decode" and m > 1 and s % m == 0:
@@ -288,10 +405,23 @@ def rt_residual_axes(rt, x: torch.Tensor) -> tuple:
     return ("batch", None, None)
 
 
+def sp_residual(cfg, rt, x: torch.Tensor) -> bool:
+    """Does this forward hold the residual sequence-sharded and run every
+    block through ``core/sp.py``? Under ``explicit_sp``, for the families
+    whose blocks are all attention and SwiGLU (``SP_FAMILIES``), when the
+    residual is placed on ``seq_sp`` and the MLP's d_ff is sharded too."""
+    return (cfg.family in SP_FAMILIES and sp.sp_active(rt, x)
+            and rt_residual_axes(rt, x)[1] == "seq_sp"
+            and cfg.d_ff % rt.model_size == 0)
+
+
 def _layer_carry_init(cfg, rt, batch: int, cache_seq: int,
                       dtype: torch.dtype) -> tuple:
-    """One layer's zeroed decode cache (``init_cache`` stacks it)."""
+    """One layer's zeroed decode cache (``init_cache`` stacks it): on a
+    process mesh this rank's block, (B/D, S/M, KV, hd), the slots over the
+    batch axes and the positions over ``cache_seq_axes``."""
     hd, kv = cfg.head_dim, cfg.n_kv_heads
+    batch, cache_seq, _ = rt.cache_shard(batch, cache_seq)
     if cfg.family == "ssm":
         return rwkv_mod.init_rwkv_carry(cfg, batch, dtype, rt.device)
     kvc = tuple(torch.zeros((batch, cache_seq, kv, hd), dtype=dtype,
@@ -304,9 +434,10 @@ def _layer_carry_init(cfg, rt, batch: int, cache_seq: int,
 def init_cache(cfg, rt, batch: int, cache_seq: int,
                dtype: Optional[torch.dtype] = None) -> tuple:
     """Zeroed decode cache, each layer's stacked: (k, v), each
-    (n_layers, B, S, KV, hd); hybrid adds the SSM state (n_layers, B, D, N)
-    f32; for the ssm family the carry (tm_x, state, cm_x) of every layer,
-    whatever ``cache_seq``."""
+    (n_layers, B, S, KV, hd) — on a process mesh (n_layers, B/D, S/M, KV,
+    hd), as the reference's ``cache_pspec_tree`` places it; hybrid adds
+    the SSM state (n_layers, B, D, N) f32; for the ssm family the carry
+    (tm_x, state, cm_x) of every layer, whatever ``cache_seq``."""
     one = _layer_carry_init(cfg, rt, batch, cache_seq, dtype or rt.dtype)
     return tuple(torch.zeros((cfg.n_layers, *a.shape), dtype=a.dtype,
                              device=a.device) for a in one)
@@ -382,6 +513,10 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
             positions = base + torch.arange(s, device=dev)
 
     moe_exec = moe_mod.pick_exec_mode(cfg, rt) if cfg.n_experts else "tp"
+    sp_on = cache is None and not collect_kv and sp_residual(cfg, rt, x)
+    if sp_on:
+        # this rank's sequence block from here to the head
+        x = coll.split_to(x, "model", rt.mesh, dim=1)
     layer = decoder_layer
     if cache is None and not collect_kv and torch.is_grad_enabled():
         # the training forward: each layer under the run's remat
@@ -393,7 +528,7 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
         x, new_c, lm = layer(
             _layer_params(params, i), x, cfg=cfg, rt=rt, positions=positions,
             layer_cache=layer_cache, cache_len=cache_len, moe_exec=moe_exec,
-            collect_kv=collect_kv)
+            collect_kv=collect_kv, sp_on=sp_on)
         for k, v in lm.items():         # summed over the layers
             layer_metrics[k] = v if k not in layer_metrics \
                 else layer_metrics[k] + v
@@ -407,7 +542,8 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
         new_cache = tuple(torch.stack(c) for c in zip(*collected))
     else:
         new_cache = None
-    return _head(params, x, cfg, rt), new_cache, {**layer_metrics, **metrics}
+    return (_head(params, x, cfg, rt, sp_on), new_cache,
+            {**layer_metrics, **metrics})
 
 
 # matmuls with no batch dimension: ``x @ w`` of a (B, S, D) activation
@@ -475,11 +611,19 @@ def _tied_head(table: torch.Tensor, rt) -> torch.Tensor:
     return table
 
 
-def _head(params: dict, x: torch.Tensor, cfg, rt) -> torch.Tensor:
+def _head(params: dict, x: torch.Tensor, cfg, rt,
+          sp_on: bool = False) -> torch.Tensor:
     """The final norm and the vocab projection (this rank's vocab shard on
-    a mesh, its input's gradient summed over ``model``)."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if rt.vocab_shards > 1:
+    a mesh, its input's gradient summed over ``model``). ``sp_on``: ``x``
+    is this rank's sequence block, gathered after the norm (its backward
+    reduce-scatters the vocab shards' partial gradients)."""
+    w = params["final_norm"]
+    if sp_on:
+        w = coll.copy_to(w, "model", rt.mesh)
+    x = rms_norm(x, w, cfg.norm_eps)
+    if sp_on:
+        x = coll.gather_rs(x, "model", rt.mesh, dim=1)
+    elif rt.vocab_shards > 1:
         x = coll.copy_to(x, "model", rt.mesh)
     head = (_tied_head(params["embed"], rt) if cfg.tie_embeddings
             else params["head"])
@@ -502,7 +646,8 @@ class DenseLM(ParamTree):
     (a seeded init or loaded weights)."""
 
     def __init__(self, cfg, rt):
-        super().__init__(model_specs(cfg, rt), rt.param_dtype, rt.device)
+        super().__init__(model_specs(cfg, rt), rt.param_dtype,
+                         rt.param_device)
         self.cfg, self.rt = cfg, rt
 
     def specs(self) -> dict:

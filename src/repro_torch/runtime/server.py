@@ -1,5 +1,5 @@
 """Serving engine: batched prefill + persistent slot-paged decode (the port
-of ``repro/runtime/server.py``), on one device.
+of ``repro/runtime/server.py``), on one device or a process mesh.
 
   admission   one prefill step per request: the full forward over the
               bucket-padded prompt collects every layer's K/V, inserts the
@@ -30,6 +30,22 @@ prefill through the shared decode step, one shared cache_len, host-side
 argmax) — the baseline, and the loop for recurrent families.
 
 Everything runs on ``device`` (default: the card).
+
+On a process mesh (``launch/mesh.py::make_mesh``; every rank builds the
+``Server`` with the same arguments and submits the same requests) the
+weights are this rank's shards over ``model`` (the attention and MLP run
+tensor-parallel, the head is vocab-sharded; a server holds its weights
+whole over the batch axes), the slots are split over the batch axes
+(max_batch/D on each data rank) and the decode cache is this rank's
+(n_layers, B/D, S/M, KV, hd) block, as the reference's
+``cache_pspec_tree`` places it. Every rank runs the same host scheduler
+on the same stream, in step: no staging or detokenize thread (their
+timing would differ between ranks); a slot's prefill runs on the model
+ranks of the data rank that owns it, and each step's tokens are
+all-gathered over the batch axes, so every rank's bookkeeping sees every
+slot. Greedy sampling takes the argmax over the vocab shards; a draw
+gathers the logits on every rank, whose generators share the seed.
+``ToyServer`` on a mesh is refused (ROADMAP slice 2's rest).
 """
 from __future__ import annotations
 
@@ -43,11 +59,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+from repro_torch.core import collectives as coll
+from repro_torch.core.plan import held_placement
 from repro_torch.core.runtime import Runtime
 from repro_torch.core.transform import (analyze, init_params_, load_params_,
                                         make_decode_step,
                                         make_serve_decode_step,
-                                        make_serve_prefill_step)
+                                        make_serve_prefill_step,
+                                        place_params_)
+from repro_torch.launch.mesh import Mesh, MeshShape
 from repro_torch.models.model import build_model
 from repro_torch.utils.tree import named_parameters
 
@@ -100,7 +120,14 @@ def _setup(model_cfg, run_cfg, scfg, mesh, params, seed, device, *,
            paged: bool):
     """Runtime, model (parameters filled), plan — shared by both engines.
     ``paged``: the engine needs a positional KV cache; refuse a family
-    without one before any parameter is drawn."""
+    without one before any parameter is drawn. On a process mesh the
+    parameters are this rank's shards of the one-device ones (the same
+    draw from ``seed``, or ``params`` cut): the plan's placements with the
+    batch axes dropped (a ZeRO-3 placement from the memory escalation
+    prices optimizer bytes a server never holds)."""
+    if isinstance(mesh, MeshShape) and not isinstance(mesh, Mesh):
+        raise ValueError(f"{mesh!r} holds no process groups: a server "
+                         "runs on a launch/mesh.py::make_mesh mesh")
     shape = ShapeConfig("serve", scfg.max_seq, scfg.max_batch, "decode")
     rt = Runtime(model_cfg, run_cfg, shape, mesh=mesh, device=device)
     model = build_model(model_cfg, rt)
@@ -110,10 +137,17 @@ def _setup(model_cfg, run_cfg, scfg, mesh, params, seed, device, *,
             "exactly (recurrent carry under padding) — use ToyServer")
     plan = analyze(model, rt)
     rt.plan = plan
+    mesh_plan = None
+    if mesh is not None:
+        for name, spec in model.param_specs():
+            p = plan.params[name]
+            p.held = held_placement(p.placement, spec.axes, (), name=name)
+        place_params_(model, plan, mesh)
+        mesh_plan = plan
     if params is None:
-        init_params_(model, seed)
+        init_params_(model, seed, mesh_plan)
     else:
-        load_params_(model, params)
+        load_params_(model, params, mesh_plan)
     model.requires_grad_(False)
     return rt, model, plan
 
@@ -134,12 +168,19 @@ class Server:
             model_cfg, run_cfg, scfg, mesh, params, seed, device, paged=True)
         self.scfg = scfg
         self.params = named_parameters(self.model)
-        dev = self.rt.device
+        rt = self.rt
+        dev = rt.device
 
         b, s = scfg.max_batch, scfg.max_seq
         self.cache = self.model.init_cache(b, s)
-        self.lens = torch.zeros((b,), dtype=torch.int32, device=dev)
-        self.tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        # this rank's slots: [first, first + local) of the max_batch
+        self._local = rt.cache_shard(b, s)[0]
+        self._first = (rt.mesh.index(rt.batch_axes) * self._local
+                       if rt.mesh is not None else 0)
+        self.lens = torch.zeros((self._local,), dtype=torch.int32,
+                                device=dev)
+        self.tok = torch.zeros((self._local, 1), dtype=torch.int32,
+                               device=dev)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(seed + 1)
 
@@ -147,10 +188,10 @@ class Server:
                       "decode_steps": 0, "decode_traces": 0,
                       "buckets": set(), "cross_slot_mismatches": 0}
         self._prefill = make_serve_prefill_step(
-            self.model, self.rt, self.plan, greedy=scfg.greedy,
+            self.model, rt, self.plan, greedy=scfg.greedy,
             temperature=scfg.temperature)
         self._decode = make_serve_decode_step(
-            self.model, self.rt, self.plan, max_seq=s, greedy=scfg.greedy,
+            self.model, rt, self.plan, max_seq=s, greedy=scfg.greedy,
             temperature=scfg.temperature)
 
         # ---- slot bookkeeping (host) ----
@@ -168,11 +209,22 @@ class Server:
         self._inflight = 0
         self._stop = False
         self._thread_err: list = []
-        self._admitter = threading.Thread(target=self._admit_worker,
-                                          daemon=True)
-        self._detok = threading.Thread(target=self._detok_worker, daemon=True)
-        self._admitter.start()
-        self._detok.start()
+        # a process mesh runs the host work in step on every rank
+        self._sync = rt.mesh is not None
+        if not self._sync:
+            self._admitter = threading.Thread(target=self._admit_worker,
+                                              daemon=True)
+            self._detok = threading.Thread(target=self._detok_worker,
+                                           daemon=True)
+            self._admitter.start()
+            self._detok.start()
+
+    def _gather_slots(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's slots of ``x`` (this rank's (B/D, ...)) ->
+        (B, ...) on every rank."""
+        if self.rt.mesh is None:
+            return x
+        return coll.all_gather(x, tuple(self.rt.batch_axes), self.rt.mesh)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -188,6 +240,8 @@ class Server:
     def close(self):
         """Stop both threads and wait for them."""
         self._stop = True
+        if self._sync:
+            return
         with self._qcv:
             self._qcv.notify_all()
         with self._detok_cv:
@@ -197,6 +251,13 @@ class Server:
 
     # ------------------------------------------------------------------
     # admission staging thread: pad + bucket prompts off the decode path
+    def _stage(self, req: Request) -> tuple:
+        plen = len(req.prompt)
+        lb = bucket_len(plen, self.scfg.max_seq)
+        padded = np.zeros((1, lb), np.int32)
+        padded[0, :plen] = req.prompt
+        return req, padded, plen
+
     def _admit_worker(self):
         try:
             while not self._stop:
@@ -206,15 +267,36 @@ class Server:
                     if self._stop:
                         return
                     req = self.queue.popleft()
-                plen = len(req.prompt)
-                lb = bucket_len(plen, self.scfg.max_seq)
-                padded = np.zeros((1, lb), np.int32)
-                padded[0, :plen] = req.prompt
-                self._staged.append((req, padded, plen))
+                self._staged.append(self._stage(req))
         except BaseException as e:            # surfaced in the serve loop
             self._thread_err.append(e)
 
     # detokenize thread: the only place device results are materialized
+    def _consume(self, arr, mapping):
+        vals = arr.cpu().numpy()              # waits HERE, not in step()
+        now = time.perf_counter()
+        for idx, slot, req in mapping:
+            if req.done:
+                continue                      # slot kept decoding past done
+            tok = int(vals[idx])
+            if tok < 0:
+                # the decode step stamps -1 on inactive slots; one in an
+                # active mapping means slot state leaked
+                self.stats["cross_slot_mismatches"] += 1
+                continue
+            req.out_tokens.append(tok)
+            req.token_times.append(now)
+            if not req.t_first:
+                req.t_first = now
+            plen = len(req.prompt)
+            if len(req.out_tokens) >= req.max_new_tokens or \
+                    plen + len(req.out_tokens) >= self.scfg.max_seq:
+                req.done = True
+                self.completed.append(req)
+                self._freed.append(slot)
+                with self._qcv:
+                    self._pending -= 1
+
     def _detok_worker(self):
         try:
             while True:
@@ -227,30 +309,7 @@ class Server:
                         return
                     else:
                         continue
-                arr, mapping = item
-                vals = arr.cpu().numpy()      # waits HERE, not in step()
-                now = time.perf_counter()
-                for idx, slot, req in mapping:
-                    if req.done:
-                        continue              # slot kept decoding past done
-                    tok = int(vals[idx])
-                    if tok < 0:
-                        # the decode step stamps -1 on inactive slots; one
-                        # in an active mapping means slot state leaked
-                        self.stats["cross_slot_mismatches"] += 1
-                        continue
-                    req.out_tokens.append(tok)
-                    req.token_times.append(now)
-                    if not req.t_first:
-                        req.t_first = now
-                    plen = len(req.prompt)
-                    if len(req.out_tokens) >= req.max_new_tokens or \
-                            plen + len(req.out_tokens) >= self.scfg.max_seq:
-                        req.done = True
-                        self.completed.append(req)
-                        self._freed.append(slot)
-                        with self._qcv:
-                            self._pending -= 1
+                self._consume(*item)
                 with self._detok_cv:
                     self._inflight -= 1
                     self._detok_cv.notify_all()
@@ -258,6 +317,9 @@ class Server:
             self._thread_err.append(e)
 
     def _push_detok(self, arr, mapping):
+        if self._sync:
+            self._consume(arr, mapping)
+            return
         with self._detok_cv:
             self._detok_q.append((arr, mapping))
             self._inflight += 1
@@ -270,8 +332,12 @@ class Server:
 
     # ------------------------------------------------------------------
     def _admit(self) -> int:
-        """One prefill per staged request into free slots."""
-        n = 0
+        """One prefill per staged request into free slots (on a mesh, run
+        by the model ranks of the slot's data rank)."""
+        if self._sync:
+            while self.queue:
+                self._staged.append(self._stage(self.queue.popleft()))
+        admitted = []
         for i in range(self.scfg.max_batch):
             if self.slot_req[i] is not None or not self._staged:
                 continue
@@ -282,12 +348,22 @@ class Server:
             if lb not in self.stats["buckets"]:
                 self.stats["prefill_traces"] += 1
             self.stats["buckets"].add(lb)
-            tokens = torch.from_numpy(padded).to(self.rt.device)
-            self.cache, self.lens, self.tok, first = self._prefill(
-                self.cache, self.lens, self.tok, tokens, plen, i, self._gen)
-            self._push_detok(first, [(0, i, req)])
-            n += 1
-        return n
+            first = None
+            j = i - self._first
+            if 0 <= j < self._local:
+                tokens = torch.from_numpy(padded).to(self.rt.device)
+                self.cache, self.lens, self.tok, first = self._prefill(
+                    self.cache, self.lens, self.tok, tokens, plen, j,
+                    self._gen)
+            admitted.append((i, req, first))
+        if admitted and self.rt.replicas > 1:
+            # the first tokens of every data rank's slots
+            toks = self._gather_slots(self.tok)[:, 0]
+            self._push_detok(toks, [(i, i, req) for i, req, _ in admitted])
+        else:
+            for i, req, first in admitted:
+                self._push_detok(first, [(0, i, req)])
+        return len(admitted)
 
     def step(self) -> int:
         """One engine iteration: recycle slots, admit, one decode step.
@@ -301,6 +377,7 @@ class Server:
             return 0
         active = np.zeros(self.scfg.max_batch, bool)
         active[active_idx] = True
+        active = active[self._first:self._first + self._local]
         if self.stats["decode_steps"] == 0:
             self.stats["decode_traces"] += 1      # one shape: traced once
         self.cache, self.lens, self.tok, out = self._decode(
@@ -308,7 +385,8 @@ class Server:
             torch.from_numpy(active).to(self.rt.device), self._gen)
         self.stats["decode_steps"] += 1
         self._push_detok(
-            out, [(i, i, self.slot_req[i]) for i in active_idx])
+            self._gather_slots(out),
+            [(i, i, self.slot_req[i]) for i in active_idx])
         # bound the run-ahead so a lagging detokenizer can't let the loop
         # burn steps decoding slots that already completed
         with self._detok_cv:
@@ -348,6 +426,10 @@ class ToyServer:
     def __init__(self, model_cfg: ModelConfig, run_cfg: RunConfig,
                  scfg: ServerConfig, mesh=None, params=None, seed: int = 0,
                  *, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ToyServer on a mesh is not ported yet: ROADMAP slice 2's "
+                "rest (the serve mesh runs the paged Server)")
         self.rt, self.model, self.plan = _setup(
             model_cfg, run_cfg, scfg, mesh, params, seed, device, paged=False)
         self.scfg = scfg

@@ -7,9 +7,10 @@ path_name``) and hands that dict here. Nothing here imports JAX: bf16
 arrays arrive as numpy arrays of the ``bfloat16`` extension dtype and are
 moved through a 16-bit integer view, so no bit changes.
 
-On a mesh, ``shard_params`` cuts whole parameters into this rank's shards
-(each ``ParamPlan.held``) and ``gather_params`` puts them back together;
-the tests hold the port's sharded state against the JAX package with them.
+On a mesh, ``shard_tensor`` cuts a whole parameter into this rank's shard
+(its ``ParamPlan.held``) and ``gather_params`` puts the shards back
+together; the tests hold the port's sharded state against the JAX package
+with it.
 ``gather_state`` / ``shard_state`` do the same for a whole canonical
 ``TrainState`` (parameters, moments and EMA shadows, which lie beside their
 parameter): a replan whose placements moved, and a checkpoint's save and
@@ -87,13 +88,6 @@ def gather_tensor(local: torch.Tensor, held: tuple, mesh) -> torch.Tensor:
     for d, axes in _dims(held, mesh):
         out = coll.all_gather(out, axes, mesh, dim=d)
     return out
-
-
-def shard_params(named_full: dict, plan, mesh) -> dict:
-    """{dotted_name: whole tensor} -> {dotted_name: this rank's shard}
-    under each parameter's ``ParamPlan.held``."""
-    return {n: shard_tensor(t, plan.params[n].held, mesh)
-            for n, t in named_full.items()}
 
 
 def gather_params(named_local: dict, plan, mesh) -> dict:

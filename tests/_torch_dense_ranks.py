@@ -5,7 +5,7 @@ import repro_torch.configs as tc
 from repro_torch.core.transform import get_runner
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.weights import load_reference_params
+from repro_torch.weights import gather_tensor, load_reference_params
 
 SEQ, BATCH, STEPS = 32, 4, 3
 # the reference test's RunConfig (tests/test_transform_correctness.py)
@@ -201,8 +201,11 @@ def padded_rank(rank, world, named):
     assert r.rt.pad_heads(PAD_HEADS) == 8
     losses = [float(r.run(b)["loss"]) for b in batches(c.vocab_size)]
     cut = PAD_HEADS * c.head_dim
-    wq = r.model.get_parameter("layers.attn.wq").detach()
-    wo = r.model.get_parameter("layers.attn.wo").detach()
+    # each rank holds its block of the q heads (tensor-parallel over
+    # model): the padded heads are the last rank's; gather them whole
+    wq, wo = (gather_tensor(r.model.get_parameter(n).detach(),
+                            r.plan.params[n].held, m)
+              for n in ("layers.attn.wq", "layers.attn.wo"))
     return {"loss": losses,
             "padded_max": max(float(wq[..., cut:].abs().max()),
                               float(wo[:, cut:].abs().max()))}

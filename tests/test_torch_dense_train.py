@@ -242,10 +242,16 @@ def test_pallas_attention_is_refused_in_training():
 
 
 def test_explicit_sp_and_dp_are_refused_by_name():
+    """``explicit_sp`` runs (its mesh cases: tests/test_torch_tp_mesh.py):
+    off a mesh it changes nothing. ``dense_strategy="dp"`` stays refused
+    by name."""
     cfg = tc.reduced(tc.get_config("phi3-medium-14b"))
     shape = tc.ShapeConfig("t", SEQ, BATCH, "train")
-    with pytest.raises(NotImplementedError, match="explicit_sp.*slice 2"):
-        get_runner(cfg, shape, tc.RunConfig(explicit_sp=True), device="cpu")
+    batch = SyntheticLM(cfg.vocab_size, SEQ, BATCH).batch(0)
+    losses = [float(get_runner(cfg, shape, tc.RunConfig(
+        explicit_sp=sp, **F32), device="cpu").run(batch)["loss"])
+        for sp in (False, True)]
+    assert losses[0] == losses[1]
     rt = Runtime(cfg, tc.RunConfig(dense_strategy="dp"), shape,
                  mesh=MeshShape((2, 2), ("data", "model")), device="cpu")
     model = build_model(cfg, rt)

@@ -261,8 +261,9 @@ def test_launcher_serves_on_the_cpu(engine, capsys):
                           device="cpu")
     assert len(done) == 3 and all(len(r.out_tokens) == 2 for r in done)
     assert f"[{engine}] served 3 requests" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        serve_cli.main(["--mesh", "2x2"], device="cpu")
+    # the serve mesh runs the paged engine; the toy loop is refused on one
+    with pytest.raises(NotImplementedError, match="toy.*slice 2"):
+        serve_cli.main(["--mesh", "2x2", "--engine", "toy"], device="cpu")
 
 
 def test_launcher_serves_rwkv6_through_the_toy_loop(capsys):
