@@ -296,6 +296,23 @@ and never prints the final line:
               explicit_sp (core/sp.py), within 5e-4 + 1e-4 i of one
               device; the serve mesh's prefill and decode logits within
               rtol 1e-4 of a one-device Server's, the same greedy tokens.
+     mesh_card_zero = mesh_card (j): ZeRO-1. phi3-medium-14b at its
+              published width cut to 2 of 40 layers
+              (profile_step.MESH_CELLS) on (2, 1) over 2 gloo ranks on the
+              card, bf16, seq 512, batch 4, the table on the dense
+              exchange (table_alpha 1.0): 3 steps at zero_stage 1, then 3
+              at 0 (the fused apply) from the same init, under
+              deterministic algorithms: the losses bit for bit, each
+              rank's dense moments half of each leaf and the table's
+              whole, the moment bytes the plan's optimizer term; per-rank
+              peaks and step ms (gloo staged through the host).
+     mesh_card_dp = mesh_card (k): the dp dense strategy. hymba-1.5b whole
+              on (2, 2) over 4 gloo ranks (the model axis a batch axis, a
+              row a rank) with ZeRO-1 over both axes, 3 steps: the ranks
+              agree, the losses within rtol 2e-2 of the one-device card
+              run from the same init and batches, each rank's dense
+              moments a quarter of each leaf. Both phases: a bulk gather
+              and a one-pass push a step on every rank.
 
 Each path (main, main_no_la, nmt, train (its adaptive run), train_growth,
 train_resume (both runs), dense_parity (its card runs), dense_train,
@@ -305,7 +322,8 @@ serve, rwkv_serve, stablelm_parity (its card prefills and serving),
 stablelm_serve, families_parity (its card runs), seamless_train,
 hymba_train, chameleon_train, rwkv_train, mesh_card_encdec, moe_parity
 (its card runs), grok_serve, llama4_serve, mesh_card_moe,
-mesh_card_serve, mesh_card_tp) runs with
+mesh_card_serve, mesh_card_tp, mesh_card_zero (both runs), mesh_card_dp)
+runs with
 every launch
 count set to 0 just before it and read just after: the mesh phases in
 each rank's own process (mesh_card's (a), (b) and (c)'s two runs each so,
@@ -320,6 +338,7 @@ It imports the port (src/repro_torch) and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -351,7 +370,10 @@ from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
 from repro_torch.launch.profile_serve import (SERVE_LAYERS,  # noqa: E402
                                               serve_config)
 from repro_torch.launch.profile_step import (CELLS,  # noqa: E402
-                                             cell_config)
+                                             MESH_CELLS, cell_config,
+                                             mesh_cell_config)
+from repro_torch.core.plan import per_device_bytes  # noqa: E402
+from repro_torch.models.layers import flatten_specs  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.moe import pick_exec_mode  # noqa: E402
 from repro_torch.optim.optimizer import is_fused  # noqa: E402
@@ -493,7 +515,12 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 # f32 serve mesh takes flash's scalar route
                 "mesh_card_serve": ("embed_gather", "flash_attention"),
                 "mesh_card_tp": ("embed_gather", "embed_scatter_add",
-                                 "flash_attention")}
+                                 "flash_attention"),
+                # ZeRO-1 (phi3, 2 layers, (2, 1)) and dp (hymba, (2, 2)):
+                # every rank pulls on the bulk route and, the table on the
+                # dense exchange, pushes its unique ids one-pass
+                "mesh_card_zero": ("embed_gather", "embed_scatter_add"),
+                "mesh_card_dp": ("embed_gather", "embed_scatter_add")}
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
 NMT_CENSUS = tuple(f"{t}_{k}" for t in ("embed", "enc_embed")
                    for k in ("rows", "unique", "dropped"))
@@ -3893,6 +3920,211 @@ def phase_mesh_card_tp() -> dict:
     return res
 
 
+# ZeRO-1 and the dp dense strategy at full width
+# (``profile_step.MESH_CELLS``: their cuts and knobs)
+MESH_STEPS = 3
+DP_RTOL = 2e-2              # the families' bf16 bar (test_torch_families)
+
+
+def _cell_batches(name: str) -> list:
+    cell = MESH_CELLS[name]
+    ds = SyntheticLM(mesh_cell_config(name).vocab_size, cell.shape.seq_len,
+                     cell.shape.global_batch, **cell.data)
+    return [ds.batch(i) for i in range(MESH_STEPS)]
+
+
+def _state_layout(runner) -> dict:
+    """This rank's parameter and moment elements per leaf, and its
+    parameter and moment bytes beside the plan's terms
+    (``per_device_bytes``: the parameter term at the parameters' itemsize,
+    the optimizer term at 8 bytes an element)."""
+    plan, st = runner.plan, runner.state
+    specs = flatten_specs(runner.model.specs())
+    plans = [plan.params[n] for n, _ in specs]
+    itemsize = torch.empty((), dtype=runner.rt.param_dtype).element_size()
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in tree.values())
+    return {
+        "leaves": {n: {"param": st.params[n].numel(),
+                       "whole": math.prod(spec.shape),
+                       "m": st.m[n].numel(), "v": st.v[n].numel(),
+                       "sparse": p.sparse}
+                   for (n, spec), p in zip(specs, plans)},
+        "param_bytes": nbytes(st.params),
+        "plan_param_bytes": per_device_bytes(specs, plan.rules, plans,
+                                             dtype_bytes=itemsize,
+                                             opt_bytes=0),
+        "moment_bytes": nbytes(st.m) + nbytes(st.v),
+        "plan_moment_bytes": per_device_bytes(specs, plan.rules, plans,
+                                              dtype_bytes=0)}
+
+
+def _mesh_cell_rank(rank: int, world: int, name: str,
+                    zero_stages: tuple) -> dict:
+    """One gloo rank on the card of ``MESH_CELLS[name]``: 3 steps from the
+    seed-0 init at each of ``zero_stages`` in turn (the first run freed
+    before the next), under deterministic algorithms. Each run's losses,
+    step ms, launches (set to 0 just before its steps), layout, and peak
+    memory at init and over the steps."""
+    cell = MESH_CELLS[name]
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(cell.mesh, ("data", "model"), device=dev)
+    cfg, batches = mesh_cell_config(name), _cell_batches(name)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for z in zero_stages:
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            runner = get_runner(cfg, cell.shape,
+                                replace(cell.run, zero_stage=z), mesh=mesh,
+                                seed=0)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            init_peak = torch.cuda.max_memory_allocated(dev)
+            r = _timed_steps(runner, batches, dev)
+            r.update(_state_layout(runner), setup_s=setup_s,
+                     init_max_memory_allocated=init_peak,
+                     zero_stage=runner.plan.zero_stage,
+                     fused_apply=runner.plan.fused_apply,
+                     strategy=runner.rt.resolved_strategy,
+                     batch_axes=list(runner.rt.batch_axes),
+                     method=runner.plan.table_methods["embed"])
+            out[z] = r
+            del runner
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _check_cell_rank(phase: str, m: int, r: dict, shards: int) -> None:
+    """One rank's run: each dense leaf's moments 1/``shards`` of it (at
+    zero_stage 1), the sparse table's whole, the bytes the plan's terms,
+    and the embed kernels' launches as the plan's method predicts."""
+    z = r["zero_stage"]
+    for n, x in r["leaves"].items():
+        want = x["param"] if x["sparse"] or z == 0 else x["param"] // shards
+        check(x["m"] == x["v"] == want and (x["sparse"] or z == 0
+                                            or want * shards == x["param"]),
+              f"{phase} rank {m} zero {z}: {n} moments {x}, want {want}")
+        check(x["param"] == x["whole"],
+              f"{phase} rank {m}: {n} holds {x['param']} of {x['whole']}")
+    check(r["param_bytes"] == r["plan_param_bytes"]
+          and r["moment_bytes"] == r["plan_moment_bytes"],
+          f"{phase} rank {m} zero {z}: bytes {r['param_bytes']} / "
+          f"{r['moment_bytes']} vs the plan's {r['plan_param_bytes']} / "
+          f"{r['plan_moment_bytes']}")
+    check(r["method"] == "allreduce" and r["fused_apply"] == (z == 0),
+          f"{phase} rank {m}: method {r['method']}, fused "
+          f"{r['fused_apply']} at zero {z}")
+    steps, c = len(r["losses"]), r["launches"]
+    pushes = _one_pass_pushes(r["method"], steps)
+    check(c["embed_gather"] == c["embed_gather_bulk"] == steps
+          and c["embed_scatter_add"] == c["embed_scatter_add_fused"]
+          == pushes,
+          f"{phase} rank {m} zero {z}: launches {c}, want {steps} bulk "
+          f"gathers and {pushes} one-pass pushes")
+    check(all(math.isfinite(x) for x in r["losses"]),
+          f"{phase} rank {m}: losses {r['losses']}")
+
+
+def _cell_summary(r: dict) -> dict:
+    return {k: r[k] for k in (
+        "losses", "step_ms", "median_step_ms", "setup_s",
+        "init_max_memory_allocated", "max_memory_allocated", "param_bytes",
+        "moment_bytes", "plan_moment_bytes", "zero_stage", "fused_apply",
+        "strategy", "batch_axes", "method")}
+
+
+def phase_mesh_card_zero() -> dict:
+    """mesh_card (j): ZeRO-1. phi3-medium-14b at its published width with
+    2 of its 40 layers (``profile_step.MESH_CELLS``) on (2, 1), two gloo
+    ranks on the card, the config's dtypes, 3 steps at zero_stage 1, then
+    from the same init and batches at zero_stage 0 (the fused apply): the
+    losses bit for bit equal (deterministic algorithms; every operation of
+    the sharded update is elementwise), each rank's dense moments half of
+    each leaf and the table's whole, its moment bytes the plan's
+    optimizer term; each stage's per-rank peaks and step ms (gloo staged
+    through the host: not exchange times)."""
+    cell = MESH_CELLS["mesh_card_zero"]
+    ranks = spawn(_mesh_cell_rank, math.prod(cell.mesh), "gloo", "cuda",
+                  args=("mesh_card_zero", (1, 0)), timeout=900)
+    want = ranks[0][1]["losses"]
+    for m, r in enumerate(ranks):
+        for z in (1, 0):
+            check(r[z]["zero_stage"] == z and r[z]["strategy"] == "tp",
+                  f"mesh_card (j) rank {m}: zero {r[z]['zero_stage']}, "
+                  f"{r[z]['strategy']}")
+            _check_cell_rank("mesh_card (j)", m, r[z], cell.mesh[0])
+            check(r[z]["losses"] == want,
+                  f"mesh_card (j) rank {m} zero {z}: losses "
+                  f"{r[z]['losses']} vs zero 1 on rank 0 {want}")
+        check(r[1]["moment_bytes"] < r[0]["moment_bytes"],
+              f"mesh_card (j) rank {m}: moments {r[1]['moment_bytes']} vs "
+              f"{r[0]['moment_bytes']}")
+    res = {"phase": "mesh_card_zero", "backend": "gloo",
+           "world": len(ranks), "mesh": list(cell.mesh),
+           "arch": cell.arch, "cut": f"n_layers {cell.n_layers} of "
+           f"{get_config(cell.arch).n_layers}",
+           "shape": [cell.shape.seq_len, cell.shape.global_batch],
+           "runs": {f"zero{z}": [_cell_summary(r[z]) for r in ranks]
+                    for z in (1, 0)},
+           "launches": {k: v + ranks[0][0]["launches"][k]
+                        for k, v in ranks[0][1]["launches"].items()},
+           "launches_by_rank": [{k: v + r[0]["launches"][k]
+                                 for k, v in r[1]["launches"].items()}
+                                for r in ranks]}
+    emit(res)
+    return res
+
+
+def phase_mesh_card_dp() -> dict:
+    """mesh_card (k): the dp dense strategy. hymba-1.5b whole on (2, 2),
+    four gloo ranks on the card (``dense_strategy="dp"``: the model axis a
+    batch axis, a row a rank; ZeRO-1 over both axes), the config's dtypes,
+    seq 512, global batch 4, 3 steps: the ranks agree, every loss within
+    rtol 2e-2 of the one-device card run from the same init and batches
+    (made before the ranks start), each rank's dense moments a quarter of
+    each leaf and the table's whole, its moment bytes the plan's term;
+    per-rank peaks and step ms (gloo staged through the host)."""
+    name = "mesh_card_dp"
+    cell = MESH_CELLS[name]
+    cfg, batches = mesh_cell_config(name), _cell_batches(name)
+    one = get_runner(cfg, cell.shape, cell.run, device="cuda", seed=0)
+    t = [time.perf_counter()]
+    single = [float(one.run(b)["loss"]) for b in batches]
+    one_s = time.perf_counter() - t[0]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn(_mesh_cell_rank, math.prod(cell.mesh), "gloo", "cuda",
+                  args=(name, (1,)), timeout=900)
+    got = ranks[0][1]["losses"]
+    for m, rr in enumerate(ranks):
+        r = rr[1]
+        check(r["strategy"] == "dp" and r["batch_axes"] == ["data", "model"]
+              and r["zero_stage"] == 1,
+              f"mesh_card (k) rank {m}: {r['strategy']} over "
+              f"{r['batch_axes']}, zero {r['zero_stage']}")
+        _check_cell_rank("mesh_card (k)", m, r, math.prod(cell.mesh))
+        check(r["losses"] == got, f"mesh_card (k) rank {m}: losses "
+              f"{r['losses']} vs rank 0 {got}")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, single))
+    check(gap <= DP_RTOL, f"mesh_card (k): losses {got} vs one device "
+          f"{single}: rtol {gap}")
+    res = {"phase": name, "backend": "gloo", "world": len(ranks),
+           "mesh": list(cell.mesh), "arch": cell.arch, "cut": "none",
+           "shape": [cell.shape.seq_len, cell.shape.global_batch],
+           "one_device": single, "one_device_s": one_s, "rtol_gap": gap,
+           "runs": {"zero1": [_cell_summary(r[1]) for r in ranks]},
+           "launches": ranks[0][1]["launches"],
+           "launches_by_rank": [r[1]["launches"] for r in ranks]}
+    emit(res)
+    return res
+
+
 def _check_nmt_card(ranks: list, nmt_losses: list, steps: int) -> dict:
     """mesh_card (c)'s checks, over every rank's record."""
     f0, p0 = ranks[0]["fused"], ranks[0]["per_param"]
@@ -4012,6 +4244,10 @@ def main() -> None:
     mesh_tp = run("mesh_card_tp", phase_mesh_card_tp)
     paths["mesh_card_serve"] = mesh_serve["launches"]
     paths["mesh_card_tp"] = mesh_tp["launches"]
+    mesh_zero = run("mesh_card_zero", phase_mesh_card_zero)
+    mesh_dp = run("mesh_card_dp", phase_mesh_card_dp)
+    paths["mesh_card_zero"] = mesh_zero["launches"]
+    paths["mesh_card_dp"] = mesh_dp["launches"]
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} not launched on {path}")
@@ -4087,11 +4323,14 @@ def main() -> None:
     for row in rows:
         if row["name"] in ("embed_gather", "embed_scatter_add",
                            "flash_attention"):
-            # the tensor-parallel paths' launches on every rank
+            # the tensor-parallel, ZeRO-1 and dp paths' launches on
+            # every rank
             row["mesh_launches_by_rank"] = {
                 p: [c[row["name"]] for c in res["launches_by_rank"]]
                 for p, res in (("mesh_card_serve", mesh_serve),
-                               ("mesh_card_tp", mesh_tp))}
+                               ("mesh_card_tp", mesh_tp),
+                               ("mesh_card_zero", mesh_zero),
+                               ("mesh_card_dp", mesh_dp))}
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -18,9 +18,18 @@ expert's ``shared_*``. Elsewhere it drops the model axis: the LSTM
 (``lstm_hidden``), the RWKV and selective-SSM blocks and the routed
 experts' d_ff run whole on every model rank (ROADMAP slice 2's rest; the
 values are the same). The data-axis (FSDP) entries stay. So for the dense
-and vlm families ``held == placement`` on every leaf. The step refuses
-optimizer state sharded apart from its parameter (ZeRO-1), which the plan
-records but the port does not execute yet.
+and vlm families ``held == placement`` on every leaf, and under the ``dp``
+dense strategy (the model axis a batch axis, the rules' model entries
+None) on every leaf of every family.
+
+``opt_held`` is its counterpart for the optimizer state (AdamW's moments,
+momentum's buffer): ``opt_placement`` read the same way. Under ZeRO-1
+(``RunConfig.zero_stage >= 1``, or the memory escalation's stage 1) it
+shards one more dimension over the FSDP axes than ``held`` does, and the
+optimizer updates this rank's block of the parameter and all-gathers it
+(optim/optimizer.py). A leaf that a fused plan applies from its bucket's
+flat buffer keeps its moments whole (``opt_held == held``), as the
+reference's ``state_shardings`` keeps the bucket buffers replicated.
 
 ``plan_diff`` is the replan loop's test of whether a plan recomputed from
 an observed census differs enough from the live one to rebuild the step.
@@ -145,6 +154,7 @@ class ParamPlan:
     stale: bool = False                # bounded-staleness push (slice 7)
     est_cost: dict = field(default_factory=dict)
     held: tuple = ()                   # the placement the port executes
+    opt_held: tuple = ()               # ... and the optimizer state's
 
 
 @dataclass
@@ -340,15 +350,21 @@ def held_placement(placement: tuple, logical: tuple, batch_axes: tuple,
 
 
 def per_device_bytes(specs: list, rules: MeshRules, plans: list,
-                     dtype_bytes: int = 2, opt_bytes: int = 8) -> float:
+                     dtype_bytes: int = 2, opt_bytes: int = 8,
+                     held: bool = False) -> float:
     """Rough params+optimizer per-chip bytes under the plan (for the
     memory escalation). ``specs``: [(name, ParamSpec)]; ``plans``: the
-    ParamPlans in the same order."""
+    ParamPlans in the same order. ``held``: count by the placements the
+    port executes (``held`` / ``opt_held``, set once the plan is built):
+    the bytes a rank really holds, where the escalation reads the planned
+    ones, as the reference does."""
     total = 0.0
     for (_, spec), plan in zip(specs, plans):
         n = math.prod(spec.shape)
-        shards = _pspec_shards(plan.placement, rules.mesh)
-        opt_shards = _pspec_shards(plan.opt_placement, rules.mesh)
+        pl, opt = ((plan.held, plan.opt_held) if held
+                   else (plan.placement, plan.opt_placement))
+        shards = _pspec_shards(pl, rules.mesh)
+        opt_shards = _pspec_shards(opt, rules.mesh)
         total += n * dtype_bytes / shards + n * opt_bytes / opt_shards
     return total
 

@@ -121,12 +121,16 @@ class Runtime:
     # ---- mesh helpers ----
     @property
     def batch_axes(self) -> tuple:
+        """The mesh axes the batch is split over (``data``, and ``model``
+        too under dp, where the batch divides them)."""
         if self.mesh is None:
             return ()
         return self.rules.rules.get("batch") or ()
 
     @property
     def model_shards(self) -> int:
+        """Shards of the vocab or the MLP's d_ff over the model axis: 1 off
+        a mesh and under dp (the rules leave both whole)."""
         return max(self.rules.axis_size("vocab"),
                    self.rules.axis_size("mlp"))
 
@@ -221,8 +225,11 @@ class Runtime:
             census=self.shape_cfg.kind != "decode",
             mesh=self.mesh,
             batch_axes=tuple(self.batch_axes),
+            # the tables' row axis: none under dp, where the model axis
+            # carries batch and the planner cannot row-shard a table
             model_axis=("model" if self.mesh is not None
-                        and "model" in self.mesh.axis_names else ""),
+                        and "model" in self.mesh.axis_names
+                        and "model" not in self.batch_axes else ""),
             # a serving lookup dedupes its own rows: a serve mesh's
             # prefill runs on the replica that owns the slot
             bucketed=self.bucketed or self.shape_cfg.kind == "decode",

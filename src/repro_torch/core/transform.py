@@ -29,15 +29,19 @@ tensor-parallel over ``model``; an ``fsdp`` parameter
 is all-gathered over its data axes before the forward and its gradient
 reduce-scattered after the backward; the dense gradients are averaged over
 the replicas at their wire dtype, in buckets where the plan has them; the
-loss and every scalar metric ride one all-reduce. The correctness
-contract (paper §3.1): the step computes what the single-device step
-computes at equal global batch.
+loss and every scalar metric ride one all-reduce. Under ZeRO-1 each rank
+holds its block of a leaf's optimizer state (``ParamPlan.opt_held``) and
+the optimizer all-gathers the parameter it writes; under the ``dp`` dense
+strategy the model axis is a batch axis (no tensor parallelism, FSDP over
+both axes). The correctness contract (paper §3.1): the step computes what
+the single-device step computes at equal global batch.
 
 ``apply_replan`` / ``Runner.replan(census)`` hot-swap the step onto a plan
 recomputed from a measured census (paper §5's profile -> re-optimize loop;
 runtime/trainer.py drives it): the state stays where it is when the
 placements hold, and travels whole between the two plans' placements
-(``weights.gather_state`` / ``shard_state``) when they moved; a fused
+(``weights.gather_state`` / ``shard_state``) when they moved (the
+optimizer state's too); a fused
 optimizer layout is unfused with the old plan's buckets into copies and
 re-fused with the new plan's.
 """
@@ -66,7 +70,8 @@ from repro_torch.optim.optimizer import (Optimizer, TrainState, fuse_state,
                                          unfuse_state)
 from repro_torch.utils.dtypes import torch_dtype
 from repro_torch.utils.tree import named_parameters
-from repro_torch.weights import gather_state, shard_state, shard_tensor
+from repro_torch.weights import (gather_state, opt_dims, shard_state,
+                                 shard_tensor)
 
 
 def estimate_census(model, rt: Runtime) -> sparsity.Census:
@@ -182,12 +187,29 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census,
             plan = _escalate(plan, specs, rt, stage if stage else 1)
         # bucket the dense exchange after the escalation (fsdp vetoes it)
         buckets.plan_buckets(plan, rt)
-    for name, spec in specs:
-        p = plan.params[name]
-        p.held = (held_placement(p.placement, spec.axes,
-                                 tuple(rt.batch_axes), name=name)
-                  if mesh is not None else ())
+    _set_held(plan, specs, rt)
     return plan
+
+
+def _set_held(plan: Plan, specs: list, rt: Runtime) -> None:
+    """Stamp each ParamPlan's ``held`` and ``opt_held``: the placements
+    the port executes for the parameter and for its optimizer state. A
+    leaf the fused apply reads from its bucket's flat buffer keeps its
+    moments beside the parameter (the reference's ``state_shardings``
+    replicates the bucket buffers); every other leaf's follow
+    ``opt_placement``."""
+    fused = set()
+    if plan.fused_apply:
+        fused = {i for b in plan.bucket_plan.buckets for i in b.idx}
+    ba = tuple(rt.batch_axes)
+    for i, (name, spec) in enumerate(specs):
+        p = plan.params[name]
+        if plan.mesh is None:
+            p.held = p.opt_held = ()
+            continue
+        p.held = held_placement(p.placement, spec.axes, ba, name=name)
+        p.opt_held = p.held if i in fused else held_placement(
+            p.opt_placement, spec.axes, ba, name=name)
 
 
 def _escalate(plan: Plan, specs: list, rt: Runtime, stage: int) -> Plan:
@@ -541,6 +563,21 @@ def _install_params_(model, named: dict) -> None:
                 _set_param(model, n, src)
 
 
+def moment_shapes(own: dict, plan: Plan) -> dict:
+    """{name: the shape of this rank's optimizer state for the parameter
+    ``own[name]``}: the parameter's own shape, cut along the dimensions
+    ZeRO-1 shards its moments over (``ParamPlan.opt_held``)."""
+    out = {}
+    for n, p in own.items():
+        shape = list(p.shape)
+        if plan.mesh is not None:
+            pp = plan.params[n]
+            for d, axes in opt_dims(pp.held, pp.opt_held, plan.mesh):
+                shape[d] //= plan.mesh.axes_size(axes)
+        out[n] = tuple(shape)
+    return out
+
+
 def load_state(model, rt: Runtime, plan: Plan,
                state: TrainState) -> TrainState:
     """A canonical per-parameter state (each leaf whole, or already this
@@ -568,19 +605,6 @@ def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
     is laid out per bucket here (``Runner.state`` hands it out per
     parameter)."""
     check_ported(rt.run_cfg, rt.mesh)
-    if rt.mesh is not None and rt.resolved_strategy == "dp":
-        # the plan records it (analyze plans it); the exchanges of the
-        # port read the model axis as the tables' row shards
-        raise NotImplementedError(
-            "dense_strategy 'dp' (the model axis joining the data axes, "
-            "FSDP over both) is not ported yet: ROADMAP slice 2's rest")
-    if rt.mesh is not None:
-        for p in plan.params.values():
-            if p.opt_placement != p.placement:
-                raise NotImplementedError(
-                    f"{p.name}: optimizer state sharded apart from its "
-                    f"parameter (ZeRO-1, zero_stage {plan.zero_stage}) is "
-                    "not ported yet: ROADMAP Queue 1")
     if rt.mesh is not None:
         place_params_(model, plan, rt.mesh)
     mesh_plan = plan if rt.mesh is not None else None
@@ -589,7 +613,8 @@ def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
             init_params_(model, seed, mesh_plan)
         else:
             load_params_(model, params, mesh_plan)
-        state = optimizer.init(named_parameters(model))
+        own = named_parameters(model)
+        state = optimizer.init(own, shapes=moment_shapes(own, plan))
     else:
         state = load_state(model, rt, plan, state)
     step = make_train_step(model, optimizer, rt, plan)
@@ -606,11 +631,18 @@ def apply_replan(model, optimizer: Optimizer, rt: Runtime, new_plan: Plan,
     a buffer that is about to go survives) and re-fused with the new
     plan's in ``build_step``; when the placements moved every leaf is
     gathered whole on the old plan and cut again on the new one. Marks
-    ``diff['rebuilt']``. -> (train step, state)."""
+    ``diff['rebuilt']``. An ``opt_placement`` change (``plan_diff``'s
+    ``pspecs_changed``) moves the moments too, and so does a change of
+    what the port executes (``held`` / ``opt_held``: a leaf entering or
+    leaving a fused bucket). -> (train step, state)."""
     old_plan = rt.plan
     if is_fused(state):
         state = unfuse_state(state, old_plan.bucket_plan, copy=True)
-    if diff["pspecs_changed"] and new_plan.mesh is not None:
+    moved = diff["pspecs_changed"] or any(
+        (p.held, p.opt_held) != (old_plan.params[n].held,
+                                 old_plan.params[n].opt_held)
+        for n, p in new_plan.params.items())
+    if moved and new_plan.mesh is not None:
         state = gather_state(state, old_plan, old_plan.mesh)
     rt.plan = new_plan           # the model's lookups read the live plan
     step, state = build_step(model, optimizer, rt, new_plan, state=state)

@@ -111,6 +111,51 @@ def cell_config(arch: str) -> ModelConfig:
     return cfg if n is None else dataclasses.replace(cfg, n_layers=n)
 
 
+class MeshCell(NamedTuple):
+    """A training path chip_smoke.py drives on a process mesh of gloo
+    ranks sharing the card."""
+    arch: str
+    mesh: tuple                 # (data, model)
+    shape: ShapeConfig
+    run: RunConfig
+    data: dict                  # SyntheticLM options
+    n_layers: Optional[int] = None  # the depth kept (None: published)
+
+
+# chip_smoke.py's mesh_card_zero and mesh_card_dp. Both at the config's
+# dtypes (bf16, AdamW at 1e-3, remat block, chunked attention), seq 512
+# and global batch 4, Zipf(1.3) tokens; ``table_alpha`` 1.0 prices the
+# table's dense exchange below the gatherv push (the hybrid argmin at the
+# estimated alpha picks mpi_gatherv, whose push scatters repeats on the
+# plain version), so every rank pushes its unique ids one-pass.
+# mesh_card_zero: phi3-medium-14b at its published width with 2 of its 40
+# layers on (2, 1), ZeRO-1 (each rank half of every dense moment): its
+# 1.71 B parameters are 3.4 GB of bf16 weights, 3.4 GB of gradients and
+# 13.7 GB of f32 moments a rank at zero_stage 0, two ranks on one card.
+# mesh_card_dp: hymba-1.5b whole (1.47 B parameters) on (2, 2) under dp
+# (the model axis a batch axis: one row a rank) with ZeRO-1 over both
+# axes (each rank a quarter of every dense moment): ~12 GB a rank.
+MESH_CELLS = {
+    "mesh_card_zero": MeshCell(
+        "phi3-medium-14b", (2, 1), ShapeConfig("train", 512, 4, "train"),
+        RunConfig(zero_stage=1, table_alpha=(("embed", 1.0),)),
+        {"zipf_a": 1.3}, n_layers=2),
+    "mesh_card_dp": MeshCell(
+        "hymba-1.5b", (2, 2), ShapeConfig("train", 512, 4, "train"),
+        RunConfig(dense_strategy="dp", zero_stage=1,
+                  table_alpha=(("embed", 1.0),)),
+        {"zipf_a": 1.3}),
+}
+
+
+def mesh_cell_config(name: str) -> ModelConfig:
+    """``MESH_CELLS[name]``'s published config at its depth."""
+    cell = MESH_CELLS[name]
+    cfg = get_config(cell.arch)
+    return (cfg if cell.n_layers is None
+            else dataclasses.replace(cfg, n_layers=cell.n_layers))
+
+
 # kernel-name fragment -> class, first match wins
 CLASSES = (
     ("gather_rows", "embed_gather"), ("gather_bulk", "embed_gather"),

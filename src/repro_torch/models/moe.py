@@ -189,7 +189,9 @@ def moe_ffn(params: dict, x: torch.Tensor, *, cfg, rt, exec_mode: str,
     model_axis = "model" if (mesh is not None
                              and "model" in mesh.axis_names) else None
     m = mesh.shape[model_axis] if model_axis else 1
-    if exec_mode == "ep" and (m <= 1 or e % m != 0):
+    if exec_mode == "ep" and (m <= 1 or e % m != 0
+                              or model_axis in rt.batch_axes):
+        # under dp the model axis carries batch: the experts are whole
         exec_mode = "tp"
     seq_shardable = exec_mode == "ep" and s % m == 0
 

@@ -483,7 +483,12 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
         # the layers' new carries (autograd may still need the zeros read)
         fresh = cache is None
         if fresh:
-            cache = init_cache(cfg, rt, b, 1)
+            # this call's rows: ``b`` is already this replica's batch on a
+            # mesh (init_cache cuts a global serving batch)
+            cache = tuple(torch.zeros((cfg.n_layers, *a.shape),
+                                      dtype=a.dtype, device=a.device)
+                          for a in rwkv_mod.init_rwkv_carry(
+                              cfg, b, rt.dtype, rt.device))
         block = rwkv_mod.rwkv_block
         if torch.is_grad_enabled():
             block = remat(block, rt.run_cfg.remat)

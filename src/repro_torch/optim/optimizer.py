@@ -7,7 +7,14 @@
     (the order of the ``params`` dict) — another order changes the last
     bits. On a mesh a sharded leaf's partial is first summed over its
     shards (OPAU: only scalars cross ranks).
-  * Moments and EMA shadows live beside their parameter.
+  * EMA shadows live beside their parameter, and so do the moments unless
+    the plan shards them apart from it (ZeRO-1: ``ParamPlan.opt_held``
+    shards one more dimension over the FSDP axes than ``held``). Then the
+    update takes this rank's block of the aggregated (and clipped)
+    gradient and of the parameter, advances the moments' block, writes the
+    parameter's block and all-gathers the parameter over the moments'
+    axes (``weights.block_of`` / ``gather_blocks``). Every operation is
+    elementwise, so the result is bit-equal to the unsharded update.
 
 Updates run in place under ``torch.no_grad()``: the reference returns new
 arrays, the port overwrites the parameters, moments and shadows it is given
@@ -36,7 +43,8 @@ import torch
 
 from repro_torch.core import collectives as coll
 from repro_torch.core.plan import entry_axes
-from repro_torch.weights import gather_tensor
+from repro_torch.weights import (block_of, gather_blocks, gather_tensor,
+                                 opt_dims)
 
 
 @dataclass
@@ -52,7 +60,9 @@ class TrainState:
 @dataclass(frozen=True)
 class Optimizer:
     name: str
-    init: Callable[[dict], TrainState]
+    # (params, shapes=None) -> TrainState; ``shapes``: {name: moment
+    # shape} where the moments are a block of their parameter (ZeRO-1)
+    init: Callable[..., TrainState]
     update: Callable[[TrainState, dict], tuple]
     # bucket-native apply: (state, grads, flat post-all-reduce bucket
     # buffers, BucketPlan) -> (state, metrics); None = per-param only
@@ -153,35 +163,42 @@ def _fused_grads(state: TrainState, grads: dict, bufs: list, bp,
     buffer cast wire -> parameter dtype -> f32 (the slice-back and the
     update's casts), then clipped. The norm's partials are taken per leaf
     in the leaf's own shape and in flatten order, as ``global_norm`` takes
-    them (a flat reduction associates differently). -> (f32 buffers, the
-    unbucketed gradients, metrics)."""
+    them (a flat reduction associates differently), from views of the
+    wire buffers: their cast to f32 there is the same (bf16 and f32 only
+    widen). -> (``g32(k)``: bucket k's clipped f32 gradient, made when
+    asked, so that one bucket's copies live at a time; the unbucketed
+    gradients, clipped; metrics)."""
     names = list(state.params)
     seg = bucket_segments(bp)
     pdt = [state.params[names[b.idx[0]]].dtype for b in bp.buckets]
-    gbufs = [buf.to(d).float() for buf, d in zip(bufs, pdt)]
     rest = {n: g for i, (n, g) in enumerate(grads.items()) if i not in seg}
-    metrics = {}
+    metrics, scale = {}, None
     if clip_norm is not None:
         leaves = {}
         for i, n in enumerate(names):
             if i in seg:
                 k, off, sz = seg[i]
-                leaves[n] = gbufs[k][off:off + sz].view(
-                    state.params[n].shape)
+                leaves[n] = bufs[k][off:off + sz].view(state.params[n].shape)
             else:
                 leaves[n] = grads[n]
         gnorm = global_norm(leaves, rt)
         scale = _clip_scale(gnorm, clip_norm)
-        gbufs = [(gb * scale).to(d).float() for gb, d in zip(gbufs, pdt)]
-        rest = {n: (g.float() * scale).to(g.dtype) for n, g in rest.items()}
+        rest = {n: _clipped(g, scale) for n, g in rest.items()}
         metrics["grad_norm"] = gnorm
-    return gbufs, rest, metrics
+
+    def g32(k: int) -> torch.Tensor:
+        g = bufs[k].to(pdt[k]).float()
+        return g if scale is None else (g * scale).to(pdt[k]).float()
+
+    return g32, rest, metrics
 
 
-def _members(bp, names: list, params: dict):
-    """(bucket k, name, parameter, offset, size) of every bucketed leaf."""
-    for i, (k, off, sz) in bucket_segments(bp).items():
-        yield k, names[i], params[names[i]], off, sz
+def _bucket_members(bp, k: int, names: list, params: dict):
+    """(name, parameter, offset, size) of bucket k's members."""
+    off = 0
+    for i, sz in zip(bp.buckets[k].idx, bp.buckets[k].sizes):
+        yield names[i], params[names[i]], off, sz
+        off += sz
 
 
 def _f32_scalar(x: torch.Tensor) -> float:
@@ -233,11 +250,25 @@ def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
+def _clipped(g: torch.Tensor, scale: Optional[torch.Tensor]
+             ) -> torch.Tensor:
+    return g if scale is None else (g.float() * scale).to(g.dtype)
+
+
 def clip_by_global_norm(grads: dict, max_norm: float, rt=None) -> tuple:
     norm = global_norm(grads, rt)
     scale = _clip_scale(norm, max_norm)
-    return ({n: (g.float() * scale).to(g.dtype) for n, g in grads.items()},
-            norm)
+    return {n: _clipped(g, scale) for n, g in grads.items()}, norm
+
+
+def _clip(grads: dict, max_norm: Optional[float], rt) -> tuple:
+    """-> (the global-norm clip factor, None without clipping; metrics).
+    The update scales each gradient as it reaches it (``_clipped``), so
+    one leaf's clipped copy lives at a time, not the whole set's."""
+    if max_norm is None:
+        return None, {}
+    norm = global_norm(grads, rt)
+    return _clip_scale(norm, max_norm), {"grad_norm": norm}
 
 
 def _ema_update_(ema: Optional[dict], params: dict, decay: float) -> None:
@@ -253,11 +284,48 @@ def _ema_fused_(state: TrainState, bp, names: list, decay: float) -> None:
     slices of one flat buffer per bucket."""
     if state.ema is None:
         return
-    for k, n, p, off, sz in _members(bp, names, state.params):
-        e = state.ema["bucket"][k][off:off + sz].view(p.shape)
-        e.copy_((e.float() * decay + p.float() * (1 - decay)).to(e.dtype))
+    for k, buf in enumerate(state.ema["bucket"]):
+        for n, p, off, sz in _bucket_members(bp, k, names, state.params):
+            e = buf[off:off + sz].view(p.shape)
+            e.copy_((e.float() * decay + p.float() * (1 - decay)).to(
+                e.dtype))
     _ema_update_({n: e for n, e in state.ema["leaf"].items()
                   if e is not None}, state.params, decay)
+
+
+def _zeros(params: dict, shapes: Optional[dict]) -> dict:
+    """f32 zeros for each parameter's optimizer state: its own shape, or
+    ``shapes[name]`` (this rank's block under ZeRO-1)."""
+    shapes = shapes or {}
+    return {n: torch.zeros(shapes.get(n, p.shape), dtype=torch.float32,
+                           device=p.device) for n, p in params.items()}
+
+
+def _opt_dims(rt) -> dict:
+    """{name: ``weights.opt_dims``} of the leaves whose optimizer state is
+    a block of their parameter under the live plan (empty off a mesh)."""
+    if rt is None or rt.mesh is None or rt.plan is None:
+        return {}
+    out = {}
+    for n, p in rt.plan.params.items():
+        dims = opt_dims(p.held, p.opt_held, rt.mesh)
+        if dims:
+            out[n] = dims
+    return out
+
+
+def _apply_leaf_(p: torch.Tensor, g: torch.Tensor, dims: Optional[list],
+                 mesh, fn: Callable) -> None:
+    """``fn(param, grad)`` writes the parameter in place from its
+    gradient and its (already block-shaped) optimizer state. Under ZeRO-1
+    (``dims``) it runs on this rank's block of both, and the written
+    blocks are all-gathered back into the whole parameter."""
+    if not dims:
+        fn(p, g)
+        return
+    blk = block_of(p, dims, mesh).clone()
+    fn(blk, block_of(g, dims, mesh))
+    p.copy_(gather_blocks(blk, dims, mesh))
 
 
 def _ema_init(params: dict, ema_decay: float) -> Optional[dict]:
@@ -275,9 +343,8 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
     per parameter (0.0 = no decay for that parameter)."""
     lr_fn = lr if callable(lr) else (lambda step: lr)
 
-    def init(params: dict) -> TrainState:
-        zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for n, p in params.items()}
+    def init(params: dict, shapes: Optional[dict] = None) -> TrainState:
+        zeros = _zeros(params, shapes)
         return TrainState(
             step=0, params=params, m=zeros,
             v={n: torch.zeros_like(z) for n, z in zeros.items()},
@@ -294,8 +361,10 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
                  bc1: float, bc2: float) -> torch.Tensor:
         """m, v advanced in place; -> the Adam direction."""
         m.mul_(b1).add_(g32 * (1 - b1))
-        v.mul_(b2).add_(torch.square(g32) * (1 - b2))
-        return (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        v.mul_(b2).add_(torch.square(g32).mul_(1 - b2))
+        # the reference's (m / bc1) / (sqrt(v / bc2) + eps), its
+        # temporaries reused
+        return (m / bc1).div_(torch.sqrt(v / bc2).add_(eps))
 
     def write_(p: torch.Tensor, upd32: torch.Tensor, lr_t, wd) -> None:
         if weight_decay:
@@ -307,20 +376,24 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def update(state: TrainState, grads: dict) -> tuple:
-        metrics = {}
-        if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm, rt)
-            metrics["grad_norm"] = gnorm
+        scale, metrics = _clip(grads, clip_norm, rt)
         step = state.step + 1
         bc1, bc2 = corrections(step)
         lr_t = lr_fn(step)
+        zero = _opt_dims(rt)
         for n, p in state.params.items():
-            upd32 = moments_(state.m[n], state.v[n], grads[n].float(),
-                             bc1, bc2)
-            write_(p, upd32, lr_t, wd_of(n))
+            leaf_(n, p, _clipped(grads[n], scale), state.m[n], state.v[n],
+                  bc1, bc2, lr_t, zero.get(n))
         _ema_update_(state.ema, state.params, ema_decay)
         state.step = step
         return state, metrics
+
+    def leaf_(n, p, g, m, v, bc1, bc2, lr_t, dims) -> None:
+        """One leaf's moments and parameter (a block of them under
+        ZeRO-1)."""
+        def fn(pt, gt):
+            write_(pt, moments_(m, v, gt.float(), bc1, bc2), lr_t, wd_of(n))
+        _apply_leaf_(p, g, dims, rt.mesh if dims else None, fn)
 
     @torch.no_grad()
     def update_fused(state: TrainState, grads: dict, bufs: list,
@@ -329,26 +402,28 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
         moment chain against the fused m/v buffers; the unbucketed leaves
         (the sparse tables' pushed gradients) walk the per-leaf path."""
         names = list(state.params)
-        gbufs, rest, metrics = _fused_grads(state, grads, bufs, bp,
-                                            clip_norm, rt)
+        g32, rest, metrics = _fused_grads(state, grads, bufs, bp,
+                                          clip_norm, rt)
         step = state.step + 1
         bc1, bc2 = corrections(step)
         lr_t = lr_fn(step)
-        upd = [moments_(state.m["bucket"][k], state.v["bucket"][k], g32,
-                        bc1, bc2) for k, g32 in enumerate(gbufs)]
-        wd_segs = [_wd_segment(b, names, weight_decay, wd_mask,
-                               upd[k].device)
-                   for k, b in enumerate(bp.buckets)] if weight_decay \
-            else None
-        for k, n, p, off, sz in _members(bp, names, state.params):
-            wd = wd_segs[k] if wd_segs else 0.0
-            if isinstance(wd, torch.Tensor):
-                wd = wd[off:off + sz].view(p.shape)
-            write_(p, upd[k][off:off + sz].view(p.shape), lr_t, wd)
+        # bucket by bucket: one bucket's f32 gradient and update at a time
+        for k, b in enumerate(bp.buckets):
+            upd = moments_(state.m["bucket"][k], state.v["bucket"][k],
+                           g32(k), bc1, bc2)
+            wd_seg = _wd_segment(b, names, weight_decay, wd_mask,
+                                 upd.device) if weight_decay else 0.0
+            for n, p, off, sz in _bucket_members(bp, k, names,
+                                                 state.params):
+                wd = wd_seg
+                if isinstance(wd, torch.Tensor):
+                    wd = wd[off:off + sz].view(p.shape)
+                write_(p, upd[off:off + sz].view(p.shape), lr_t, wd)
+            del upd
+        zero = _opt_dims(rt)
         for n, g in rest.items():
-            upd32 = moments_(state.m["leaf"][n], state.v["leaf"][n],
-                             g.float(), bc1, bc2)
-            write_(state.params[n], upd32, lr_t, wd_of(n))
+            leaf_(n, state.params[n], g, state.m["leaf"][n],
+                  state.v["leaf"][n], bc1, bc2, lr_t, zero.get(n))
         _ema_fused_(state, bp, names, ema_decay)
         state.step = step
         return state, metrics
@@ -361,28 +436,30 @@ def momentum(lr: float | Callable = 1e-2, mu: float = 0.9,
              ema_decay: float = 0.0, rt=None) -> Optimizer:
     lr_fn = lr if callable(lr) else (lambda step: lr)
 
-    def init(params: dict) -> TrainState:
-        return TrainState(
-            step=0, params=params,
-            m={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for n, p in params.items()},
-            v=None, ema=_ema_init(params, ema_decay))
+    def init(params: dict, shapes: Optional[dict] = None) -> TrainState:
+        return TrainState(step=0, params=params, m=_zeros(params, shapes),
+                          v=None, ema=_ema_init(params, ema_decay))
 
     def write_(p: torch.Tensor, m: torch.Tensor, lr_t) -> None:
         p.copy_((p.float() - lr_t * m).to(p.dtype))
 
+    def leaf_(p, g, m, lr_t, dims) -> None:
+        """One leaf's buffer and parameter (a block of them under
+        ZeRO-1)."""
+        def fn(pt, gt):
+            m.mul_(mu).add_(gt.float())
+            write_(pt, m, lr_t)
+        _apply_leaf_(p, g, dims, rt.mesh if dims else None, fn)
+
     @torch.no_grad()
     def update(state: TrainState, grads: dict) -> tuple:
-        metrics = {}
-        if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm, rt)
-            metrics["grad_norm"] = gnorm
+        scale, metrics = _clip(grads, clip_norm, rt)
         step = state.step + 1
         lr_t = lr_fn(step)
+        zero = _opt_dims(rt)
         for n, p in state.params.items():
-            m = state.m[n]
-            m.mul_(mu).add_(grads[n].float())
-            write_(p, m, lr_t)
+            leaf_(p, _clipped(grads[n], scale), state.m[n], lr_t,
+                  zero.get(n))
         _ema_update_(state.ema, state.params, ema_decay)
         state.step = step
         return state, metrics
@@ -391,18 +468,18 @@ def momentum(lr: float | Callable = 1e-2, mu: float = 0.9,
     def update_fused(state: TrainState, grads: dict, bufs: list,
                      bp) -> tuple:
         names = list(state.params)
-        gbufs, rest, metrics = _fused_grads(state, grads, bufs, bp,
-                                            clip_norm, rt)
+        g32, rest, metrics = _fused_grads(state, grads, bufs, bp,
+                                          clip_norm, rt)
         step = state.step + 1
         lr_t = lr_fn(step)
-        for m, g32 in zip(state.m["bucket"], gbufs):
-            m.mul_(mu).add_(g32)
-        for k, n, p, off, sz in _members(bp, names, state.params):
-            write_(p, state.m["bucket"][k][off:off + sz].view(p.shape), lr_t)
+        for k, m in enumerate(state.m["bucket"]):
+            m.mul_(mu).add_(g32(k))
+            for n, p, off, sz in _bucket_members(bp, k, names,
+                                                 state.params):
+                write_(p, m[off:off + sz].view(p.shape), lr_t)
+        zero = _opt_dims(rt)
         for n, g in rest.items():
-            m = state.m["leaf"][n]
-            m.mul_(mu).add_(g.float())
-            write_(state.params[n], m, lr_t)
+            leaf_(state.params[n], g, state.m["leaf"][n], lr_t, zero.get(n))
         _ema_fused_(state, bp, names, ema_decay)
         state.step = step
         return state, metrics
@@ -414,19 +491,17 @@ def sgd(lr: float | Callable = 1e-2,
         clip_norm: Optional[float] = None, rt=None) -> Optimizer:
     lr_fn = lr if callable(lr) else (lambda step: lr)
 
-    def init(params: dict) -> TrainState:
+    def init(params: dict, shapes: Optional[dict] = None) -> TrainState:
         return TrainState(step=0, params=params, m=None, v=None, ema=None)
 
     @torch.no_grad()
     def update(state: TrainState, grads: dict) -> tuple:
-        metrics = {}
-        if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm, rt)
-            metrics["grad_norm"] = gnorm
+        scale, metrics = _clip(grads, clip_norm, rt)
         step = state.step + 1
         lr_t = lr_fn(step)
         for n, p in state.params.items():
-            p.copy_((p.float() - lr_t * grads[n].float()).to(p.dtype))
+            g = _clipped(grads[n], scale)
+            p.copy_((p.float() - lr_t * g.float()).to(p.dtype))
         state.step = step
         return state, metrics
 

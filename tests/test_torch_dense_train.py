@@ -242,9 +242,11 @@ def test_pallas_attention_is_refused_in_training():
 
 
 def test_explicit_sp_and_dp_are_refused_by_name():
-    """``explicit_sp`` runs (its mesh cases: tests/test_torch_tp_mesh.py):
-    off a mesh it changes nothing. ``dense_strategy="dp"`` stays refused
-    by name."""
+    """Neither is refused any more. ``explicit_sp`` runs (its mesh cases:
+    tests/test_torch_tp_mesh.py): off a mesh it changes nothing. The
+    ``dp`` step builds on a ``MeshShape``-planned runtime (the model axis
+    a batch axis, every leaf whole: its mesh cases are
+    tests/test_torch_dp_mesh.py) and off a mesh runs as ``tp`` does."""
     cfg = tc.reduced(tc.get_config("phi3-medium-14b"))
     shape = tc.ShapeConfig("t", SEQ, BATCH, "train")
     batch = SyntheticLM(cfg.vocab_size, SEQ, BATCH).batch(0)
@@ -257,8 +259,16 @@ def test_explicit_sp_and_dp_are_refused_by_name():
     model = build_model(cfg, rt)
     plan = analyze(model, rt)            # planned as the reference plans
     assert rt.resolved_strategy == "dp" and plan.params
-    with pytest.raises(NotImplementedError, match="'dp'.*slice 2"):
-        build_step(model, make_optimizer(rt), rt, plan)
+    assert rt.batch_axes == ("data", "model") and rt.vocab_shards == 1
+    step, state = build_step(model, make_optimizer(rt), rt, plan)
+    assert callable(step)
+    for n, spec in model.param_specs():
+        assert plan.params[n].held == plan.params[n].placement
+        assert tuple(state.params[n].shape) == tuple(spec.shape)
+    dp = [float(get_runner(cfg, shape, tc.RunConfig(
+        dense_strategy=s, **F32), device="cpu").run(batch)["loss"])
+        for s in ("tp", "dp")]
+    assert dp[0] == dp[1] == losses[0]
 
 
 # ---------------------------------------------------------------------------
