@@ -41,13 +41,15 @@ and never prints the final line:
               ops.wkv_route gives each case (bf16 with E 64 and S > 1:
               the tensor-core kernel; S = 1: the step kernel; else the
               scalar one) at rwkv6-7b's prefill (f32 and bf16 lw) and
-              decode shapes, the reference's sweep, chunk 1/16/20/48/64,
-              ragged S 2,047 and 100, a strided view, the step route at
-              B 1 and 4, a tc prefill continued by 8 step tokens, chunk 16
-              against 48, and clamped cases (chunk * |lw| > 80, held
-              against the chunked version only); a misaligned view must
-              raise on the tc route. Tolerances are absolute and relative,
-              the reference's own bars; the difference is summation order.
+              decode shapes and at a (1, 2) rank's 32 heads of them (also
+              as a head-sliced view of 64), the reference's sweep, chunk
+              1/16/20/48/64, ragged S 2,047 and 100, a strided view, the
+              step route at B 1 and 4, a tc prefill continued by 8 step
+              tokens, chunk 16 against 48, and clamped cases (chunk *
+              |lw| > 80, held against the chunked version only); a
+              misaligned view must raise on the tc route. Tolerances are
+              absolute and relative, the reference's own bars; the
+              difference is summation order.
               Kernel, plain and library-call times (CUDA events, median of
               50 runs, L2 flushed before each) beside the bound.
   4. parity   reduced parallax-lm at f32, the same parameters and batches,
@@ -268,10 +270,11 @@ and never prints the final line:
               default moe_exec (ep: each rank's w_gate holds 2 of the 4
               experts, the tokens moved by all_to_all, staged through the
               host) under hybrid and mpi within 5e-4 + 1e-4 i of the
-              one-device card run; moe_exec "tp" (every expert on every
-              rank) within that bar of a (2, 1) run on 2 more ranks (its
-              aux is averaged over the data shards, as the JAX package's
-              is); each rank's expert bytes.
+              one-device card run; moe_exec "tp" (every expert's d_ff/2
+              block on every rank, the outputs summed over model) within
+              that bar of a (2, 1) run on 2 more ranks (its aux is
+              averaged over the data shards, as the JAX package's is);
+              each rank's expert bytes.
      mesh_card_serve = mesh_card (h): the serve mesh. Full-width
               phi3-medium-14b, all 40 layers, served on (1, 2) by two gloo
               ranks on the card (bf16, attention "pallas", the 8 requests
@@ -300,7 +303,7 @@ and never prints the final line:
               published width cut to 2 of 40 layers
               (profile_step.MESH_CELLS) on (2, 1) over 2 gloo ranks on the
               card, bf16, seq 512, batch 4, the table on the dense
-              exchange (table_alpha 1.0): 3 steps at zero_stage 1, then 3
+              exchange (table_alpha 1.0): 2 steps at zero_stage 1, then 2
               at 0 (the fused apply) from the same init, under
               deterministic algorithms: the losses bit for bit, each
               rank's dense moments half of each leaf and the table's
@@ -308,11 +311,44 @@ and never prints the final line:
               peaks and step ms (gloo staged through the host).
      mesh_card_dp = mesh_card (k): the dp dense strategy. hymba-1.5b whole
               on (2, 2) over 4 gloo ranks (the model axis a batch axis, a
-              row a rank) with ZeRO-1 over both axes, 3 steps: the ranks
+              row a rank) with ZeRO-1 over both axes, 2 steps: the ranks
               agree, the losses within rtol 2e-2 of the one-device card
               run from the same init and batches, each rank's dense
               moments a quarter of each leaf. Both phases: a bulk gather
               and a one-pass push a step on every rank.
+     mesh_card_lstm = mesh_card (l): the LSTM tensor-parallel over model.
+              Full-width parallax-lm (main's shape and RunConfig()) and
+              parallax-nmt (nmt's cell) on (2, 2) over 4 gloo ranks, 3
+              steps each, the losses within rel 1e-4 and the gradients'
+              global norms within rel 1e-2 of a one-device card run
+              (made and freed first); each LSTM leaf half of the whole on
+              lstm_hidden (the gate leaves a rank's units of each gate),
+              its blocks gathered over model the one-device leaf bit for
+              bit at step 0; the pulls and pushes the plan's methods
+              predict; the all-reduces a step by axes. mesh_card (b)
+              above runs the LSTM at H/4 a rank.
+     mesh_card_toy = mesh_card (m): ToyServer on process meshes
+              (profile_step.MESH_CELLS): rwkv6-7b whole on (1, 2) (32 of
+              64 heads a rank), hymba-1.5b at 8 of 32 layers on (2, 2)
+              (800 SSM channels, 13 padded q heads a rank). At f32 (the
+              leaves the init makes constant varied) the first 2 of
+              rwkv_serve's prompts, one after the other: the tokens of a
+              one-device f32 run, every device step's logits of the slot
+              that holds the request (rwkv6's 2,048-token prefill's last
+              16 positions too) within 1e-3 of each row's scale of it;
+              the idle slots' rows printed beside one device on the
+              plain WKV. At
+              bf16 rwkv_serve's 8 requests: wkv at 32 heads on every
+              rank (step route in decode, tc in the prefill), the tokens
+              that differ from rwkv_serve's counted; per-rank init peak,
+              decode-step ms, TTFT.
+     mesh_card_moe_tp = mesh_card (n): grok-1 at its published width, 2
+              of 64 layers (profile_step.MESH_CELLS), moe_exec "tp",
+              served by the paged Server on (1, 2): (8, 6,144, 16,384)
+              and (8, 16,384, 6,144) expert blocks a rank; at f32 a
+              2,048-token prefill's logits within 1e-3 of each row's
+              scale of a one-device f32 run, moe_dropped of each; at
+              bf16 the engine's prefill and 8 decode steps.
 
 Each path (main, main_no_la, nmt, train (its adaptive run), train_growth,
 train_resume (both runs), dense_parity (its card runs), dense_train,
@@ -322,8 +358,10 @@ serve, rwkv_serve, stablelm_parity (its card prefills and serving),
 stablelm_serve, families_parity (its card runs), seamless_train,
 hymba_train, chameleon_train, rwkv_train, mesh_card_encdec, moe_parity
 (its card runs), grok_serve, llama4_serve, mesh_card_moe,
-mesh_card_serve, mesh_card_tp, mesh_card_zero (both runs), mesh_card_dp)
-runs with
+mesh_card_serve, mesh_card_tp, mesh_card_zero (both runs), mesh_card_dp,
+mesh_card_lstm (both runs), mesh_card_toy (the bf16 serve loops of both
+meshes and rwkv6's prefill), mesh_card_moe_tp (its bf16 prefills and
+decode steps)) runs with
 every launch
 count set to 0 just before it and read just after: the mesh phases in
 each rank's own process (mesh_card's (a), (b) and (c)'s two runs each so,
@@ -366,7 +404,7 @@ from repro_torch.core.transform import (analyze, get_runner,  # noqa: E402
                                         make_decode_step, make_prefill_step)
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.launch.mesh import make_mesh, spawn  # noqa: E402
+from repro_torch.launch.mesh import MeshShape, make_mesh, spawn  # noqa: E402
 from repro_torch.launch.profile_serve import (SERVE_LAYERS,  # noqa: E402
                                               serve_config)
 from repro_torch.launch.profile_step import (CELLS,  # noqa: E402
@@ -378,10 +416,12 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.moe import pick_exec_mode  # noqa: E402
 from repro_torch.optim.optimizer import is_fused  # noqa: E402
 from repro_torch.runtime.server import (Request, Server,  # noqa: E402
-                                        ServerConfig, ToyServer, bucket_len)
+                                        ServerConfig, ToyServer,
+                                        _gather_slots, bucket_len)
 from repro_torch.utils.roofline import HW  # noqa: E402
 from repro_torch.utils.tree import named_parameters  # noqa: E402
-from repro_torch.weights import load_reference_params  # noqa: E402
+from repro_torch.weights import (load_reference_params,  # noqa: E402
+                                 shard_tensor)
 
 VOCAB, E, SEQ, BATCH = 800_000, 512, 20, 128      # parallax-lm, lm1b cell
 TIMED_RUNS, WARMUP = 50, 5
@@ -520,7 +560,20 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 # every rank pulls on the bulk route and, the table on the
                 # dense exchange, pushes its unique ids one-pass
                 "mesh_card_zero": ("embed_gather", "embed_scatter_add"),
-                "mesh_card_dp": ("embed_gather", "embed_scatter_add")}
+                "mesh_card_dp": ("embed_gather", "embed_scatter_add"),
+                # the LSTM tensor-parallel on (2, 2): every rank pulls on
+                # the bulk route; parallax-lm's table rides mpi_gatherv
+                # (the plain scatter), parallax-nmt's enc_embed the dense
+                # exchange (one-pass pushes)
+                "mesh_card_lstm": ("embed_gather", "embed_scatter_add"),
+                # ToyServer on meshes: rwkv6's rank-of-32-heads WKV on the
+                # step route in every device step, the tc route in the
+                # 2,048-token prefill; every step gathers the rank's vocab
+                # rows
+                "mesh_card_toy": ("embed_gather", "wkv_tc", "wkv_step"),
+                # grok-1's routed experts over model: flash on the tc
+                # route at 24 q heads a rank, a bulk gather a step
+                "mesh_card_moe_tp": ("embed_gather", "flash_attention")}
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
 NMT_CENSUS = tuple(f"{t}_{k}" for t in ("embed", "enc_embed")
                    for k in ("rows", "unique", "dropped"))
@@ -1383,14 +1436,20 @@ def _wkv_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
 
     h, e = get_config(RWKV).n_heads, get_config(RWKV).head_dim
     bf16, f32 = torch.bfloat16, torch.float32
+    # the model's shapes, and a rank's of them on rwkv6's (1, 2) serve mesh
+    # (mesh_card_toy: 32 of the 64 heads; its device steps take the step
+    # route, its 2,048-token prefill the tc route)
     shapes = {"prefill": (1, RWKV_PREFILL, h, e, 32),
               "decode": (SERVE_BATCH, 1, h, e, 32),
+              "mesh_prefill_h32": (1, RWKV_PREFILL, h // 2, e, 32),
+              "mesh_decode_h32": (SERVE_BATCH, 1, h // 2, e, 32),
               "sweep_e16_c16": (1, 64, 2, 16, 16),
               "sweep_e32_c32": (2, 100, 3, 32, 32),
               "sweep_e64_c32": (1, 31, 1, 64, 32)}
     for case, (b, s_, hh, ee, chunk) in shapes.items():
         for dtype in (bf16, f32):
-            model_shape = case in ("prefill", "decode")
+            model_shape = case in ("prefill", "decode", "mesh_prefill_h32",
+                                   "mesh_decode_h32")
             run(case, _wkv_inputs(gen, b, s_, hh, ee, dtype,
                                   f32 if model_shape else dtype), chunk)
     # the tc route: bf16 lw at the prompt, every chunk size, ragged lengths
@@ -1414,6 +1473,23 @@ def _wkv_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
           "wkv/strided: a strided view and its contiguous copy differ")
+    # a rank's heads as a view of the whole model's (the 32 heads from 32
+    # of a 64-head tensor: strided in s and b, offset by 32 heads) on the
+    # step and tc routes, against the plain versions and bit for bit its
+    # contiguous copy
+    for s_ in (1, RWKV_PREFILL):
+        args = _wkv_inputs(gen, SERVE_BATCH if s_ == 1 else 1, s_, h, e,
+                           bf16, f32)
+        views = [t[:, :, h // 2:] for t in args[:4]]
+        check(not views[0].is_contiguous(), "the head slice is contiguous")
+        rest = [args[4][h // 2:].contiguous(),
+                args[5][:, h // 2:].contiguous()]
+        got = run(f"head_slice_s{s_}", views + rest, 32)
+        want = ops.wkv(*[t.contiguous() for t in views], *rest, chunk=32)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"wkv/head_slice_s{s_}: the head-sliced view and its "
+              "contiguous copy differ")
     # the step route at B 1 and 4 (decode above) in both dtypes
     for dtype in (bf16, f32):
         run("step_b1", _wkv_inputs(gen, 1, 1, h, e, dtype, f32), 32)
@@ -1462,6 +1538,20 @@ def _wkv_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
     timed = {"wkv_tc": ("prefill", (1, RWKV_PREFILL, h, e, 32), bf16, f32),
              "wkv_step": ("decode", (SERVE_BATCH, 1, h, e, 32), bf16, f32),
              "wkv": ("prefill", (1, RWKV_PREFILL, h, e, 32), f32, f32)}
+    # a rank's shape on mesh_card_toy's (1, 2) mesh, beside each route's
+    mesh_timed = {"wkv_tc": (1, RWKV_PREFILL, h // 2, e, 32),
+                  "wkv_step": (SERVE_BATCH, 1, h // 2, e, 32)}
+    for row, (b, s_, hh, ee, chunk) in mesh_timed.items():
+        args = _wkv_inputs(gen, b, s_, hh, ee, bf16, f32)
+        route = ops.wkv_route(bf16, ee, s_)
+        res[f"{row}_mesh_h32"] = {
+            "shape": f"{RWKV} on (1, 2), a rank's heads: ({b}, {s_}, {hh}, "
+                     f"{ee}) bfloat16 r/k/v, float32 lw, chunk {chunk}; "
+                     f"route {route}",
+            "kernel_ms": timer.ms(lambda: ops.wkv(*args, chunk=chunk)),
+            "plain_ms": timer.ms(
+                lambda: ref.wkv_chunked_ref(*args, chunk=chunk), 10),
+            **_wkv_bound(route, b, s_, hh, ee, chunk, 2, 4)}
     for row, (case, (b, s_, hh, ee, chunk), dtype, lw_dtype) in timed.items():
         args = _wkv_inputs(gen, b, s_, hh, ee, dtype, lw_dtype)
         route = ops.wkv_route(dtype, ee, s_)
@@ -2059,7 +2149,9 @@ def phase_rwkv_serve(dev, n_requests: int = 8, new: int = 16) -> dict:
            "nvidia_smi": nvidia_smi(
                "clocks.sm,power.draw,power.limit,temperature.gpu")}
     emit(res)
-    return res
+    # mesh_card_toy counts the tokens its bf16 mesh run picks otherwise
+    return {**res,
+            "tokens": {u: list(r.out_tokens) for u, r in done.items()}}
 
 
 def _train(dev, rc: RunConfig, steps: int) -> dict:
@@ -2573,7 +2665,7 @@ def _timed_steps(runner, batches, dev, census_keys=CENSUS) -> dict:
     """Run ``batches`` through ``runner`` with every launch count set to 0
     just before and read just after: losses, step ms, launches, peak."""
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, step_ms, census = [], [], []
+    losses, step_ms, census, norms = [], [], [], []
     ops.reset_launch_counts()
     for b in batches:
         t = time.perf_counter()
@@ -2582,7 +2674,10 @@ def _timed_steps(runner, batches, dev, census_keys=CENSUS) -> dict:
         step_ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(m["loss"]))
         census.append({k: float(m[k]) for k in census_keys})
+        if "grad_norm" in m:
+            norms.append(float(m["grad_norm"]))
     return {"losses": losses, "step_ms": step_ms, "census": census,
+            "grad_norms": norms,
             "median_step_ms": statistics.median(step_ms),
             "launches": ops.launch_counts(),
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
@@ -2677,6 +2772,8 @@ def _card_rank(rank: int, world: int, named: dict, steps: int) -> dict:
     r = _timed_steps(runner, _main_batches(steps), dev)
     out["full_ps"] = {**r, "plan": runner.plan.tables(),
                       "table_shard": list(runner.model.embed.shape),
+                      "lstm_shards": {n: list(p.shape) for n, p in
+                                      _lstm_leaves(runner.model).items()},
                       "model_index": mesh.coords["model"]}
     out["launches"] = {k: total[k] + v for k, v in r["launches"].items()}
     del runner
@@ -2830,6 +2927,13 @@ def phase_mesh_card(main_losses: list, nmt_losses: list,
         check(r["plan"]["embed"]["method"] == "ps"
               and r["table_shard"] == [VOCAB // 4, E],
               f"mesh_card full: plan {r['plan']}, shard {r['table_shard']}")
+        # the LSTM at H/4 a rank: its units of each gate, its w_proj rows
+        h = get_config("parallax-lm").d_ff
+        check(r["lstm_shards"] == {"layers.bias": [1, h],
+                                   "layers.w_h": [1, E, h],
+                                   "layers.w_proj": [1, h // 4, E],
+                                   "layers.w_x": [1, E, h]},
+              f"mesh_card full: LSTM shards {r['lstm_shards']}")
         check(c["embed_gather_bulk"] == steps
               and c["embed_scatter_add_fused"] == steps,
               f"mesh_card full, model shard {m}: launches {c}")
@@ -2848,6 +2952,7 @@ def phase_mesh_card(main_losses: list, nmt_losses: list,
            "reduced": {"mesh": [2, 2], "one_device": single,
                        "flag_sets": reduced_rows},
            "full_ps": {"mesh": [1, 4], "main_losses": main_losses[:steps],
+                       "lstm_shards": full[0]["lstm_shards"],
                        "ranks": [{k: r[k] for k in (
                            "model_index", "losses", "step_ms",
                            "median_step_ms", "max_memory_allocated")}
@@ -3486,10 +3591,11 @@ def phase_mesh_card_moe() -> dict:
     """mesh_card (g): four gloo ranks on the one card, reduced grok-1 on
     (2, 2). ep (hybrid, mpi) within 5e-4 + 1e-4 i of the one-device card
     run (the reference test's bar), each rank's w_gate holding 2 of the 4
-    experts. tp holds the experts whole and routes each replica's rows
-    whole, so it is held to the data-parallel (2, 1) run (two more ranks)
-    within the same bar: its aux is averaged over the two data shards, as
-    the JAX package's is on a (2, 1) mesh."""
+    experts. tp holds every expert's d_ff/2 block a rank ((L, E, d, f/2)
+    w_gate: the expert outputs summed over model) and routes each
+    replica's rows whole, so it is held to the data-parallel (2, 1) run
+    (two more ranks) within the same bar: its aux is averaged over the
+    two data shards, as the JAX package's is on a (2, 1) mesh."""
     cfg, shape, batches = _moe_mesh_setup()
     one = get_runner(cfg, shape, RunConfig(**MOE_MESH_KW), device="cuda",
                      seed=0)
@@ -3501,7 +3607,7 @@ def phase_mesh_card_moe() -> dict:
     dp = spawn(_moe_card_rank, 2, "gloo", "cuda", args=((2, 1), ("hybrid",)),
                timeout=600)[0]["hybrid"]
     rows = {}
-    e = cfg.n_experts
+    e, f = cfg.n_experts, cfg.d_ff
     for name in MOE_MESH_RUNS:
         rs = [r[name] for r in ranks]
         got = rs[0]["losses"]
@@ -3514,8 +3620,10 @@ def phase_mesh_card_moe() -> dict:
             check(abs(a - b) < 5e-4 + 1e-4 * i,
                   f"mesh_card (g) {name} step {i}: {got} vs "
                   f"{'one device' if ep else 'the (2, 1) mesh'} {want}")
+        # ep: 2 of the 4 experts a rank; tp: every expert's d_ff/2 block
         check(all(r["exec"] == ("ep" if ep else "tp")
                   and r["w_gate_shape"][1] == (e // 2 if ep else e)
+                  and r["w_gate_shape"][3] == (f if ep else f // 2)
                   for r in rs),
               f"mesh_card (g) {name}: {[r['w_gate_shape'] for r in rs]}")
         pushes = _one_pass_pushes(rs[0]["method"], len(got))
@@ -3788,7 +3896,7 @@ def _tp_logits(sv, rng) -> dict:
 
     def decode(cache, tokens, lens):
         logits, cache = dec(cache, tokens, lens)
-        rec.append(sv._gather_slots(whole(logits)))
+        rec.append(_gather_slots(sv.rt, whole(logits)))
         return logits, cache
 
     sv.model.prefill_cache_fn, sv.model.decode_fn = prefill, decode
@@ -3803,14 +3911,15 @@ def _tp_logits(sv, rng) -> dict:
             if 0 <= j < sv._local:
                 sv._prefill(sv.cache, sv.lens, sv.tok, padded, n, j, sv._gen)
                 out["prefill"][slot] = rec[-1][0, :n].cpu().numpy()
-            out["tokens"].append(sv._gather_slots(sv.tok)[:, 0].tolist())
+            out["tokens"].append(
+                _gather_slots(sv.rt, sv.tok)[:, 0].tolist())
         active = torch.zeros(TP_SCFG["max_batch"], dtype=torch.bool)
         active[[s for s, _ in TP_SCRIPT]] = True
         active = active[sv._first:sv._first + sv._local].to(rt.device)
         for _ in range(TP_DECODE):
             *_, toks = sv._decode(sv.cache, sv.lens, sv.tok, active, sv._gen)
             out["decode"].append(rec[-1][:, 0].cpu().numpy())
-            out["tokens"].append(sv._gather_slots(toks).tolist())
+            out["tokens"].append(_gather_slots(sv.rt, toks).tolist())
     finally:
         sv.model.prefill_cache_fn, sv.model.decode_fn = pre, dec
     return out
@@ -3922,7 +4031,10 @@ def phase_mesh_card_tp() -> dict:
 
 # ZeRO-1 and the dp dense strategy at full width
 # (``profile_step.MESH_CELLS``: their cuts and knobs)
-MESH_STEPS = 3
+# 2 steps each: the script's mesh phases of the recurrent blocks, the tp
+# experts and ToyServer add ~310 s, and a step of these two cells is
+# 4-15 s of gloo's host staging
+MESH_STEPS = 2
 DP_RTOL = 2e-2              # the families' bf16 bar (test_torch_families)
 
 
@@ -3961,7 +4073,7 @@ def _state_layout(runner) -> dict:
 
 def _mesh_cell_rank(rank: int, world: int, name: str,
                     zero_stages: tuple) -> dict:
-    """One gloo rank on the card of ``MESH_CELLS[name]``: 3 steps from the
+    """One gloo rank on the card of ``MESH_CELLS[name]``: MESH_STEPS from the
     seed-0 init at each of ``zero_stages`` in turn (the first run freed
     before the next), under deterministic algorithms. Each run's losses,
     step ms, launches (set to 0 just before its steps), layout, and peak
@@ -4041,7 +4153,7 @@ def _cell_summary(r: dict) -> dict:
 def phase_mesh_card_zero() -> dict:
     """mesh_card (j): ZeRO-1. phi3-medium-14b at its published width with
     2 of its 40 layers (``profile_step.MESH_CELLS``) on (2, 1), two gloo
-    ranks on the card, the config's dtypes, 3 steps at zero_stage 1, then
+    ranks on the card, the config's dtypes, 2 steps at zero_stage 1, then
     from the same init and batches at zero_stage 0 (the fused apply): the
     losses bit for bit equal (deterministic algorithms; every operation of
     the sharded update is elementwise), each rank's dense moments half of
@@ -4084,7 +4196,7 @@ def phase_mesh_card_dp() -> dict:
     """mesh_card (k): the dp dense strategy. hymba-1.5b whole on (2, 2),
     four gloo ranks on the card (``dense_strategy="dp"``: the model axis a
     batch axis, a row a rank; ZeRO-1 over both axes), the config's dtypes,
-    seq 512, global batch 4, 3 steps: the ranks agree, every loss within
+    seq 512, global batch 4, 2 steps: the ranks agree, every loss within
     rtol 2e-2 of the one-device card run from the same init and batches
     (made before the ranks start), each rank's dense moments a quarter of
     each leaf and the table's whole, its moment bytes the plan's term;
@@ -4122,6 +4234,773 @@ def phase_mesh_card_dp() -> dict:
            "launches": ranks[0][1]["launches"],
            "launches_by_rank": [r[1]["launches"] for r in ranks]}
     emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the recurrent blocks and the routed experts tensor-parallel over model
+# (gloo ranks sharing the card: their times are staged through the host,
+# not exchange times)
+# ---------------------------------------------------------------------------
+
+LSTM_MESH, LSTM_STEPS = (2, 2), 3
+# the LSTM's leaves, by their last name, and the dimension each shards on
+# lstm_hidden (the gate leaves' 4H gate-strided, w_proj's H rows)
+LSTM_LEAVES = {"w_x": -1, "w_h": -1, "bias": -1, "w_proj": -2}
+# mesh_card_lstm's bars against one device at bf16: the losses (a sum's
+# order moves them by 1e-5) and the gradients' global norms
+LSTM_LOSS_RTOL, LSTM_NORM_RTOL = 1e-4, 1e-2
+
+
+def _lstm_cells() -> list:
+    """mesh_card_lstm's runs: main's full-width parallax-lm (lm1b, 20 x
+    128, RunConfig()) and nmt's full-width parallax-nmt (its cell: the
+    two-table knobs, AdamW at 1e-4), 3 steps each."""
+    lm = CELLS["parallax-lm"]
+    return [("parallax-lm", get_config("parallax-lm"), lm.shape, lm.run,
+             _main_batches(LSTM_STEPS), CENSUS),
+            ("parallax-nmt", *_nmt_setup(), _nmt_batches(LSTM_STEPS),
+             NMT_CENSUS)]
+
+
+def _lstm_leaves(model) -> dict:
+    return {n: p for n, p in named_parameters(model).items()
+            if n.split(".")[-1] in LSTM_LEAVES}
+
+
+def _counted_all_reduces():
+    """Wrap ``core/collectives.py::all_reduce`` to count its calls by
+    axes (the counter dict, and a function that unwraps it)."""
+    from repro_torch.core import collectives as coll
+    calls, orig = {}, coll.all_reduce
+
+    def counted(x, axes, mesh, *a, **k):
+        key = axes if isinstance(axes, str) else "+".join(axes)
+        calls[key] = calls.get(key, 0) + 1
+        return orig(x, axes, mesh, *a, **k)
+
+    coll.all_reduce = counted
+    return calls, lambda: setattr(coll, "all_reduce", orig)
+
+
+def _lstm_card_rank(rank: int, world: int, init: dict) -> dict:
+    """One of four ranks on the card over gloo: each of ``_lstm_cells`` on
+    (2, 2) from the seed-0 init, 3 steps. Each LSTM leaf's held shape and
+    its gate-strided blocks gathered over ``model`` at step 0 against the
+    one-device leaf (``init``), the losses, launches, all-reduces by axes,
+    the layout and peaks."""
+    from repro_torch.weights import gather_tensor
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(LSTM_MESH, ("data", "model"), device=dev)
+    out = {}
+    for key, cfg, shape, rc, batches, census in _lstm_cells():
+        torch.cuda.reset_peak_memory_stats(dev)
+        runner = get_runner(cfg, shape, rc, mesh=mesh, seed=0)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated(dev)
+        whole = dict(runner.model.param_specs())
+        leaves = {}
+        for n, p in _lstm_leaves(runner.model).items():
+            pp = runner.plan.params[n]
+            full = gather_tensor(p.detach(), pp.held, mesh, pp.groups)
+            leaves[n] = {"shape": list(p.shape),
+                         "whole": list(whole[n].shape),
+                         "groups": list(pp.groups),
+                         "bitwise": torch.equal(_bits(full.cpu()),
+                                                _bits(init[key][n]))}
+        calls, unwrap = _counted_all_reduces()
+        try:
+            r = _timed_steps(runner, batches, dev, census)
+        finally:
+            unwrap()
+        r.update(_state_layout(runner), leaves=leaves,
+                 init_max_memory_allocated=init_peak,
+                 methods=dict(runner.plan.table_methods),
+                 all_reduces_per_step={k: v / len(batches)
+                                       for k, v in calls.items()})
+        out[key] = r
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_card_lstm() -> dict:
+    """mesh_card (l): the LSTM tensor-parallel over model. Full-width
+    parallax-lm (1 layer of 2,048 units, proj 512, vocab 800,000; main's
+    shape and RunConfig(), bf16) and full-width parallax-nmt (4 + 4 layers
+    of 1,024; nmt's cell) on (2, 2), four gloo ranks on the card, 3 steps
+    each, against a one-device card run from the same init and batches
+    (made and freed before the ranks start): the ranks agree, the losses
+    within rel ``LSTM_LOSS_RTOL`` and the gradients' global norms within
+    rel ``LSTM_NORM_RTOL`` of one device; each LSTM leaf holds 1/2 of the
+    whole on lstm_hidden (the gate leaves a rank's units of each of the
+    four gates) and the blocks of a model pair gathered give the
+    one-device leaf bit for bit at step 0; every rank pulls each table on
+    the bulk route once a step and pushes one-pass as the plan's method
+    predicts; its parameter bytes the plan's term. Per rank: peaks, step
+    ms, the all-reduces a step by axes (the LSTM's: one forward and one
+    backward of (B, P) a time step a layer, over model)."""
+    single, norms, init = {}, {}, {}
+    for key, cfg, shape, rc, batches, _ in _lstm_cells():
+        one = get_runner(cfg, shape, rc, device="cuda", seed=0)
+        init[key] = {n: p.detach().cpu().clone()
+                     for n, p in _lstm_leaves(one.model).items()}
+        ms = [one.run(b) for b in batches]
+        single[key] = [float(m["loss"]) for m in ms]
+        norms[key] = [float(m["grad_norm"]) for m in ms]
+        del one, ms
+        gc.collect()
+        torch.cuda.empty_cache()
+    ranks = spawn(_lstm_card_rank, math.prod(LSTM_MESH), "gloo", "cuda",
+                  args=(init,), timeout=900)
+    rows = {}
+    for key, cfg, *_ in _lstm_cells():
+        rs = [r[key] for r in ranks]
+        got = rs[0]["losses"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(got, single[key]))
+        norm_gap = max(abs(a - b) / abs(b) for a, b in zip(
+            rs[0]["grad_norms"], norms[key]))
+        check(all(r["losses"] == got for r in rs)
+              and len(rs[0]["grad_norms"]) == len(got)
+              and gap <= LSTM_LOSS_RTOL and norm_gap <= LSTM_NORM_RTOL,
+              f"mesh_card (l) {key}: the ranks' losses "
+              f"{[r['losses'] for r in rs]} vs one device {single[key]}: "
+              f"rel {gap} (bar {LSTM_LOSS_RTOL}); gradient norms "
+              f"{rs[0]['grad_norms']} vs {norms[key]}: rel {norm_gap} (bar "
+              f"{LSTM_NORM_RTOL})")
+        tables = rs[0]["methods"]
+        pushes = sum(_one_pass_pushes(m, len(got)) for m in tables.values())
+        for m, r in enumerate(rs):
+            for n, x in r["leaves"].items():
+                d = LSTM_LEAVES[n.split(".")[-1]]
+                want = list(x["whole"])
+                want[d] //= LSTM_MESH[1]
+                check(x["shape"] == want and x["bitwise"],
+                      f"mesh_card (l) {key} rank {m}: {n} holds "
+                      f"{x['shape']} of {x['whole']} (groups "
+                      f"{x['groups']}), gathered bit for bit: "
+                      f"{x['bitwise']}")
+            c = r["launches"]
+            check(c["embed_gather"] == c["embed_gather_bulk"]
+                  == len(tables) * len(got)
+                  and c["embed_scatter_add"] == c["embed_scatter_add_fused"]
+                  == pushes,
+                  f"mesh_card (l) {key} rank {m}: launches {c}, want "
+                  f"{len(tables)} bulk gathers a step and {pushes} one-pass "
+                  f"pushes on {tables}")
+            check(r["param_bytes"] == r["plan_param_bytes"],
+                  f"mesh_card (l) {key} rank {m}: {r['param_bytes']} "
+                  f"parameter bytes, the plan's {r['plan_param_bytes']}")
+        rows[key] = {
+            "one_device": single[key], "losses": got, "rel_gap": gap,
+            "one_device_grad_norms": norms[key],
+            "grad_norms": rs[0]["grad_norms"], "grad_norm_rel_gap": norm_gap,
+            "methods": tables,
+            "all_reduces_per_step": rs[0]["all_reduces_per_step"],
+            "leaves": {n: x["shape"] for n, x in rs[0]["leaves"].items()},
+            "by_rank": [{k: r[k] for k in (
+                "median_step_ms", "step_ms", "param_bytes",
+                "plan_param_bytes", "moment_bytes",
+                "init_max_memory_allocated", "max_memory_allocated")}
+                for r in rs]}
+        emit({"phase": "mesh_card_lstm", "arch": key, **rows[key]})
+    # a rank's launches: the sum of its two runs'
+    by_rank = [{k: sum(rank[key]["launches"][k] for key in rows)
+                for k in rank[key]["launches"]} for rank in ranks]
+    res = {"phase": "mesh_card_lstm", "backend": "gloo",
+           "world": len(ranks), "mesh": list(LSTM_MESH), "runs": rows,
+           "launches": by_rank[0], "launches_by_rank": by_rank}
+    emit({k: v for k, v in res.items() if k != "runs"})
+    return res
+
+
+HYMBA = "hymba-1.5b"
+# mesh_card_toy's cells (``profile_step.MESH_CELLS``): rwkv6 whole on
+# (1, 2), hymba at 8 of 32 layers on (2, 2)
+TOY_CELLS = {RWKV: "mesh_card_toy", HYMBA: "mesh_card_toy_hymba"}
+# The bar of an f32 mesh against one device's f32 run (mesh_card_toy's
+# logits and mesh_card_moe_tp's prefill): each row's largest |difference|
+# over its largest |logit|. The two differ only in the order of their
+# sums; a block missing from a rank's sum moves whole units of the scale.
+MESH_F32_RTOL = 1e-3
+# mesh_card_toy's f32 comparison: the first 2 of rwkv_serve's 8 prompts,
+# 8 new tokens each, served one after the other, every device step's
+# logits recorded
+TOY_CHECK_REQUESTS, TOY_CHECK_NEW = 2, 8
+# the prefill positions whose logits mesh_card_toy compares for rwkv6
+TOY_TAIL = 16
+F32_RUN = dict(param_dtype="float32", compute_dtype="float32")
+
+
+def _record_logits(sv) -> list:
+    """Wrap a ToyServer's decode step to keep, for every device step, its
+    whole logits (slots x vocab, f32 numpy; on a mesh gathered over the
+    vocab shards and the data ranks, so every rank runs the same gathers)
+    and which slots hold a request then."""
+    from repro_torch.core import collectives as coll
+    rec, step, rt = [], sv.decode_step, sv.rt
+
+    def recorded(cache, toks, cache_len):
+        logits, cache = step(cache, toks, cache_len)
+        live = np.array([r is not None for r in sv.slot_req])
+        x = logits[:, 0].float()
+        if rt.mesh is not None:
+            if rt.vocab_shards > 1:
+                x = coll.all_gather(x, "model", rt.mesh, dim=-1)
+            if rt.replicas > 1:
+                x = coll.all_gather(x, tuple(rt.batch_axes), rt.mesh)
+        # numpy: a rank's result travels through a queue, where a tensor
+        # would be shared by a file descriptor its exiting process closes
+        rec.append((x[:, :rt.model_cfg.vocab_size].cpu().numpy(), live))
+        return logits, cache
+
+    sv.decode_step = recorded
+    return rec
+
+
+def _row_rel(x, y) -> float:
+    """The largest |x - y| over the largest |y| of any row (numpy in; 0
+    for no rows)."""
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    return float(((x - y).abs().max(dim=-1).values
+                  / y.abs().max(dim=-1).values).max()) if len(y) else 0.0
+
+
+def _steps_rel(mine: list, want: list) -> dict:
+    """Two ``_record_logits`` records of one schedule: the largest
+    ``_row_rel`` over the rows of slots that hold a request (the logits
+    the server serves from) and over the idle slots' rows, which step
+    with token 0 and serve nothing."""
+    live = idle = 0.0
+    for (x, _), (y, m) in zip(mine, want):
+        live = max(live, _row_rel(x[m], y[m]))
+        idle = max(idle, _row_rel(x[~m], y[~m]))
+    return {"live": live, "idle": idle}
+
+
+def _toy_check(sv) -> list:
+    """mesh_card_toy's f32 schedule: the first ``TOY_CHECK_REQUESTS`` of
+    rwkv_serve's prompts, each submitted when the one before has drained,
+    so each is served in slot 0 from the carry its predecessor left. (A
+    request admitted beside another starts in a slot whose carry the
+    idle steps with token 0 have drifted: rwkv6's logits there lie as far
+    apart between one device's WKV kernel and its plain version as
+    between any two runs.) -> each request's tokens."""
+    rng = np.random.default_rng(0)
+    prompts = _prompts(rng, rng.integers(16, 65, size=8),
+                       sv.rt.model_cfg.vocab_size)
+    out = []
+    for i, p in enumerate(prompts[:TOY_CHECK_REQUESTS]):
+        req = Request(i, p, max_new_tokens=TOY_CHECK_NEW)
+        sv.submit(req)
+        sv.run_until_drained()
+        out.append(list(req.out_tokens))
+    return out
+
+
+def _toy_run(sv, dev, new: int) -> dict:
+    """``rwkv_serve``'s requests through a ToyServer: the same seeds and 8
+    prompts, after the same short warm-up request: the run's launches
+    (set to 0 just before it), TTFT, peak."""
+    cfg = sv.rt.model_cfg
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 65, size=8)
+    prompts = _prompts(rng, lens, cfg.vocab_size)
+    _drain(sv, _prompts(rng, (4,), cfg.vocab_size), 2)
+    before = sv.stats["decode_steps"]
+    sv.completed.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    done = _drain(sv, prompts, new)
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    steps = sv.stats["decode_steps"] - before
+    ttft = sorted(r.ttft for r in done.values())
+    return {"tokens": {u: list(r.out_tokens) for u, r in done.items()},
+            "launches": counts, "decode_steps": steps,
+            "device_steps": steps + sum(len(p) - 1 for p in prompts),
+            "run_s": wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "ttft_ms_p50": ttft[len(ttft) // 2] * 1e3,
+            "ttft_ms_max": ttft[-1] * 1e3}
+
+
+def _toy_server(arch: str, mesh=None, params=None, f32: bool = False):
+    """ToyServer of ``arch``'s mesh_card_toy cell (one device when
+    ``mesh`` is None; f32 weights and compute under ``f32``)."""
+    cell = MESH_CELLS[TOY_CELLS[arch]]
+    rc = replace(cell.run, **F32_RUN) if f32 else cell.run
+    kw = {"mesh": mesh} if mesh is not None else {}
+    return ToyServer(mesh_cell_config(TOY_CELLS[arch]), rc,
+                     ServerConfig(max_batch=cell.shape.global_batch,
+                                  max_seq=cell.shape.seq_len),
+                     params=params, seed=0, **kw)
+
+
+def _rwkv_tail(sv) -> np.ndarray:
+    """The last ``TOY_TAIL`` positions' whole logits of rwkv_serve's
+    2,048-token prefill (f32 numpy)."""
+    from repro_torch.core import collectives as coll
+    cfg = sv.rt.model_cfg
+    ptoks = torch.from_numpy(_rwkv_prompt(cfg.vocab_size)).to(sv.rt.device)
+    logits, _ = make_prefill_step(sv.model, sv.rt, sv.plan)(
+        {"tokens": ptoks})
+    tail = logits[0, -TOY_TAIL:].float()
+    if sv.rt.vocab_shards > 1:
+        tail = coll.all_gather(tail, "model", sv.rt.mesh, dim=-1)
+    return tail[:, :cfg.vocab_size].cpu().numpy()
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _vary_constant_leaves(sv) -> None:
+    """Add seeded N(0, 0.1) noise to every leaf the init makes constant
+    (zeros or ones: rwkv6's token-shift mixes, decay, LoRA B, bonus and
+    group-norm weights, the norms), the same whole values on one device
+    and on every rank (each adds its block). A fresh init holds them
+    uniform over the channels, so no check of a served model could see a
+    rank read another rank's channels of them."""
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for n, spec in sv.model.param_specs():
+            if spec.init not in ("zeros", "ones"):
+                continue
+            noise = torch.randn(spec.shape, generator=gen).mul_(0.1)
+            p = sv.params[n]
+            if tuple(p.shape) != tuple(spec.shape):
+                pp = sv.plan.params[n]
+                noise = shard_tensor(noise, pp.held, sv.rt.mesh, pp.groups)
+            p.add_(noise.to(p.device, p.dtype))
+
+
+def _toy_card_rank(rank: int, world: int, arch: str, new: int,
+                   params_path) -> dict:
+    """One gloo rank on the card: ``arch``'s mesh_card_toy cell served by
+    ToyServer twice. At f32, one device's weights (its seeded draw, or
+    ``params_path``'s padded copy): the check's requests with every
+    device step's logits recorded (rank 0 returns them), and for rwkv6
+    the last positions of rwkv_serve's 2,048-token prefill. At bf16, the
+    seeded draw: rwkv_serve's warm-up and 8 requests, their launches,
+    TTFT and peaks, a decode step's time, the carry's and leaves' shapes;
+    for rwkv6 the prefill's launches."""
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(MESH_CELLS[TOY_CELLS[arch]].mesh, ("data", "model"),
+                     device=dev)
+    params = None
+    if params_path is not None:
+        params = torch.load(params_path, map_location="cpu", mmap=True)
+    sv = _toy_server(arch, mesh, params, f32=True)
+    if params is None:          # a loaded copy holds one device's noise
+        _vary_constant_leaves(sv)
+    del params
+    rec = _record_logits(sv)
+    out = {"rank": rank, "f32_tokens": _toy_check(sv),
+           "f32_steps": rec if rank == 0 else len(rec)}
+    if arch == RWKV:
+        out["f32_tail"] = _rwkv_tail(sv)
+    del sv, rec
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sv = _toy_server(arch, mesh)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    out["init_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out.update(_toy_run(sv, dev, new))
+    timer = Timer(dev)
+    step_toks = torch.zeros((sv._local, 1), dtype=torch.int32, device=dev)
+    out["decode_step_ms"] = timer.ms(
+        lambda: sv.decode_step(sv.cache, step_toks, 64), 10)
+    del timer
+    out["cache"] = [list(c.shape) for c in sv.cache]
+    out["shapes"] = {n: list(sv.params[n].shape) for n in (
+        "layers.tm.w_r", "layers.cm.w_in", "layers.ssm.w_in",
+        "layers.attn.wq") if n in sv.params}
+    out["param_bytes"], out["plan_param_bytes"] = _param_bytes(sv)
+    if arch == RWKV:
+        ops.reset_launch_counts()
+        _rwkv_tail(sv)
+        out["prefill_launches"] = ops.launch_counts()
+    return out
+
+
+def _mesh_padded(sv, name: str) -> dict:
+    """One device's weights (host copies) zero-padded at the end of each
+    dimension the cell's mesh pads (the q heads to the model axis: ``wq``
+    columns, ``wo`` rows; the vocab rows of the table and head), the
+    whole shapes of a model planned on that mesh."""
+    cell = MESH_CELLS[name]
+    rt = Runtime(sv.rt.model_cfg, sv.rt.run_cfg, sv.rt.shape_cfg,
+                 mesh=MeshShape(cell.mesh, ("data", "model")),
+                 device="meta")
+    out = {}
+    for n, spec in build_model(rt.model_cfg, rt).param_specs():
+        t = sv.params[n].detach().cpu()
+        pad = [(0, w - h) for h, w in zip(t.shape, spec.shape)]
+        out[n] = torch.nn.functional.pad(
+            t, [x for p in reversed(pad) for x in p]) if any(
+                b for _, b in pad) else t
+    return out
+
+
+def _plain_wkv_steps(arch: str) -> list:
+    """One device's f32 run of the check's requests with every WKV on its
+    plain version in place of the kernels (``_record_logits``'s record):
+    how far two numerics alone put each row."""
+    real = ops.wkv
+    ops.wkv = lambda *args, chunk=32: ref.wkv_chunked_ref(*args,
+                                                          chunk=chunk)
+    try:
+        sv = _toy_server(arch, f32=True)
+        _vary_constant_leaves(sv)
+        rec = _record_logits(sv)
+        _toy_check(sv)
+    finally:
+        ops.wkv = real
+    del sv
+    _free()
+    return rec
+
+
+def _toy_reference(arch: str) -> dict:
+    """One device's f32 run of ``arch``'s cell: the check's requests
+    with every device step's logits recorded; rwkv6 also its prefill's
+    last positions and the same run on the plain WKV. hymba's weights
+    padded to the mesh's q heads, for the ranks, in a file under build/
+    (a seeded draw at 26 q heads is another model than one at 25)."""
+    sv = _toy_server(arch, f32=True)
+    _vary_constant_leaves(sv)
+    rec = _record_logits(sv)
+    ref = {"tokens": _toy_check(sv), "steps": rec, "params_path": None}
+    if arch == RWKV:
+        ref["tail"] = _rwkv_tail(sv)
+    else:
+        ref["params_path"] = ROOT / "build" / "mesh_card_toy_hymba.pt"
+        ref["params_path"].parent.mkdir(exist_ok=True)
+        torch.save(_mesh_padded(sv, TOY_CELLS[arch]), ref["params_path"])
+    del sv
+    _free()
+    if arch == RWKV:
+        ref["plain_wkv_steps"] = _plain_wkv_steps(arch)
+    return ref
+
+
+def phase_mesh_card_toy(rwkv: dict = None, new: int = 16) -> dict:
+    """mesh_card (m): ToyServer on process meshes (``profile_step.
+    MESH_CELLS``): rwkv6-7b whole on (1, 2) (32 of 64 heads and 7,168 of
+    d_ff 14,336 a rank) and hymba-1.5b at 8 of 32 layers on (2, 2) (800
+    SSM channels and 13 padded q heads a rank). Each at f32 against one
+    device's f32 run, made and freed before the ranks start (hymba's
+    ranks load its weights padded; the constant leaves varied): the
+    first 2 of rwkv_serve's prompts, 8 tokens each, one after the other
+    (``_toy_check``); the same tokens on every rank, and every device
+    step's logits of the slot that holds the request (rwkv6's 2,048-token
+    prefill's last positions too) within ``MESH_F32_RTOL`` of each row's
+    scale; the idle slots' rows printed beside one device's run on the
+    plain WKV. Then at bf16, rwkv_serve's warm-up, 8 requests, seeds and
+    ServerConfig: every rank launches wkv at its 32 heads, the step route
+    once a layer a device step and the tc route once a layer in the
+    prefill, and one gather a device step; the tokens that differ from
+    rwkv_serve's are counted. Per rank: init peak, decode-step ms and
+    TTFT (gloo staged through the host); the phase's seconds by arch."""
+    rows, launches, by_rank = {}, None, []
+    for arch, name in TOY_CELLS.items():
+        t0 = time.perf_counter()
+        cell = MESH_CELLS[name]
+        cfg, mesh = mesh_cell_config(name), cell.mesh
+        want = _toy_reference(arch)
+        ranks = spawn(_toy_card_rank, math.prod(mesh), "gloo", "cuda",
+                      args=(arch, new, want["params_path"]), timeout=900)
+        if want["params_path"] is not None:
+            want["params_path"].unlink()
+        r0 = ranks[0]
+        mine = r0.pop("f32_steps")
+        gaps = _steps_rel(mine, want["steps"])
+        # the idle slots' rows are printed, not held: stepped with token 0
+        # from the start, rwkv6's drift apart between any two numerics
+        # (one device on the plain WKV against its kernels about as far)
+        idle = {"mesh": gaps["idle"]}
+        if "plain_wkv_steps" in want:
+            plain = _steps_rel(want["plain_wkv_steps"], want["steps"])
+            idle.update(one_device_plain_wkv=plain["idle"],
+                        one_device_plain_wkv_live=plain["live"])
+        err = {"steps": [len(mine), len(want["steps"])],
+               "decode": gaps["live"]}
+        if arch == RWKV:
+            err["prefill"] = _row_rel(r0.pop("f32_tail"), want["tail"])
+        row = {"cell": name, "mesh": list(mesh),
+               "cut": f"n_layers {cfg.n_layers} of "
+                      f"{get_config(arch).n_layers}",
+               "rtol": MESH_F32_RTOL, "f32_vs_one_device": err,
+               "f32_idle_rows": idle,
+               "by_rank": [{k: r[k] for k in (
+                   "setup_s", "init_peak_bytes", "max_memory_allocated",
+                   "decode_step_ms", "ttft_ms_p50", "ttft_ms_max", "run_s",
+                   "param_bytes", "cache", "shapes")} for r in ranks]}
+        if arch == RWKV and rwkv is not None:
+            pairs = [(a, b) for u, toks in rwkv["tokens"].items()
+                     for a, b in zip(r0["tokens"][u], toks)]
+            row["bf16_tokens_differ"] = [sum(a != b for a, b in pairs),
+                                         len(pairs)]
+            row["one_device"] = {k: rwkv[k] for k in ("ttft_ms_p50",
+                                                      "ttft_ms_max")}
+        emit({"phase": "mesh_card_toy", "arch": arch, **row})
+        check(len(mine) == len(want["steps"])
+              and all((a == b).all() for (_, a), (_, b)
+                      in zip(mine, want["steps"]))
+              and all(r["f32_tokens"] == want["tokens"] for r in ranks)
+              and all(v <= MESH_F32_RTOL for k, v in err.items()
+                      if k != "steps"),
+              f"mesh_card (m) {arch}: f32 on the mesh against one device: "
+              f"{err} of the scale (bar {MESH_F32_RTOL}), tokens "
+              f"{[r['f32_tokens'] for r in ranks]} vs {want['tokens']}")
+        m = mesh[1]
+        b = SERVE_BATCH // mesh[0]
+        for r in ranks:
+            rk, c = r["rank"], r["launches"]
+            check(r["param_bytes"] == r["plan_param_bytes"],
+                  f"mesh_card (m) {arch} rank {rk}: parameter bytes "
+                  f"{r['param_bytes']}, the plan's {r['plan_param_bytes']}")
+            check(c["embed_gather"] == r["device_steps"],
+                  f"mesh_card (m) {arch} rank {rk}: {c['embed_gather']} "
+                  f"gathers in {r['device_steps']} device steps")
+            if arch == RWKV:
+                h, e = cfg.n_heads // m, cfg.head_dim
+                fc = r["prefill_launches"]
+                check(r["shapes"]["layers.tm.w_r"][-1] == h * e
+                      and r["shapes"]["layers.cm.w_in"][-1] == cfg.d_ff // m
+                      and r["cache"][1] == [cfg.n_layers, b, h, e, e],
+                      f"mesh_card (m) rwkv rank {rk}: {r['shapes']}, "
+                      f"carry {r['cache']}")
+                check(c["wkv"] == c["wkv_step"]
+                      == cfg.n_layers * r["device_steps"]
+                      and fc["wkv"] == fc["wkv_tc"] == cfg.n_layers,
+                      f"mesh_card (m) rwkv rank {rk}: wkv {c} in "
+                      f"{r['device_steps']} device steps, {fc} in the "
+                      "prefill")
+            else:
+                check(r["shapes"]["layers.ssm.w_in"][-1] == cfg.d_model // m
+                      and r["shapes"]["layers.attn.wq"][-1]
+                      == -(-cfg.n_heads // m) * cfg.head_dim
+                      and r["cache"][2] == [cfg.n_layers, b,
+                                            cfg.d_model // m,
+                                            cfg.ssm_state],
+                      f"mesh_card (m) hymba rank {rk}: {r['shapes']}, "
+                      f"carry {r['cache']}")
+            check(max(r["init_peak_bytes"], r["max_memory_allocated"])
+                  < PEAK_LIMIT, f"mesh_card (m) {arch} rank {rk}: peaks "
+                  f"{r['init_peak_bytes']}, {r['max_memory_allocated']}")
+        total = [dict(r["launches"]) for r in ranks]
+        if arch == RWKV:
+            total = [{k: v + r["prefill_launches"][k] for k, v in t.items()}
+                     for t, r in zip(total, ranks)]
+        by_rank += total
+        launches = total[0] if launches is None else {
+            k: launches[k] + v for k, v in total[0].items()}
+        row["seconds"] = time.perf_counter() - t0
+        emit({"phase": "mesh_card_toy", "arch": arch,
+              "seconds": row["seconds"]})
+        rows[arch] = row
+    res = {"phase": "mesh_card_toy", "backend": "gloo",
+           "launches": launches, "launches_by_rank": by_rank}
+    emit(res)
+    return {**res, "runs": rows}
+
+
+MOE_TP_SEQ, MOE_TP_DECODE = 2048, 8
+
+
+def _moe_tp_prefill(sv, toks) -> tuple:
+    """(the prefill's whole logits (S, vocab), f32 numpy on the host,
+    moe_dropped, moe_aux) of one cache-less prefill."""
+    from repro_torch.core import collectives as coll
+    logits, _, met = sv.model.prefill_fn({"tokens": toks})
+    logits = logits[0]
+    if sv.rt.vocab_shards > 1:
+        logits = coll.all_gather(logits, "model", sv.rt.mesh, dim=-1)
+    logits = logits[:, :sv.rt.model_cfg.vocab_size].float()
+    return (logits.cpu().numpy(), int(met["moe_dropped"]),
+            float(met["moe_aux"]))
+
+
+def _moe_tp_server(mesh=None, f32: bool = False):
+    cell = MESH_CELLS["mesh_card_moe_tp"]
+    kw = {"mesh": mesh} if mesh is not None else {"device": "cuda"}
+    rc = replace(cell.run, **F32_RUN) if f32 else cell.run
+    return Server(mesh_cell_config("mesh_card_moe_tp"), rc,
+                  ServerConfig(max_batch=SERVE_BATCH,
+                               max_seq=cell.shape.seq_len), seed=0, **kw)
+
+
+def _moe_tp_tokens(vocab: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, vocab, (1, MOE_TP_SEQ))
+                            .astype(np.int32)).to(dev)
+
+
+def _moe_tp_rank(rank: int, world: int) -> dict:
+    """One gloo rank on the card: grok-1 at its published width, 2 of 64
+    layers, moe_exec "tp", served by the paged engine on (1, 2). At bf16:
+    the expert blocks, one 2,048-token prefill's routing metrics, then
+    the engine's prefill of the same tokens into slot 0 and 8 decode
+    steps, timed; launches, peaks. Then at f32 (the same seeded draw,
+    its constant leaves varied as one device's; the ranks build in
+    turn): the prefill's whole logits (rank 0 returns them) and routing
+    metrics."""
+    from repro_torch.core import collectives as coll
+    dev = torch.device("cuda", 0)
+    cell = MESH_CELLS["mesh_card_moe_tp"]
+    mesh = make_mesh(cell.mesh, ("data", "model"), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sv = _moe_tp_server(mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks = _moe_tp_tokens(sv.rt.model_cfg.vocab_size, dev)
+    ops.reset_launch_counts()
+    _, dropped, aux = _moe_tp_prefill(sv, toks)
+    t = time.perf_counter()
+    sv._prefill(sv.cache, sv.lens, sv.tok, toks, MOE_TP_SEQ, 0, sv._gen)
+    active = torch.zeros(sv._local, dtype=torch.bool, device=dev)
+    active[0] = True
+    outs = []
+    for _ in range(MOE_TP_DECODE):
+        *_, out = sv._decode(sv.cache, sv.lens, sv.tok, active, sv._gen)
+        outs.append(int(out[0]))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    flash_tc = ops.flash_attention.launches_tc
+    length = int(sv.lens[0])
+    timer = Timer(dev)
+    decode_ms = timer.ms(lambda: sv._decode(sv.cache, sv.lens, sv.tok,
+                                             active, sv._gen), 5)
+    got, want = _param_bytes(sv)
+    res = {"rank": rank, "moe_dropped": dropped, "moe_aux": aux,
+           "decoded": outs, "launches": counts,
+           "flash_attention_launches_tc": flash_tc, "lens": length,
+           "experts": {n: list(sv.params[n].shape) for n in (
+               "layers.moe.w_gate", "layers.moe.w_up", "layers.moe.w_down")},
+           "param_bytes": got, "plan_param_bytes": want,
+           "setup_s": setup_s, "init_peak_bytes": init_peak,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "run_s": run_s, "decode_step_ms": decode_ms}
+    del sv, timer
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # one rank's f32 init after the other's: each holds 23 GB of shards
+    # and, while it draws, the stacked w_gate's 12.9 GB of f32 scratch;
+    # two draws at once leave the card too little beside each other
+    for turn in range(world):
+        if turn == rank:
+            sv = _moe_tp_server(mesh, f32=True)
+            _vary_constant_leaves(sv)
+            torch.cuda.empty_cache()
+        coll.barrier(mesh)
+    logits, res["f32_moe_dropped"], res["f32_moe_aux"] = _moe_tp_prefill(
+        sv, toks)
+    res["f32_logits"] = logits if rank == 0 else None
+    res["f32_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return res
+
+
+def phase_mesh_card_moe_tp() -> dict:
+    """mesh_card (n): the routed experts' d_ff tensor-parallel over model.
+    grok-1 at its published width with 2 of its 64 layers
+    (``profile_step.MESH_CELLS``), ``moe_exec="tp"``, served by the paged
+    engine on (1, 2), two gloo ranks on the card: each rank holds
+    (8, 6,144, 16,384) and (8, 16,384, 6,144) expert blocks. At f32, one
+    2,048-token prefill's logits within ``MESH_F32_RTOL`` of each row's
+    scale of a one-device f32 run of the same 2 layers (made and freed
+    first, as a one-device bf16 one; moe_dropped of each is printed).
+    At bf16, the engine's prefill of the same tokens and 8 decode steps:
+    flash on the tc route at the rank's 24 q heads, one bulk gather a
+    prefill and a decode step; parameter bytes the plan's term; per-rank
+    peaks."""
+    torch.cuda.reset_peak_memory_stats()
+    ref = {}
+    for key in ("bf16", "f32"):
+        sv = _moe_tp_server(f32=key == "f32")
+        if key == "f32":
+            _vary_constant_leaves(sv)
+        cfg = sv.rt.model_cfg
+        ref[key] = _moe_tp_prefill(
+            sv, _moe_tp_tokens(cfg.vocab_size, sv.rt.device))
+        sv.close()              # its threads hold the engine
+        del sv
+        _free()
+        if key == "bf16":
+            torch.cuda.synchronize()
+            one_peak = torch.cuda.max_memory_allocated()
+    cell = MESH_CELLS["mesh_card_moe_tp"]
+    ranks = spawn(_moe_tp_rank, math.prod(cell.mesh), "gloo", "cuda",
+                  timeout=900)
+    got, want = ranks[0].pop("f32_logits"), ref["f32"][0]
+    err = {"row_rel": _row_rel(got, want),
+           "frobenius": float(np.linalg.norm(got - want)
+                              / np.linalg.norm(want)),
+           "logit_scale": float(np.abs(want).max())}
+    res = {"phase": "mesh_card_moe_tp", "backend": "gloo",
+           "world": len(ranks), "mesh": list(cell.mesh), "arch": cfg.name,
+           "cut": f"n_layers {cfg.n_layers} of {get_config(GROK).n_layers}",
+           "prefill_tokens": MOE_TP_SEQ, "rtol": MESH_F32_RTOL,
+           "f32_vs_one_device": err,
+           "moe_dropped": {"one_device_bf16": ref["bf16"][1],
+                           "one_device_f32": ref["f32"][1],
+                           "mesh_bf16": [r["moe_dropped"] for r in ranks],
+                           "mesh_f32": [r["f32_moe_dropped"] for r in ranks]},
+           "moe_aux": {"one_device_bf16": ref["bf16"][2],
+                       "one_device_f32": ref["f32"][2],
+                       "mesh_bf16": [r["moe_aux"] for r in ranks],
+                       "mesh_f32": [r["f32_moe_aux"] for r in ranks]},
+           "one_device_peak_bytes": one_peak,
+           "by_rank": [{k: r[k] for k in (
+               "experts", "param_bytes", "setup_s", "init_peak_bytes",
+               "max_memory_allocated", "f32_max_memory_allocated", "run_s",
+               "decode_step_ms", "decoded")} for r in ranks],
+           "launches": ranks[0]["launches"],
+           "launches_by_rank": [r["launches"] for r in ranks]}
+    emit(res)
+    check(bool(np.isfinite(got).all())
+          and err["row_rel"] <= MESH_F32_RTOL,
+          f"mesh_card (n): f32 prefill logits {err} off one device's f32 "
+          f"run (bar {MESH_F32_RTOL} of each row's scale)")
+    m, f, d, e = cell.mesh[1], cfg.d_ff, cfg.d_model, cfg.n_experts
+    for r in ranks:
+        rk, c = r["rank"], r["launches"]
+        check(r["experts"] == {
+            "layers.moe.w_gate": [cfg.n_layers, e, d, f // m],
+            "layers.moe.w_up": [cfg.n_layers, e, d, f // m],
+            "layers.moe.w_down": [cfg.n_layers, e, f // m, d]},
+            f"mesh_card (n) rank {rk}: experts {r['experts']}")
+        check(r["param_bytes"] == r["plan_param_bytes"],
+              f"mesh_card (n) rank {rk}: {r['param_bytes']} parameter "
+              f"bytes, the plan's {r['plan_param_bytes']}")
+        check(c["flash_attention"] == 2 * cfg.n_layers
+              == r["flash_attention_launches_tc"],
+              f"mesh_card (n) rank {rk}: flash {c['flash_attention']} "
+              f"({r['flash_attention_launches_tc']} tc) in 2 prefills")
+        check(c["embed_gather"] == c["embed_gather_bulk"]
+              == 2 + MOE_TP_DECODE,
+              f"mesh_card (n) rank {rk}: gathers {c}")
+        check(r["decoded"] == ranks[0]["decoded"]
+              and all(0 <= t < cfg.vocab_size for t in r["decoded"])
+              and r["lens"] == MOE_TP_SEQ + MOE_TP_DECODE,
+              f"mesh_card (n) rank {rk}: decoded {r['decoded']}, "
+              f"length {r['lens']}")
+        check(max(r["init_peak_bytes"], r["max_memory_allocated"],
+                  r["f32_max_memory_allocated"]) < PEAK_LIMIT,
+              f"mesh_card (n) rank {rk}: peaks {r['init_peak_bytes']}, "
+              f"{r['max_memory_allocated']}, "
+              f"{r['f32_max_memory_allocated']}")
     return res
 
 
@@ -4219,8 +5098,8 @@ def main() -> None:
                                  phase_replan_replay)["launches"]
     serve = run("serve", phase_serve, dev)
     paths["serve"] = serve["launches"]
-    paths["rwkv_serve"] = run("rwkv_serve", phase_rwkv_serve,
-                              dev)["launches"]
+    rwkv_serve = run("rwkv_serve", phase_rwkv_serve, dev)
+    paths["rwkv_serve"] = rwkv_serve["launches"]
     paths["stablelm_parity"] = run("stablelm_parity",
                                    phase_stablelm_parity)["launches"]
     stablelm = run("stablelm_serve", phase_serve, dev, 8, 16, STABLELM,
@@ -4248,6 +5127,12 @@ def main() -> None:
     mesh_dp = run("mesh_card_dp", phase_mesh_card_dp)
     paths["mesh_card_zero"] = mesh_zero["launches"]
     paths["mesh_card_dp"] = mesh_dp["launches"]
+    mesh_lstm = run("mesh_card_lstm", phase_mesh_card_lstm)
+    mesh_toy = run("mesh_card_toy", phase_mesh_card_toy, rwkv_serve)
+    mesh_moe_tp = run("mesh_card_moe_tp", phase_mesh_card_moe_tp)
+    paths["mesh_card_lstm"] = mesh_lstm["launches"]
+    paths["mesh_card_toy"] = mesh_toy["launches"]
+    paths["mesh_card_moe_tp"] = mesh_moe_tp["launches"]
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} not launched on {path}")
@@ -4293,6 +5178,15 @@ def main() -> None:
             rows[-1].update({key: k[key] for key in (
                 "host_ms_per_call", "scalar_kernel_ms", "ops_bound_ms",
                 "bytes_bound_ms") if key in k})
+        if name in ("wkv_tc", "wkv_step"):
+            # a rank's 32 heads on mesh_card_toy's (1, 2) mesh: the time
+            # at that shape and every rank's launches there
+            rows[-1]["mesh_h32"] = {
+                **{key: kern[f"{name}_mesh_h32"][key] for key in (
+                    "shape", "kernel_ms", "plain_ms", "bound_ms",
+                    "bound_by")},
+                "launches_by_rank": [c[name] for c in
+                                     mesh_toy["launches_by_rank"]]}
         if name == "flash_attention":
             rows[-1]["launches_tc"] = serve["flash_attention_launches_tc"]
             rows[-1]["by_len"] = {
@@ -4330,7 +5224,10 @@ def main() -> None:
                 for p, res in (("mesh_card_serve", mesh_serve),
                                ("mesh_card_tp", mesh_tp),
                                ("mesh_card_zero", mesh_zero),
-                               ("mesh_card_dp", mesh_dp))}
+                               ("mesh_card_dp", mesh_dp),
+                               ("mesh_card_lstm", mesh_lstm),
+                               ("mesh_card_toy", mesh_toy),
+                               ("mesh_card_moe_tp", mesh_moe_tp))}
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,20 +7,25 @@ dtype its gradient rides (OPSW) and its placement. A placement is the
 reference's ``PartitionSpec`` as a tuple: one entry per dimension, each
 ``None``, an axis name or a tuple of axis names (``()`` on one device).
 
-``held`` is the placement the port executes, decided by parameter
-(``tp_sharded``): the model axis stays on a ``vocab`` dimension (the PS
-tables and the head), an ``experts`` one (the MoE's experts under
-expert-parallel execution: E/M on each rank), and the ``q_heads`` /
-``heads_hd`` / ``mlp`` dimension of the blocks that run tensor-parallel
-over ``model`` -- the attention block's ``wq`` / ``wo`` (self and cross),
-the SwiGLU MLP's ``w_gate`` / ``w_up`` / ``w_down`` and the MoE shared
-expert's ``shared_*``. Elsewhere it drops the model axis: the LSTM
-(``lstm_hidden``), the RWKV and selective-SSM blocks and the routed
-experts' d_ff run whole on every model rank (ROADMAP slice 2's rest; the
-values are the same). The data-axis (FSDP) entries stay. So for the dense
-and vlm families ``held == placement`` on every leaf, and under the ``dp``
-dense strategy (the model axis a batch axis, the rules' model entries
-None) on every leaf of every family.
+``held`` is the placement the port executes. For a training plan it is
+the placement itself on every leaf of every family: each block that the
+rules shard over ``model`` runs tensor-parallel on its held block (the
+attention, the SwiGLU MLP, the LSTM, the selective SSM, the RWKV time and
+channel mixes, the routed experts' d_ff under ``tp``, the shared expert;
+every block keys on the held shape of its leaf, never on the mesh's), the
+vocab-sharded tables and head, the experts under ``ep``. A server keeps
+its weights whole over the batch axes (``model_part``: a placement from
+the memory escalation prices optimizer bytes a server never holds).
+
+``groups`` says how a rank's model-axis block is laid out: per dimension,
+the number of equal groups it takes its share of each of. It is 1 (a
+contiguous block) except on the 4H dimension of the LSTM's ``w_x``,
+``w_h`` and ``bias`` (``gate_groups``): there a rank holds its H/M units
+of each of the four gates i, f, g, o (4H/M columns), so the cell's
+elementwise step finds every gate of its units on its own rank and
+``w_proj``'s contiguous rows are the same units. The bytes are the plan's;
+the leaf whole (on disk, in a gathered state) keeps the reference's
+layout (``weights.py`` cuts and gathers it; ROADMAP Queue 3).
 
 ``opt_held`` is its counterpart for the optimizer state (AdamW's moments,
 momentum's buffer): ``opt_placement`` read the same way. Under ZeRO-1
@@ -155,6 +160,9 @@ class ParamPlan:
     est_cost: dict = field(default_factory=dict)
     held: tuple = ()                   # the placement the port executes
     opt_held: tuple = ()               # ... and the optimizer state's
+    groups: tuple = ()                 # per dim: the groups a model-axis
+                                       # block takes its share of (the
+                                       # LSTM's gates: 4), else 1
 
 
 @dataclass
@@ -317,36 +325,29 @@ def add_fsdp(pspec: tuple, shape: tuple, mesh,
     return tuple(entries)
 
 
-# the leaves whose model-axis dimension the port shards (the blocks that
-# run tensor-parallel): the attention projections of q and of the output,
-# self and cross, the SwiGLU MLP and the MoE shared expert, by the last two
-# components of the dotted name
-TP_LEAVES = frozenset({"attn.wq", "attn.wo", "cross.wq", "cross.wo",
-                       "mlp.w_gate", "mlp.w_up", "mlp.w_down",
-                       "moe.shared_gate", "moe.shared_up", "moe.shared_down"})
-TP_AXES = ("q_heads", "heads_hd", "mlp")
+# the LSTM leaves whose lstm_hidden dimension is the four gates' 4H
+GATE_LEAVES = ("w_x", "w_h", "bias")
+N_GATES = 4
 
 
-def tp_sharded(name: str) -> bool:
-    """Does the port shard this parameter's ``q_heads`` / ``heads_hd`` /
-    ``mlp`` dimension over ``model`` (a tensor-parallel block's leaf)?"""
-    return ".".join(name.split(".")[-2:]) in TP_LEAVES
+def gate_groups(name: str, logical: tuple, held: tuple,
+                model_axis: str = "model") -> tuple:
+    """``ParamPlan.groups`` of a leaf: ``N_GATES`` on the ``lstm_hidden``
+    dimension of an LSTM gate leaf held over the model axis alone (the
+    tensor-parallel cell's gate-strided block), 1 everywhere else (a
+    ZeRO-3 or dp block over the batch axes is contiguous: the leaf is
+    gathered whole before use)."""
+    gates = name.split(".")[-1] in GATE_LEAVES
+    return tuple(N_GATES if gates and axis == "lstm_hidden"
+                 and entry_axes(e) == (model_axis,) else 1
+                 for e, axis in zip(held, logical))
 
 
-def held_placement(placement: tuple, logical: tuple, batch_axes: tuple,
-                   model_axis: str = "model", name: str = "") -> tuple:
-    """The placement the port executes: ``placement`` with the model axis
-    kept on a ``vocab`` or ``experts`` dimension, and on a ``q_heads`` /
-    ``heads_hd`` / ``mlp`` one of a ``tp_sharded`` parameter ``name``;
-    batch-axis entries always kept."""
-    keep_names = ("vocab", "experts") + (TP_AXES if tp_sharded(name) else ())
-    out = []
-    for e, axis in zip(placement, logical):
-        keep = tuple(a for a in entry_axes(e)
-                     if a in batch_axes or (a == model_axis
-                                            and axis in keep_names))
-        out.append(keep[0] if len(keep) == 1 else (keep or None))
-    return tuple(out)
+def model_part(placement: tuple, model_axis: str = "model") -> tuple:
+    """``placement`` with every axis but the model axis dropped: a
+    server's weights, whole over the batch axes."""
+    return tuple(model_axis if model_axis in entry_axes(e) else None
+                 for e in placement)
 
 
 def per_device_bytes(specs: list, rules: MeshRules, plans: list,

@@ -59,8 +59,7 @@ from repro_torch.core import buckets, cost_model, sparsity
 from repro_torch.core import collectives as coll
 from repro_torch.core import embedding
 from repro_torch.core.plan import (ParamPlan, Plan, add_fsdp, entry_axes,
-                                   held_placement, per_device_bytes,
-                                   plan_diff)
+                                   gate_groups, per_device_bytes, plan_diff)
 from repro_torch.core.runtime import Runtime, check_ported, mesh_dims
 from repro_torch.launch.mesh import Mesh, MeshShape
 from repro_torch.models.layers import flatten_specs, init_std
@@ -70,7 +69,8 @@ from repro_torch.optim.optimizer import (Optimizer, TrainState, fuse_state,
                                          unfuse_state)
 from repro_torch.utils.dtypes import torch_dtype
 from repro_torch.utils.tree import named_parameters
-from repro_torch.weights import (gather_state, opt_dims, shard_state,
+from repro_torch.weights import (block_dims, block_of, gather_state,
+                                 opt_dims, shard_shape, shard_state,
                                  shard_tensor)
 
 
@@ -187,29 +187,28 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census,
             plan = _escalate(plan, specs, rt, stage if stage else 1)
         # bucket the dense exchange after the escalation (fsdp vetoes it)
         buckets.plan_buckets(plan, rt)
-    _set_held(plan, specs, rt)
+    _set_held(plan, specs)
     return plan
 
 
-def _set_held(plan: Plan, specs: list, rt: Runtime) -> None:
+def _set_held(plan: Plan, specs: list) -> None:
     """Stamp each ParamPlan's ``held`` and ``opt_held``: the placements
-    the port executes for the parameter and for its optimizer state. A
-    leaf the fused apply reads from its bucket's flat buffer keeps its
-    moments beside the parameter (the reference's ``state_shardings``
-    replicates the bucket buffers); every other leaf's follow
-    ``opt_placement``."""
+    the port executes for the parameter and for its optimizer state, and
+    the layout ``groups`` of its model-axis block. Every block runs on
+    the plan's own placement; a leaf the fused apply reads from its
+    bucket's flat buffer keeps its moments beside the parameter (the
+    reference's ``state_shardings`` replicates the bucket buffers)."""
     fused = set()
     if plan.fused_apply:
         fused = {i for b in plan.bucket_plan.buckets for i in b.idx}
-    ba = tuple(rt.batch_axes)
     for i, (name, spec) in enumerate(specs):
         p = plan.params[name]
         if plan.mesh is None:
-            p.held = p.opt_held = ()
+            p.held = p.opt_held = p.groups = ()
             continue
-        p.held = held_placement(p.placement, spec.axes, ba, name=name)
-        p.opt_held = p.held if i in fused else held_placement(
-            p.opt_placement, spec.axes, ba, name=name)
+        p.held = p.placement
+        p.opt_held = p.held if i in fused else p.opt_placement
+        p.groups = gate_groups(name, spec.axes, p.held)
 
 
 def _escalate(plan: Plan, specs: list, rt: Runtime, stage: int) -> Plan:
@@ -412,7 +411,8 @@ def load_params_(model, named: dict, plan: Optional[Plan] = None) -> None:
             src = named[n]
             if plan is not None and plan.mesh is not None and \
                     tuple(src.shape) == tuple(whole[n].shape):
-                src = shard_tensor(src, plan.params[n].held, plan.mesh)
+                pp = plan.params[n]
+                src = shard_tensor(src, pp.held, plan.mesh, pp.groups)
             if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
                 raise ValueError(
                     f"{n}: got {src.dtype} {tuple(src.shape)}, want "
@@ -442,26 +442,14 @@ def _draw_blocks(gen: torch.Generator, shape: tuple, std: float,
                               device=device).mul_(std)
 
 
-def _shard_region(shape: tuple, held: tuple, mesh) -> list:
-    """[(start, size)] per dimension of this rank's block under ``held``."""
-    out = [(0, n) for n in shape]
-    for d, e in enumerate(held):
-        axes = entry_axes(e)
-        k = mesh.axes_size(axes)
-        if k > 1:
-            size = shape[d] // k
-            out[d] = (mesh.index(axes) * size, size)
-    return out
-
-
 def _draw_all_(model, seed: int, targets: dict,
                plan: Optional[Plan] = None) -> None:
     """Fresh parameters from ``seed`` into ``targets`` ({name: tensor}),
     one leaf at a time: one torch.Generator on the model's device drawing
     each parameter whole, in flatten order. ``plan`` (on a process mesh):
-    a target holds this rank's shard (``ParamPlan.held``), so every rank
-    gets its block of the one-device draw without holding the whole
-    model."""
+    a target holds this rank's shard (``ParamPlan.held`` and ``groups``),
+    so every rank gets its block of the one-device draw without holding
+    the whole model."""
     gen = torch.Generator(device=model.rt.device)
     gen.manual_seed(seed)
     with torch.no_grad():
@@ -472,32 +460,38 @@ def _draw_all_(model, seed: int, targets: dict,
             elif spec.init == "ones":
                 out.fill_(1)
             else:
-                region = None
+                dims = None
                 if plan is not None and tuple(out.shape) != tuple(spec.shape):
-                    region = _shard_region(spec.shape, plan.params[n].held,
-                                           plan.mesh)
+                    pp = plan.params[n]
+                    dims = block_dims(pp.held, plan.mesh, pp.groups)
                 for idx, blk in _draw_blocks(gen, spec.shape, init_std(spec),
                                              INIT_DRAW_BYTES, out.device):
-                    if region is None:
+                    if dims is None:
                         out[idx].copy_(blk)
                     else:
-                        _copy_block_(out, idx, blk, region)
+                        _copy_block_(out, idx, blk, dims, plan.mesh)
                     # freed before the next block is drawn: one block of
                     # scratch at a time
                     del blk
 
 
 def _copy_block_(out: torch.Tensor, idx: tuple, blk: torch.Tensor,
-                 region: list) -> None:
+                 dims: list, mesh) -> None:
     """Copy the part of draw block ``blk`` (the leaf at index prefix
-    ``idx``) that lies in this rank's ``region`` into its shard ``out``."""
-    for i, (lo, n) in zip(idx, region):
-        if not lo <= i < lo + n:
+    ``idx``) that lies in this rank's block (``dims``: [(dim, axes,
+    groups)] of the whole leaf) into its shard ``out``. A leading
+    (indexed) dimension is never grouped: the draw splits the leading
+    dimensions of a stacked leaf, and a grouped one is the last."""
+    pos, rest = list(idx), []
+    for d, axes, g in dims:
+        if d >= len(idx):
+            rest.append((d - len(idx), axes, g))
+            continue
+        lo = mesh.index(axes) * out.shape[d]
+        if not lo <= idx[d] < lo + out.shape[d]:
             return
-    dst = out[tuple(i - lo for i, (lo, _) in zip(idx, region))]
-    for d, (lo, n) in enumerate(region[len(idx):]):
-        blk = blk.narrow(d, lo, n)
-    dst.copy_(blk)
+        pos[d] -= lo
+    out[tuple(pos)].copy_(block_of(blk, rest, mesh))
 
 
 def _draw_params(model, seed: int) -> dict:
@@ -527,8 +521,7 @@ def place_params_(model, plan: Plan, mesh) -> None:
     for n, p in named_parameters(model).items():
         if p.device.type != "meta":
             continue
-        shape = [k for _, k in _shard_region(tuple(p.shape),
-                                             plan.params[n].held, mesh)]
+        shape = shard_shape(tuple(p.shape), plan.params[n].held, mesh)
         *path, attr = n.split(".")
         setattr(model.get_submodule(".".join(path)), attr, nn.Parameter(
             torch.empty(shape, dtype=p.dtype, device=dev)))
@@ -572,7 +565,7 @@ def moment_shapes(own: dict, plan: Plan) -> dict:
         shape = list(p.shape)
         if plan.mesh is not None:
             pp = plan.params[n]
-            for d, axes in opt_dims(pp.held, pp.opt_held, plan.mesh):
+            for d, axes, _ in opt_dims(pp.held, pp.opt_held, plan.mesh):
                 shape[d] //= plan.mesh.axes_size(axes)
         out[n] = tuple(shape)
     return out

@@ -122,9 +122,10 @@ class MeshCell(NamedTuple):
     n_layers: Optional[int] = None  # the depth kept (None: published)
 
 
-# chip_smoke.py's mesh_card_zero and mesh_card_dp. Both at the config's
-# dtypes (bf16, AdamW at 1e-3, remat block, chunked attention), seq 512
-# and global batch 4, Zipf(1.3) tokens; ``table_alpha`` 1.0 prices the
+# chip_smoke.py's mesh_card_zero, mesh_card_dp, mesh_card_moe_tp and
+# mesh_card_toy. The first two at the config's dtypes (bf16, AdamW at
+# 1e-3, remat block, chunked attention), seq 512 and global batch 4,
+# Zipf(1.3) tokens; ``table_alpha`` 1.0 prices the
 # table's dense exchange below the gatherv push (the hybrid argmin at the
 # estimated alpha picks mpi_gatherv, whose push scatters repeats on the
 # plain version), so every rank pushes its unique ids one-pass.
@@ -135,6 +136,16 @@ class MeshCell(NamedTuple):
 # mesh_card_dp: hymba-1.5b whole (1.47 B parameters) on (2, 2) under dp
 # (the model axis a batch axis: one row a rank) with ZeRO-1 over both
 # axes (each rank a quarter of every dense moment): ~12 GB a rank.
+# mesh_card_moe_tp and mesh_card_toy are served, not trained (their shape
+# the engine's decode cell). mesh_card_moe_tp: grok-1-314b at its
+# published width with 2 of its 64 layers on (1, 2) under moe_exec "tp",
+# each rank every expert's d_ff/2 block: 2 layers of experts are 19.3 GB
+# of bf16, 9.7 GB a rank, plus the stacked w_gate's 12.9 GB f32 draw at
+# init. mesh_card_toy: ToyServer on rwkv6-7b whole on (1, 2) and on
+# hymba-1.5b at 8 of its 32 layers on (2, 2): four gloo ranks step a
+# hymba layer at ~19 ms (~190 host-staged collectives a 32-layer step
+# took 608 ms a rank), so the whole model's ~320 device steps would take
+# ~190 s of the script's limit.
 MESH_CELLS = {
     "mesh_card_zero": MeshCell(
         "phi3-medium-14b", (2, 1), ShapeConfig("train", 512, 4, "train"),
@@ -145,6 +156,15 @@ MESH_CELLS = {
         RunConfig(dense_strategy="dp", zero_stage=1,
                   table_alpha=(("embed", 1.0),)),
         {"zipf_a": 1.3}),
+    "mesh_card_moe_tp": MeshCell(
+        "grok-1-314b", (1, 2), ShapeConfig("serve", 4096, 4, "decode"),
+        RunConfig(moe_exec="tp", attention_impl="pallas"), {}, n_layers=2),
+    "mesh_card_toy": MeshCell(
+        "rwkv6-7b", (1, 2), ShapeConfig("serve", 2048, 4, "decode"),
+        RunConfig(), {}),
+    "mesh_card_toy_hymba": MeshCell(
+        "hymba-1.5b", (2, 2), ShapeConfig("serve", 2048, 4, "decode"),
+        RunConfig(), {}, n_layers=8),
 }
 
 

@@ -27,11 +27,15 @@ launcher serves with ``RunConfig(attention_impl="naive")``.
 
 ``--devices N --mesh DxM`` serves on a process mesh: N ranks
 (``launch/mesh.py::spawn``), NCCL when there is a card per rank, gloo
-otherwise (several ranks on one card, or the CPU), each running the paged
-``Server`` on its shards: the attention and MLP tensor-parallel over
-``model``, the slots over the data axis, the decode cache's positions over
-``model``. Rank 0 prints the report. ``--engine toy`` on a mesh is refused
-(ROADMAP slice 2's rest).
+otherwise (several ranks on one card, or the CPU), each running the
+engine (the paged ``Server``, or ``ToyServer`` under ``--engine toy``) on
+its shards: every block the plan shards tensor-parallel over ``model``,
+the slots over the data axis, the decode cache's positions (or the
+recurrent carry's units, channels or heads) over ``model``. Rank 0 prints
+the report:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --engine toy --devices 2 --mesh 1x2
 """
 from __future__ import annotations
 
@@ -146,10 +150,6 @@ def main(argv=None, *, device=None) -> list:
     rank's [(uid, prompt, tokens)]."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parse(argv)
-    if args.mesh and args.engine == "toy":
-        raise NotImplementedError(
-            "--engine toy on a mesh is not ported yet: ROADMAP slice 2's "
-            "rest (ToyServer on a mesh); the paged engine serves on one")
     dev = torch.device("cuda" if device is None else device)
     if not args.mesh:
         if args.devices > 1:

@@ -1,6 +1,6 @@
 """Encoder-decoder backbone (seamless-m4t, family ``audio``): a transformer
 encoder over stub frame embeddings and a causal decoder with cross
-attention (the port of ``repro/models/encdec.py``), single device.
+attention (the port of ``repro/models/encdec.py``).
 
 The cell's ``seq_len`` splits enc:dec as (seq_len // 4, seq_len): audio
 frames are time-compressed ~4x by the (stubbed) conformer adaptor, so a
@@ -9,9 +9,10 @@ stacked under the reference's dotted names (``enc_layers.attn.wq``,
 ``dec_layers.cross.wk``, ...); the reference's ``lax.scan`` becomes a
 Python loop over the stack. On a process mesh the attention (self and
 cross) and the MLP run tensor-parallel over ``model`` as the decoder LM's
-do (``transformer.attn_block`` / ``mlp_block``). The decoder's table ``embed`` goes through the
-PS lookup (the ``embed_gather`` kernel on the card), the head is untied.
-With ``attention_impl="pallas"`` outside autograd the encoder's and the
+do (``transformer.attn_block`` / ``mlp_block``), in training and in
+``ToyServer``'s decode on a serve mesh. The decoder's table ``embed``
+goes through the PS lookup (the ``embed_gather`` kernel on the card), the
+head is untied. With ``attention_impl="pallas"`` outside autograd the encoder's and the
 cross attention's non-causal, Sq != Sk products go to the
 ``flash_attention`` kernel; training runs plain attention.
 
@@ -121,7 +122,7 @@ def _dec_layer(p: dict, x: torch.Tensor, enc_out, layer_cache, *, cfg, rt,
         cross_k, cross_v = layer_cache[2], layer_cache[3]
         a, _ = attn_block(p["attn"], h, cfg=cfg, rt=rt, positions=positions,
                           layer_cache=(layer_cache[0], layer_cache[1]),
-                          cache_len=cache_len)
+                          cache_len=cache_len, cache_axes=rt.cache_seq_axes)
     else:
         cross_k, cross_v = _cross_kv(p["cross"], enc_out, cfg, rt)
         a, _ = attn_block(p["attn"], h, cfg=cfg, rt=rt, positions=positions)
@@ -173,19 +174,23 @@ def forward(params: dict, batch: dict, *, cfg, rt, cache=None,
 def init_cache(cfg, rt, batch: int, cache_seq: int, enc_seq: int,
                dtype: Optional[torch.dtype] = None) -> tuple:
     """(self k, self v, cross k, cross v), each (n_layers, B, S or S_enc,
-    KV, hd), zeroed."""
+    KV, hd), zeroed. On a process mesh this rank's block: the slots over
+    the batch axes, the self K/V's positions over ``cache_seq_axes`` (as
+    the decoder LM's cache); the cross K/V, which decoding reads whole,
+    stay whole over ``model``, where the reference's ``cache_pspec_tree``
+    shards them too (ROADMAP Queue 3: bytes only)."""
     dtype = dtype or rt.dtype
     kv, hd = cfg.n_kv_heads, cfg.head_dim
-    return tuple(torch.zeros((cfg.n_layers, batch, seq, kv, hd), dtype=dtype,
-                             device=rt.device)
-                 for seq in (cache_seq, cache_seq, enc_seq, enc_seq))
+    b_loc, s_loc, _ = rt.cache_shard(batch, cache_seq)
+    return tuple(torch.zeros((cfg.n_layers, b_loc, seq, kv, hd),
+                             dtype=dtype, device=rt.device)
+                 for seq in (s_loc, s_loc, enc_seq, enc_seq))
 
 
 def cache_pspec_tree(cfg, rt) -> Optional[tuple]:
     """The reference's placement of the 4-tuple cache, as a record (axis
-    names per dimension); None off a mesh. The family serves through
-    ``ToyServer``, which runs on one device (a mesh is refused), so nothing
-    reads it at run time."""
+    names per dimension); None off a mesh. The port's cache follows it
+    but for the cross K/V, whole over ``model`` (``init_cache``)."""
     if rt.mesh is None:
         return None
     kvspec = (None, rt.rules.rules.get("batch"), rt.rules.rules.get("kv_seq"),

@@ -15,6 +15,15 @@ reference). The decoder attends to its outputs with the reference's
 GNMT-lite dot attention in f32; ``[x, ctx] @ attn_mix`` feeds the head.
 The reference serves no encoder-decoder model, so neither does the port.
 
+On a process mesh the cell runs tensor-parallel over ``model``
+(``_lstm_layer``): a rank holds H/M units, its gate-strided block of
+``w_x`` / ``w_h`` / ``bias`` (its units of each of i, f, g, o;
+``core/plan.py::gate_groups``) and their rows of ``w_proj``, so the
+elementwise step needs no communication; each time step's projection is
+summed over ``model``. The carry's ``c`` is a rank's (B, H/M), ``h``
+whole. The encoder's output and the GNMT-lite attention run on the
+reduced, whole activations.
+
 Dtypes follow the reference step for step: the lookup returns rows in the
 table dtype, cast to the compute dtype; gates are summed in the compute
 dtype and cast to f32; the cell state ``c`` stays f32 and ``h`` is cast to
@@ -67,37 +76,54 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(dt), b.to(dt))
 
 
-def _lstm_layer(p: dict, xs: torch.Tensor, state: tuple) -> tuple:
-    """xs: (B,S,Din); state: (c (B,H) f32, h (B,P)). Loops over time."""
+def _lstm_layer(p: dict, xs: torch.Tensor, state: tuple, mesh=None) -> tuple:
+    """xs: (B,S,Din); state: (c (B,H) f32, h (B,P)). Loops over time.
+
+    ``mesh``: ``p`` holds this rank's H/M units (``w_x`` / ``w_h`` /
+    ``bias`` gate-strided: its units of each of i, f, g, o; ``w_proj``
+    their rows) and the cell runs tensor-parallel over ``model``: the
+    input and ``h`` feed the column-parallel gate products through
+    ``copy_to``, the row-parallel projection's partial sums meet in
+    ``reduce_from`` each step (one (B, P) all-reduce a step forward, one
+    backward). ``c`` is this rank's (B, H/M); ``h`` is whole."""
     w_x, w_h, bias, w_proj = p["w_x"], p["w_h"], p["bias"], p["w_proj"]
+    if mesh is not None:
+        xs = coll.copy_to(xs, "model", mesh)
     gx = _mm(xs, w_x)                                  # (B,S,4H) hoisted
     c, h = state
     ys = []
     for t in range(gx.shape[1]):
-        gates = gx[:, t] + _mm(h, w_h) + bias
+        h_in = h if mesh is None else coll.copy_to(h, "model", mesh)
+        gates = gx[:, t] + _mm(h_in, w_h) + bias
         i, f, g, o = gates.float().chunk(4, dim=-1)
         c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
         h = _mm((torch.sigmoid(o) * torch.tanh(c)).to(xs.dtype), w_proj)
+        if mesh is not None:
+            h = coll.reduce_from(h, "model", mesh)
         ys.append(h)
     return torch.stack(ys, dim=1), (c, h)
 
 
 def _init_state(cfg, batch: int, n_layers: int, dtype: torch.dtype,
-                device) -> tuple:
-    # c stays f32 (the accumulator); h matches the activation dtype
-    return (torch.zeros((n_layers, batch, cfg.d_ff), dtype=torch.float32,
-                        device=device),
+                device, hidden: int = None) -> tuple:
+    # c stays f32 (the accumulator) at this rank's ``hidden`` units (all
+    # of d_ff off a mesh); h matches the activation dtype, whole
+    return (torch.zeros((n_layers, batch, hidden or cfg.d_ff),
+                        dtype=torch.float32, device=device),
             torch.zeros((n_layers, batch, cfg.d_model), dtype=dtype,
                         device=device))
 
 
-def _run_stack(layers_p: dict, x: torch.Tensor, states: tuple) -> tuple:
+def _run_stack(layers_p: dict, x: torch.Tensor, states: tuple, *, cfg,
+               rt) -> tuple:
     n = next(iter(layers_p.values())).shape[0]
+    # tensor-parallel where this rank holds a block of the units
+    mesh = rt.mesh if layers_p["w_proj"].shape[1] < cfg.d_ff else None
     cs, hs = states
     new_c, new_h = [], []
     for i in range(n):       # few layers; unrolled for per-layer residuals
         p_i = {k: v[i] for k, v in layers_p.items()}
-        y, (c, h) = _lstm_layer(p_i, x, (cs[i], hs[i]))
+        y, (c, h) = _lstm_layer(p_i, x, (cs[i], hs[i]), mesh)
         x = x + y if y.shape == x.shape else y
         new_c.append(c)
         new_h.append(h)
@@ -153,7 +179,8 @@ class LSTMLM(nn.Module):
         x = x.to(rt.dtype)
         if state is None:
             state = _init_state(self.cfg, b, self.cfg.n_layers, rt.dtype,
-                                tokens.device)
+                                tokens.device, self._hidden())
+        run = dict(cfg=self.cfg, rt=rt)
         if self.cfg.is_encdec:
             if "src_tokens" not in batch:
                 raise ValueError(
@@ -168,10 +195,11 @@ class LSTMLM(nn.Module):
             enc_out, _ = _run_stack(
                 dict(self.enc_layers.named_parameters()), src.to(rt.dtype),
                 _init_state(self.cfg, b, self.cfg.enc_layers, rt.dtype,
-                            tokens.device))
+                            tokens.device,
+                            self.enc_layers.w_proj.shape[1]), **run)
             metrics.update(m2)
         layers = dict(self.layers.named_parameters())
-        x, new_state = _run_stack(layers, x, state)
+        x, new_state = _run_stack(layers, x, state, **run)
         if self.cfg.is_encdec:
             # GNMT-lite dot attention over the encoder states, in f32
             enc32 = enc_out.float()
@@ -195,9 +223,19 @@ class LSTMLM(nn.Module):
         """One step of the serving loop: tokens (B, 1) -> (logits, state)."""
         return self({"tokens": tokens}, state=state)[:2]
 
+    def _hidden(self) -> int:
+        """The units of the cell this rank holds (``w_proj``'s rows)."""
+        return self.layers.w_proj.shape[1]
+
     def init_cache(self, batch: int, cache_seq: int) -> tuple:
-        return _init_state(self.cfg, batch, self.cfg.n_layers, self.rt.dtype,
-                           self.rt.device)
+        """The zeroed carry of ``batch`` slots: this replica's B/D on a
+        serve mesh, each rank's ``c`` at its H/M units."""
+        n = max(self.rt.replicas, 1)
+        if batch % n:
+            raise ValueError(f"{batch} slots do not split over {n} "
+                             "replicas")
+        return _init_state(self.cfg, batch // n, self.cfg.n_layers,
+                           self.rt.dtype, self.rt.device, self._hidden())
 
     def loss_fn(self, batch: dict, params: dict = None) -> tuple:
         """-> (this replica's mean loss, metrics). ``params``: {dotted

@@ -8,10 +8,16 @@ k of E experts (α = k/E). Two executions, as in the reference:
       tokens travel to their experts' owners and back by ``all_to_all``
       (core/collectives.py), the PS push/pull pattern applied to
       activations. Picked when the model axis divides the expert count.
-  tp  every expert on every rank. The reference shards the experts' d_ff
-      over ``model`` and sums the outputs; the port holds the routed
-      experts whole (ROADMAP Queue 3): the same values. The shared expert
-      runs tensor-parallel over ``model`` as the dense MLP does.
+  tp  every expert on every rank, its d_ff sharded over ``model``
+      ((E, D, F/M) and (E, F/M, D) a rank): every model rank routes the
+      same tokens (dispatch and capacity computed identically), runs its
+      d_ff block of every expert, and the expert outputs are summed over
+      ``model`` before the gates combine them, as the reference's
+      ``psum(ys, model)``. ``moe_aux`` and ``moe_dropped`` are each model
+      rank's own, equal on all of them, so they are not summed over
+      ``model``. Under ``dp`` (the rules leave d_ff whole) the experts
+      are whole. The shared expert runs tensor-parallel over ``model`` as
+      the dense MLP does.
 
 Dispatch is sort-based (a stable argsort by expert id, then each slot's
 position within its expert against the capacity), bit for bit the
@@ -111,8 +117,11 @@ def _expert_ffn(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def _moe_group(flat: torch.Tensor, router_w, w_gate, w_up, w_down, *, e: int,
                k: int, cf: float, exec_mode: str, mesh, m: int,
-               compute_dtype) -> tuple:
-    """One token group on this rank. flat: (T, D)."""
+               compute_dtype, tp: bool = False) -> tuple:
+    """One token group on this rank. flat: (T, D). ``tp``: the experts
+    are this rank's d_ff block; the dispatched tokens reach them through
+    ``copy_to`` and their partial outputs are summed over ``model``
+    before the gates combine them (the reference's ``psum(ys)``)."""
     t, d = flat.shape
     cap = max(int(t * k * cf / e) + 1, 4)
     logits = (flat @ router_w.to(flat.dtype)).float()
@@ -124,8 +133,9 @@ def _moe_group(flat: torch.Tensor, router_w, w_gate, w_up, w_down, *, e: int,
     # the kept destinations are unique: each kept row receives one slot;
     # the dropped ones all land on the last row, which is cut off
     buf = flat.new_zeros((e * cap + 1, d))
+    src = flat if not tp else coll.copy_to(flat, "model", mesh)
     xs = buf.index_add(0, dest.reshape(-1),
-                       flat.repeat_interleave(k, dim=0))[:-1]
+                       src.repeat_interleave(k, dim=0))[:-1]
     xs = xs.reshape(e, cap, d)
 
     if exec_mode == "ep" and m > 1:
@@ -139,6 +149,8 @@ def _moe_group(flat: torch.Tensor, router_w, w_gate, w_up, w_down, *, e: int,
         ys = ys.reshape(e, cap, d)
     else:
         ys = _expert_ffn(xs, w_gate, w_up, w_down, compute_dtype)
+        if tp:
+            ys = coll.reduce_from(ys, "model", mesh)
 
     ys_pad = torch.cat([ys.reshape(e * cap, d), ys.new_zeros((1, d))], 0)
     picked = ys_pad[dest.reshape(-1)].reshape(t, k, d)
@@ -194,6 +206,8 @@ def moe_ffn(params: dict, x: torch.Tensor, *, cfg, rt, exec_mode: str,
         # under dp the model axis carries batch: the experts are whole
         exec_mode = "tp"
     seq_shardable = exec_mode == "ep" and s % m == 0
+    # tensor-parallel where this rank holds a block of the experts' d_ff
+    tp = exec_mode == "tp" and params["w_gate"].shape[-1] < cfg.d_ff
 
     router = params["router"]
     experts = [params["w_gate"], params["w_up"], params["w_down"]]
@@ -216,7 +230,7 @@ def moe_ffn(params: dict, x: torch.Tensor, *, cfg, rt, exec_mode: str,
         flat = F.pad(flat, (0, 0, 0, n_groups * g - t))
     runs = [_moe_group(flat[i * g:(i + 1) * g], router, *experts, e=e, k=k,
                        cf=cf, exec_mode=exec_mode, mesh=mesh, m=m,
-                       compute_dtype=rt.dtype)
+                       compute_dtype=rt.dtype, tp=tp)
             for i in range(n_groups)]
     if n_groups == 1:
         out, aux, dropped = runs[0]

@@ -1,5 +1,6 @@
 """Selective SSM (Mamba-style, S4D-real) for hymba's parallel SSM heads (the
-port of ``repro/models/ssm.py``), single device.
+port of ``repro/models/ssm.py``); tensor-parallel over ``model`` on a
+process mesh (``ssm_mix``).
 
 Recurrence  h[t,d,n] = a[t,d]·h[t-1,d,n] + (dt[t,d]·x[t,d])·B[t,n]
             y[t,d]   = Σ_n C[t,n]·h[t,d,n]
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives as coll
 from repro_torch.models.layers import ParamSpec
 
 # the decay blocks' length in the model (the reference scans chunks of 128;
@@ -81,22 +83,47 @@ def _chunk_ssm(u, dt, b_t, c_t, a_d, h0, chunk: int) -> tuple:
     return y.reshape(bsz, k * chunk, d)[:, :s], h
 
 
-def ssm_mix(p: dict, x: torch.Tensor, h0: torch.Tensor, *, cfg,
+def ssm_mix(p: dict, x: torch.Tensor, h0: torch.Tensor, *, cfg, rt=None,
             chunk: int = CHUNK) -> tuple:
     """x: (B, S, D) -> (y (B, S, D) in x's dtype, h (B, D, N) f32): the
-    selective-SSM branch."""
-    u = x @ p["w_in"]
-    g = x @ p["w_gate"]
-    gate = g * torch.sigmoid(g)                 # jax.nn.silu
-    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"].float())
+    selective-SSM branch.
+
+    Where ``p`` holds this rank's block of the channels (``w_in`` /
+    ``w_gate`` / ``w_dt`` column-parallel, ``w_out`` row-parallel: the
+    held shape, on a process mesh) the branch runs tensor-parallel over
+    ``model``: the scan is per channel, so it stays local on this rank's
+    D/M channels and ``h`` is (B, D/M, N); ``reduce_from`` sums the
+    output. The replicated leaves inside the block see only this rank's
+    channels' share of their gradient, so it is summed over ``model``:
+    ``copy_to`` on the B and C projections (computed from the whole
+    input, as one device does) and on ``dt_bias`` / ``a_log`` before they
+    are sliced to the rank's channels."""
+    d_loc = p["w_in"].shape[-1]
+    mesh = rt.mesh if d_loc < cfg.d_model else None
+    xt = x if mesh is None else coll.copy_to(x, "model", mesh)
+    dt_bias, a_log = p["dt_bias"], p["a_log"]
     b_t = (x @ p["w_b"]).float()
     c_t = (x @ p["w_c"]).float()
-    a_d = -torch.exp(p["a_log"].float())
+    if mesh is not None:
+        lo = rt.model_index * d_loc
+        dt_bias, a_log = (coll.copy_to(w, "model", mesh)[lo:lo + d_loc]
+                          for w in (dt_bias, a_log))
+        b_t, c_t = (coll.copy_to(a, "model", mesh) for a in (b_t, c_t))
+    u = xt @ p["w_in"]
+    g = xt @ p["w_gate"]
+    gate = g * torch.sigmoid(g)                 # jax.nn.silu
+    dt = F.softplus((xt @ p["w_dt"]).float() + dt_bias.float())
+    a_d = -torch.exp(a_log.float())
     y, h = _chunk_ssm(u.float(), dt, b_t, c_t, a_d, h0, chunk)
     y = (y.to(x.dtype) * gate) @ p["w_out"]
+    if mesh is not None:
+        y = coll.reduce_from(y, "model", mesh)
     return y, h
 
 
-def init_ssm_state(cfg, batch: int, device=None) -> torch.Tensor:
-    return torch.zeros((batch, cfg.d_model, cfg.ssm_state),
+def init_ssm_state(cfg, batch: int, device=None,
+                   channels: int = None) -> torch.Tensor:
+    """The zeroed (B, D, N) f32 state: ``channels`` (this rank's D/M under
+    tensor parallelism) in place of D where given."""
+    return torch.zeros((batch, channels or cfg.d_model, cfg.ssm_state),
                        dtype=torch.float32, device=device)

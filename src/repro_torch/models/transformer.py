@@ -52,12 +52,16 @@ activation's gradient over ``model`` before it, and a tied head reads this
 rank's rows of the table (below). Under ``RunConfig.explicit_sp`` the
 dense and vlm families hold the residual sequence-sharded between the
 blocks and run them through ``core/sp.py`` (``sp_residual``). The hybrid
-family's SSM, the ssm family's RWKV blocks and the routed experts run
-whole on every model rank. In serving the decode cache is sequence-sharded
-over ``model`` ((n_layers, B/D, S/M, KV, hd) a rank, ``init_cache``): each
-rank writes the positions it holds, attends with every q head over them
-and merges the partial softmaxes over ``model``
-(``attention.decode_attention``).
+family's selective SSM (``models/ssm.py``: its channels), the ssm family's
+RWKV time and channel mixes (``models/rwkv.py``: its heads and d_ff) and
+the routed experts under ``tp`` (``models/moe.py``: their d_ff) run
+tensor-parallel over ``model`` too, each keyed on the held shape of its
+leaves; their recurrent carries are each rank's share (the SSM state
+(B, D/M, N), the WKV state (B, H/M, E, E): ``init_cache``). In serving
+the decode cache is sequence-sharded over ``model`` ((n_layers, B/D, S/M,
+KV, hd) a rank, ``init_cache``): each rank writes the positions it holds,
+attends with every q head over them and merges the partial softmaxes
+over ``model`` (``attention.decode_attention``).
 
 ``attn_block`` also takes the encoder-decoder's cross attention
 (``cross_kv``: K/V from the encoder, no RoPE, never causal) for
@@ -365,12 +369,13 @@ def decoder_layer(p: dict, x: torch.Tensor, *, cfg, rt, positions,
     if cfg.family == "hybrid":
         kv_cache = layer_cache[:2] if layer_cache is not None else None
         h_ssm = layer_cache[2] if layer_cache is not None else \
-            ssm_mod.init_ssm_state(cfg, x.shape[0], x.device)
+            ssm_mod.init_ssm_state(cfg, x.shape[0], x.device,
+                                   p["ssm"]["w_in"].shape[-1])
         attn_out, new_kv = attn_block(
             p["attn"], h, cfg=cfg, rt=rt, positions=positions,
             layer_cache=kv_cache, cache_len=cache_len, return_kv=collect_kv,
             cache_axes=cache_axes)
-        ssm_out, h_ssm = ssm_mod.ssm_mix(p["ssm"], h, h_ssm, cfg=cfg)
+        ssm_out, h_ssm = ssm_mod.ssm_mix(p["ssm"], h, h_ssm, cfg=cfg, rt=rt)
         attn_out = (attn_out + ssm_out) * 0.5
         new_cache = (*new_kv, h_ssm) if new_kv is not None else None
     else:
@@ -415,30 +420,51 @@ def sp_residual(cfg, rt, x: torch.Tensor) -> bool:
             and cfg.d_ff % rt.model_size == 0)
 
 
+def _held_widths(params: dict, cfg) -> dict:
+    """This rank's share of the recurrent carries' widths, read off the
+    held leaves: the WKV heads (``tm.w_r``'s columns) and the SSM
+    channels (``ssm.w_in``'s); None where the family has no such block."""
+    out = {"heads": None, "channels": None}
+    if "layers.tm.w_r" in params:
+        out["heads"] = params["layers.tm.w_r"].shape[-1] // cfg.head_dim
+    if "layers.ssm.w_in" in params:
+        out["channels"] = params["layers.ssm.w_in"].shape[-1]
+    return out
+
+
 def _layer_carry_init(cfg, rt, batch: int, cache_seq: int,
-                      dtype: torch.dtype) -> tuple:
+                      dtype: torch.dtype, widths: dict) -> tuple:
     """One layer's zeroed decode cache (``init_cache`` stacks it): on a
     process mesh this rank's block, (B/D, S/M, KV, hd), the slots over the
-    batch axes and the positions over ``cache_seq_axes``."""
+    batch axes and the positions over ``cache_seq_axes``; the SSM state
+    and the WKV state at this rank's ``widths`` (``_held_widths``)."""
     hd, kv = cfg.head_dim, cfg.n_kv_heads
     batch, cache_seq, _ = rt.cache_shard(batch, cache_seq)
     if cfg.family == "ssm":
-        return rwkv_mod.init_rwkv_carry(cfg, batch, dtype, rt.device)
+        return rwkv_mod.init_rwkv_carry(cfg, batch, dtype, rt.device,
+                                        widths["heads"])
     kvc = tuple(torch.zeros((batch, cache_seq, kv, hd), dtype=dtype,
                             device=rt.device) for _ in range(2))
     if cfg.family == "hybrid":
-        return (*kvc, ssm_mod.init_ssm_state(cfg, batch, rt.device))
+        return (*kvc, ssm_mod.init_ssm_state(cfg, batch, rt.device,
+                                             widths["channels"]))
     return kvc
 
 
 def init_cache(cfg, rt, batch: int, cache_seq: int,
-               dtype: Optional[torch.dtype] = None) -> tuple:
+               dtype: Optional[torch.dtype] = None,
+               params: Optional[dict] = None) -> tuple:
     """Zeroed decode cache, each layer's stacked: (k, v), each
     (n_layers, B, S, KV, hd) — on a process mesh (n_layers, B/D, S/M, KV,
     hd), as the reference's ``cache_pspec_tree`` places it; hybrid adds
     the SSM state (n_layers, B, D, N) f32; for the ssm family the carry
-    (tm_x, state, cm_x) of every layer, whatever ``cache_seq``."""
-    one = _layer_carry_init(cfg, rt, batch, cache_seq, dtype or rt.dtype)
+    (tm_x, state, cm_x) of every layer, whatever ``cache_seq``. ``params``
+    (the held leaves): on a mesh the SSM state is this rank's (B/D, D/M,
+    N) and the WKV state its (B/D, H/M, E, E), where the reference's
+    ``cache_pspec_tree`` keeps both whole over ``model`` (ROADMAP Queue
+    3: bytes only)."""
+    one = _layer_carry_init(cfg, rt, batch, cache_seq, dtype or rt.dtype,
+                            _held_widths(params or {}, cfg))
     return tuple(torch.zeros((cfg.n_layers, *a.shape), dtype=a.dtype,
                              device=a.device) for a in one)
 
@@ -488,7 +514,8 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
             cache = tuple(torch.zeros((cfg.n_layers, *a.shape),
                                       dtype=a.dtype, device=a.device)
                           for a in rwkv_mod.init_rwkv_carry(
-                              cfg, b, rt.dtype, rt.device))
+                              cfg, b, rt.dtype, rt.device,
+                              _held_widths(params, cfg)["heads"]))
         block = rwkv_mod.rwkv_block
         if torch.is_grad_enabled():
             block = remat(block, rt.run_cfg.remat)
@@ -496,7 +523,7 @@ def forward(params: dict, tokens: torch.Tensor, *, cfg, rt, cache=None,
         for i in range(cfg.n_layers):
             x, new_carry = block(
                 _layer_params(params, i), x, tuple(c[i] for c in cache),
-                cfg=cfg)
+                cfg=cfg, rt=rt)
             if fresh:
                 carries.append(new_carry)
             else:
@@ -729,7 +756,8 @@ class DenseLM(ParamTree):
         return logits, new_cache
 
     def init_cache(self, batch: int, cache_seq: int) -> tuple:
-        return init_cache(self.cfg, self.rt, batch, cache_seq)
+        return init_cache(self.cfg, self.rt, batch, cache_seq,
+                          params=self.params())
 
 
 class RwkvLM(DenseLM):

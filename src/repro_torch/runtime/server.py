@@ -26,8 +26,9 @@ decode ShapeConfig), so ``Plan.tables()`` carries each table's serve
 pricing.
 
 ``ToyServer`` is the pre-engine loop (teacher-forced token-at-a-time
-prefill through the shared decode step, one shared cache_len, host-side
-argmax) — the baseline, and the loop for recurrent families.
+prefill through the shared decode step, one shared cache_len, greedy
+argmax) — the baseline, and the loop for the recurrent families and
+seamless.
 
 Everything runs on ``device`` (default: the card).
 
@@ -45,7 +46,8 @@ ranks of the data rank that owns it, and each step's tokens are
 all-gathered over the batch axes, so every rank's bookkeeping sees every
 slot. Greedy sampling takes the argmax over the vocab shards; a draw
 gathers the logits on every rank, whose generators share the seed.
-``ToyServer`` on a mesh is refused (ROADMAP slice 2's rest).
+``ToyServer`` runs on a process mesh the same way (the recurrent carries
+at each rank's share of the units, channels or heads).
 """
 from __future__ import annotations
 
@@ -60,13 +62,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core import collectives as coll
-from repro_torch.core.plan import held_placement
+from repro_torch.core.plan import gate_groups, model_part
 from repro_torch.core.runtime import Runtime
 from repro_torch.core.transform import (analyze, init_params_, load_params_,
                                         make_decode_step,
                                         make_serve_decode_step,
                                         make_serve_prefill_step,
-                                        place_params_)
+                                        place_params_, sample_tokens)
 from repro_torch.launch.mesh import Mesh, MeshShape
 from repro_torch.models.model import build_model
 from repro_torch.utils.tree import named_parameters
@@ -141,7 +143,8 @@ def _setup(model_cfg, run_cfg, scfg, mesh, params, seed, device, *,
     if mesh is not None:
         for name, spec in model.param_specs():
             p = plan.params[name]
-            p.held = held_placement(p.placement, spec.axes, (), name=name)
+            p.held = model_part(p.placement)
+            p.groups = gate_groups(name, spec.axes, p.held)
         place_params_(model, plan, mesh)
         mesh_plan = plan
     if params is None:
@@ -150,6 +153,14 @@ def _setup(model_cfg, run_cfg, scfg, mesh, params, seed, device, *,
         load_params_(model, params, mesh_plan)
     model.requires_grad_(False)
     return rt, model, plan
+
+
+def _gather_slots(rt, x: torch.Tensor) -> torch.Tensor:
+    """Every data rank's slots of ``x`` (this rank's (B/D, ...)) -> (B,
+    ...) on every rank."""
+    if rt.mesh is None:
+        return x
+    return coll.all_gather(x, tuple(rt.batch_axes), rt.mesh)
 
 
 class Server:
@@ -218,13 +229,6 @@ class Server:
                                            daemon=True)
             self._admitter.start()
             self._detok.start()
-
-    def _gather_slots(self, x: torch.Tensor) -> torch.Tensor:
-        """Every data rank's slots of ``x`` (this rank's (B/D, ...)) ->
-        (B, ...) on every rank."""
-        if self.rt.mesh is None:
-            return x
-        return coll.all_gather(x, tuple(self.rt.batch_axes), self.rt.mesh)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -358,7 +362,7 @@ class Server:
             admitted.append((i, req, first))
         if admitted and self.rt.replicas > 1:
             # the first tokens of every data rank's slots
-            toks = self._gather_slots(self.tok)[:, 0]
+            toks = _gather_slots(self.rt, self.tok)[:, 0]
             self._push_detok(toks, [(i, i, req) for i, req, _ in admitted])
         else:
             for i, req, first in admitted:
@@ -385,7 +389,7 @@ class Server:
             torch.from_numpy(active).to(self.rt.device), self._gen)
         self.stats["decode_steps"] += 1
         self._push_detok(
-            self._gather_slots(out),
+            _gather_slots(self.rt, out),
             [(i, i, self.slot_req[i]) for i in active_idx])
         # bound the run-ahead so a lagging detokenizer can't let the loop
         # burn steps decoding slots that already completed
@@ -418,24 +422,34 @@ class Server:
 
 class ToyServer:
     """Teacher-forced token-at-a-time prefill through the shared decode
-    step, one shared cache_len, host-side argmax — the loop the engine
+    step, one shared cache_len, greedy argmax — the loop the engine
     replaced. Admission costs O(prompt_len) blocking steps that stall every
     active slot, and the shared ``cache_len`` makes every slot attend over
-    ``slot_pos.max()`` positions."""
+    ``slot_pos.max()`` positions.
+
+    On a process mesh it runs as ``Server`` does: every rank builds it
+    with the same arguments, submits the same requests and runs the same
+    host schedule in step (one ``cache_len`` over all slots); the slots
+    are split over the batch axes, each rank stepping its own with its
+    block of the cache (the recurrent carries at its share of the units,
+    channels or heads; the K/V positions over ``model``); the greedy
+    token is taken over the vocab shards and every data rank's tokens are
+    all-gathered, so every rank's bookkeeping sees every slot."""
 
     def __init__(self, model_cfg: ModelConfig, run_cfg: RunConfig,
                  scfg: ServerConfig, mesh=None, params=None, seed: int = 0,
                  *, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ToyServer on a mesh is not ported yet: ROADMAP slice 2's "
-                "rest (the serve mesh runs the paged Server)")
         self.rt, self.model, self.plan = _setup(
             model_cfg, run_cfg, scfg, mesh, params, seed, device, paged=False)
+        rt = self.rt
         self.scfg = scfg
         self.params = named_parameters(self.model)
         self.cache = self.model.init_cache(scfg.max_batch, scfg.max_seq)
-        self.decode_step = make_decode_step(self.model, self.rt, self.plan)
+        # this rank's slots: [first, first + local) of the max_batch
+        self._local = scfg.max_batch // max(rt.replicas, 1)
+        self._first = (rt.mesh.index(rt.batch_axes) * self._local
+                       if rt.mesh is not None else 0)
+        self.decode_step = make_decode_step(self.model, rt, self.plan)
         self.slot_req: list = [None] * scfg.max_batch
         self.slot_pos = np.zeros(scfg.max_batch, np.int32)
         self.queue: deque = deque()
@@ -469,12 +483,24 @@ class ToyServer:
 
     def _step_device(self):
         # one shared cache_len: a homogeneous-position batch; per-slot
-        # positions are tracked on the host. The tokens are copied to the
-        # device before the host buffer changes again.
+        # positions are tracked on the host. This rank's slots' tokens are
+        # copied to the device before the host buffer changes again.
+        mine = self._tokens[self._first:self._first + self._local].copy()
         logits, self.cache = self.decode_step(
-            self.cache, torch.from_numpy(self._tokens.copy()).to(
-                self.rt.device), int(self.slot_pos.max()))
+            self.cache, torch.from_numpy(mine).to(self.rt.device),
+            int(self.slot_pos.max()))
         return logits
+
+    def _greedy(self, logits: torch.Tensor) -> np.ndarray:
+        """(B/D, 1, V/M) logits -> every slot's greedy token (B,), on the
+        host: the first maximum over the vocab shards, every data rank's
+        slots gathered."""
+        rt = self.rt
+        if rt.mesh is None:
+            return logits[:, 0, :].argmax(dim=-1).cpu().numpy()
+        nxt = sample_tokens(logits[:, 0, :], greedy=True, temperature=1.0,
+                            rt=rt)
+        return _gather_slots(rt, nxt).cpu().numpy()
 
     # ------------------------------------------------------------------
     def step(self) -> int:
@@ -485,7 +511,7 @@ class ToyServer:
             return 0
         logits = self._step_device()
         self.stats["decode_steps"] += 1
-        nxt = logits[:, 0, :].argmax(dim=-1).cpu().numpy()
+        nxt = self._greedy(logits)
         now = time.perf_counter()
         for i in active:
             req = self.slot_req[i]

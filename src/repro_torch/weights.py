@@ -8,8 +8,10 @@ arrays arrive as numpy arrays of the ``bfloat16`` extension dtype and are
 moved through a 16-bit integer view, so no bit changes.
 
 On a mesh, ``shard_tensor`` cuts a whole parameter into this rank's shard
-(its ``ParamPlan.held``) and ``gather_params`` puts the shards back
-together; the tests hold the port's sharded state against the JAX package
+(its ``ParamPlan.held``, laid out by ``ParamPlan.groups``: the LSTM's
+gate leaves hold a rank's units of each of the four gates) and
+``gather_params`` puts the shards back together in the reference's
+layout; the tests hold the port's sharded state against the JAX package
 with it.
 ``gather_state`` / ``shard_state`` do the same for a whole canonical
 ``TrainState`` (the parameters and EMA shadows by ``held``, the moments by
@@ -67,51 +69,82 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 # shards on a mesh
 # ---------------------------------------------------------------------------
 
-def _dims(held: tuple, mesh) -> list:
-    """[(dim, axes)] of a held placement's sharded dimensions."""
-    return [(d, entry_axes(e)) for d, e in enumerate(held)
+def block_dims(held: tuple, mesh, groups: tuple = ()) -> list:
+    """[(dim, axes, groups)] of a held placement's sharded dimensions
+    (``groups``: ``ParamPlan.groups``, 1 on every dimension if empty)."""
+    groups = groups or (1,) * len(held)
+    return [(d, entry_axes(e), g) for d, (e, g) in enumerate(zip(held, groups))
             if mesh.axes_size(entry_axes(e)) > 1]
 
 
 def block_of(t: torch.Tensor, dims: list, mesh) -> torch.Tensor:
-    """This rank's block of ``t`` along ``dims`` ([(dim, axes)]): block
-    ``mesh.index(axes)`` of ``mesh.axes_size(axes)`` on each; a view."""
-    for d, axes in dims:
-        size = t.shape[d] // mesh.axes_size(axes)
-        t = t.narrow(d, mesh.index(axes) * size, size)
+    """This rank's block of ``t`` along ``dims`` ([(dim, axes, groups)]):
+    on each dimension, the dimension cut into ``groups`` equal groups and
+    block ``mesh.index(axes)`` of ``mesh.axes_size(axes)`` taken from each
+    (one contiguous block where ``groups`` is 1: then a view)."""
+    for d, axes, g in dims:
+        k = mesh.axes_size(axes)
+        if t.shape[d] % (k * g):
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"into {g} groups over {k} ranks")
+        size = t.shape[d] // (k * g)
+        lo = mesh.index(axes) * size
+        if g == 1:
+            t = t.narrow(d, lo, size)
+        else:
+            t = t.unflatten(d, (g, k * size)).narrow(d + 1, lo, size) \
+                .flatten(d, d + 1)
     return t
 
 
 def gather_blocks(t: torch.Tensor, dims: list, mesh) -> torch.Tensor:
     """The tensor every rank's ``block_of`` came from (a collective over
     each dimension's axes, in the block order ``P(axes)`` gives: the
-    first axis major)."""
-    for d, axes in dims:
+    first axis major; a grouped dimension's blocks interleaved back into
+    their groups)."""
+    for d, axes, g in dims:
         t = coll.all_gather(t, axes, mesh, dim=d)
+        if g > 1:
+            k = mesh.axes_size(axes)
+            t = t.unflatten(d, (k, g, -1)).transpose(d, d + 1) \
+                .flatten(d, d + 2)
     return t
 
 
-def shard_tensor(full: torch.Tensor, held: tuple, mesh) -> torch.Tensor:
-    """This rank's block of ``full`` under ``held``."""
-    return block_of(full, _dims(held, mesh), mesh).contiguous()
+def shard_shape(shape: tuple, held: tuple, mesh) -> tuple:
+    """The shape of this rank's block of a ``shape`` leaf under
+    ``held``."""
+    out = list(shape)
+    for d, axes, _ in block_dims(held, mesh):
+        out[d] //= mesh.axes_size(axes)
+    return tuple(out)
 
 
-def gather_tensor(local: torch.Tensor, held: tuple, mesh) -> torch.Tensor:
+def shard_tensor(full: torch.Tensor, held: tuple, mesh,
+                 groups: tuple = ()) -> torch.Tensor:
+    """This rank's block of ``full`` under ``held`` (and ``groups``)."""
+    return block_of(full, block_dims(held, mesh, groups), mesh).contiguous()
+
+
+def gather_tensor(local: torch.Tensor, held: tuple, mesh,
+                  groups: tuple = ()) -> torch.Tensor:
     """The whole tensor from every rank's ``shard_tensor`` block (a
     collective over the held axes: every rank of them calls it)."""
-    return gather_blocks(local, _dims(held, mesh), mesh)
+    return gather_blocks(local, block_dims(held, mesh, groups), mesh)
 
 
 def gather_params(named_local: dict, plan, mesh) -> dict:
     """This rank's shards -> the whole tensors (on every rank)."""
-    return {n: gather_tensor(t, plan.params[n].held, mesh)
+    return {n: gather_tensor(t, plan.params[n].held, mesh,
+                             plan.params[n].groups)
             for n, t in named_local.items()}
 
 
 def opt_dims(held: tuple, opt_held: tuple, mesh) -> list:
-    """[(dim, axes)] of the dimensions ``opt_held`` shards (over more than
-    one rank) and ``held`` does not: where a ZeRO-1 leaf's optimizer state
-    is this rank's block of its parameter. Empty where the two agree."""
+    """[(dim, axes, 1)] of the dimensions ``opt_held`` shards (over more
+    than one rank) and ``held`` does not: where a ZeRO-1 leaf's optimizer
+    state is this rank's (contiguous) block of its parameter. Empty where
+    the two agree."""
     out = []
     for d, (h, o) in enumerate(zip(held, opt_held)):
         axes = entry_axes(o)
@@ -120,7 +153,7 @@ def opt_dims(held: tuple, opt_held: tuple, mesh) -> list:
         if mesh.axes_size(entry_axes(h)) > 1:
             raise ValueError(f"dim {d}: optimizer state on {o!r} apart from "
                              f"its parameter's {h!r}")
-        out.append((d, axes))
+        out.append((d, axes, 1))
     return out
 
 
@@ -132,7 +165,9 @@ PART_PLACEMENT = {"params": "held", "m": "opt_held", "v": "opt_held",
 
 
 def _placed(plan, part: str, name: str) -> tuple:
-    return getattr(plan.params[name], PART_PLACEMENT[part])
+    """(placement, groups) of one part of a leaf's state."""
+    p = plan.params[name]
+    return getattr(p, PART_PLACEMENT[part]), p.groups
 
 
 def gather_state(state, plan, mesh):
@@ -142,9 +177,13 @@ def gather_state(state, plan, mesh):
     it is."""
     if mesh is None:
         return state
+
+    def whole(part, n, t):
+        held, groups = _placed(plan, part, n)
+        return gather_tensor(t, held, mesh, groups)
+
     out = {part: None if getattr(state, part) is None else
-           {n: gather_tensor(t, _placed(plan, part, n), mesh)
-            for n, t in getattr(state, part).items()}
+           {n: whole(part, n, t) for n, t in getattr(state, part).items()}
            for part in STATE_PARTS}
     return replace(state, **out)
 
@@ -161,7 +200,8 @@ def shard_state(state, plan, mesh, whole_shapes: dict):
     def cut(part, n, t):
         if tuple(t.shape) != tuple(whole_shapes[n]):
             return t
-        return shard_tensor(t, _placed(plan, part, n), mesh)
+        held, groups = _placed(plan, part, n)
+        return shard_tensor(t, held, mesh, groups)
 
     out = {part: None if getattr(state, part) is None else
            {n: cut(part, n, t) for n, t in getattr(state, part).items()}

@@ -39,7 +39,8 @@ def ffn_rt(cfg, seq: int, mesh=None, mode: str = "auto"):
 def ffn_rank(rank, world, mesh_shape, cases):
     """``cases``: [(name, arch, k, mode, params {name: numpy}, x (B, S, D),
     w (B, S, D))]. Each: this rank's ``moe_ffn`` of its replica's rows
-    under ``mode`` and its gradients of sum(out * w) + moe_aux."""
+    under ``mode`` (its experts under ``ep``, its block of every expert's
+    d_ff under ``tp``) and its gradients of sum(out * w) + moe_aux."""
     m = make_mesh(mesh_shape, ("data", "model"), device="cpu")
     out = {}
     for name, arch, k, mode, params, x, w in cases:
@@ -52,10 +53,15 @@ def ffn_rank(rank, world, mesh_shape, cases):
         p = {}
         for n, a in params.items():
             t = torch.from_numpy(a.copy())
+            j = m.index("model")
             if exec_mode == "ep" and n in EXPERTS:
                 e_loc = cfg.n_experts // n_model
-                j = m.index("model")
                 t = t[j * e_loc:(j + 1) * e_loc].clone()
+            elif n in EXPERTS:
+                # tp: this rank's block of every expert's d_ff
+                f_loc = cfg.d_ff // n_model
+                dim = 1 if n == "w_down" else 2
+                t = t.narrow(dim, j * f_loc, f_loc).clone()
             p[n] = t.requires_grad_()
         xr = torch.from_numpy(x[rows].copy()).requires_grad_()
         y, met = moe.moe_ffn(p, xr, cfg=cfg, rt=rt, exec_mode=exec_mode)

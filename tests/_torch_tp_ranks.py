@@ -11,11 +11,12 @@ import torch
 import repro_torch.configs as tc
 from repro_torch.core import collectives as coll
 from repro_torch.core import sp
-from repro_torch.core.plan import tp_sharded
+from repro_torch.core.plan import entry_axes
 from repro_torch.core.transform import get_runner
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.runtime.server import Request, Server, ServerConfig
+from repro_torch.runtime.server import (Request, Server, ServerConfig,
+                                        _gather_slots)
 from repro_torch.utils.roofline import Hardware
 from repro_torch.weights import (gather_state, load_reference_params,
                                  shard_state)
@@ -52,7 +53,9 @@ def _placed(runner) -> dict:
         shards = math.prod(mesh.axes_size(a) for a in p.placement
                            if a is not None)
         want += math.prod(whole[n].shape) * t.element_size() / shards
-        if tp_sharded(n):
+        if not p.sparse and n != "head" and any(
+                "model" in entry_axes(e) for e in p.placement):
+            # a tensor-parallel block's leaf (not a vocab-sharded table)
             shares[n] = t.numel() / math.prod(whole[n].shape)
     return {"bytes": got, "plan_bytes": want, "shares": shares,
             "held_is_placement": all(p.held == p.placement
@@ -120,7 +123,7 @@ def drive(sv, script: list) -> dict:
 
     def decode_logits(cache, tokens, lens):
         logits, cache = decode_fn(cache, tokens, lens)
-        rec.append(sv._gather_slots(_gathered(rt, logits)))
+        rec.append(_gather_slots(sv.rt, _gathered(rt, logits)))
         return logits, cache
 
     sv.model.prefill_cache_fn = prefill_logits
@@ -141,7 +144,7 @@ def drive(sv, script: list) -> dict:
                     sv._prefill(sv.cache, sv.lens, sv.tok, padded,
                                 len(prompt), j, sv._gen)
                     out["prefill"][slot] = rec[-1][0, :len(prompt)].clone()
-                first = sv._gather_slots(sv.tok)[:, 0]
+                first = _gather_slots(sv.rt, sv.tok)[:, 0]
                 out["tokens"].append(first.tolist())
             else:
                 active = torch.zeros(sv.scfg.max_batch, dtype=torch.bool)
@@ -151,12 +154,13 @@ def drive(sv, script: list) -> dict:
                     sv.cache, sv.lens, sv.tok,
                     active[sv._first:sv._first + sv._local], sv._gen)
                 out["decode"].append(rec[-1][:, 0].clone())
-                out["tokens"].append(sv._gather_slots(toks).tolist())
+                out["tokens"].append(
+                    _gather_slots(sv.rt, toks).tolist())
     finally:
         sv.model.prefill_cache_fn = prefill_fn
         sv.model.decode_fn = decode_fn
     out["cache_shape"] = [tuple(c.shape) for c in sv.cache]
-    out["lens"] = sv._gather_slots(sv.lens).tolist()
+    out["lens"] = _gather_slots(sv.rt, sv.lens).tolist()
     return out
 
 

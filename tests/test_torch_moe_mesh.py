@@ -15,7 +15,8 @@ tests/test_transform_correctness.py's grok-1 case.
     sum(out * w) + moe_aux, averaged over the replicas as the step
     averages them, within 1e-4 (1e-4 of their scale) of the one-device
     gradients of sum(out * w) / D + the mean of each token shard's aux;
-    under ``ep`` each rank holds E/M experts, under ``tp`` all of them.
+    under ``ep`` each rank holds E/M experts, under ``tp`` its d_ff/M
+    block of every expert (the outputs summed over ``model``).
   * Reduced grok-1 trains 3 steps on (2, 4) and (2, 2) under comm_mode
     hybrid and mpi (``ep``) and hybrid with ``moe_exec="tp"``, capacity
     factor 8 (no drops), SGD at 0.3, f32, from the JAX package's
@@ -23,7 +24,8 @@ tests/test_transform_correctness.py's grok-1 case.
     one-device run, which is within the same bar of the JAX package's;
     every ``tp`` step within that bar of the JAX package on a (2, 1) mesh
     (two devices), whose data-parallel trajectory it is. Each rank's
-    expert leaves are 1/M of the whole under ``ep``, whole under ``tp``;
+    expert leaves are 1/M of the whole under ``ep`` (on the experts) and
+    under ``tp`` (on d_ff);
     a seeded init gives every rank its slice of the one-device draw.
 
 The JAX package runs on one device, and once on two, here: the (2, 4) and
@@ -162,13 +164,23 @@ def test_moe_ffn_on_the_mesh_equals_one_device(ffn_runs, name):
         assert r["dropped"] == 0
         for n in R.EXPERTS:
             assert r["shapes"][n][0] == e_loc, (n, r["shapes"][n])
+            f_dim = 1 if n == "w_down" else 2
+            assert r["shapes"][n][f_dim] == (32 if ep else 32 // m), \
+                (n, r["shapes"][n])
     # every gradient averaged over the replicas, as the step's exchange
     for j in range(m):
         reps = [ranks[i * m + j] for i in range(d)]
         for n, g in want_g.items():
             got = np.mean([r["grads"][n] for r in reps], axis=0)
-            want = (g[j * e_loc:(j + 1) * e_loc]
-                    if ep and n in R.EXPERTS else g)
+            want = g
+            if ep and n in R.EXPERTS:
+                want = g[j * e_loc:(j + 1) * e_loc]
+            elif n in R.EXPERTS:
+                # tp: this model rank's block of every expert's d_ff
+                dim = 1 if n == "w_down" else 2
+                f_loc = g.shape[dim] // m
+                want = np.take(g, range(j * f_loc, (j + 1) * f_loc),
+                               axis=dim)
             _close(got, want, f"model rank {j}: {n}")
 
 
@@ -254,9 +266,14 @@ def test_grok_trains_on_the_mesh_as_on_one_device(grok_reference, mesh):
         _within_bar(got, port_losses if ep else data_parallel, name)
         assert ranks[0][name]["exec"] == ("ep" if ep else "tp")
         assert ranks[0][name]["dropped"] == [0.0] * R.STEPS
+        f = R.train_cfg().d_ff
         for r in ranks:
             for n in ("layers.moe.w_gate", "layers.moe.w_up",
                       "layers.moe.w_down"):
-                assert r[name]["shapes"][n][1] == (e // mesh[1] if ep
-                                                   else e), (name, n)
+                shape = r[name]["shapes"][n]
+                assert shape[1] == (e // mesh[1] if ep else e), (name, n)
+                # tp: each rank's block of every expert's d_ff
+                f_dim = 2 if n.endswith("w_down") else 3
+                assert shape[f_dim] == (f if ep else f // mesh[1]), \
+                    (name, n, shape)
     assert all(r["init_equal"] for r in ranks)

@@ -261,9 +261,13 @@ def test_launcher_serves_on_the_cpu(engine, capsys):
                           device="cpu")
     assert len(done) == 3 and all(len(r.out_tokens) == 2 for r in done)
     assert f"[{engine}] served 3 requests" in capsys.readouterr().out
-    # the serve mesh runs the paged engine; the toy loop is refused on one
-    with pytest.raises(NotImplementedError, match="toy.*slice 2"):
-        serve_cli.main(["--mesh", "2x2", "--engine", "toy"], device="cpu")
+    # both engines serve on a process mesh: every rank the same requests
+    ranks = serve_cli.main(["--requests", "3", "--max-new", "2",
+                            "--max-seq", "32", "--engine", engine,
+                            "--devices", "2", "--mesh", "1x2"],
+                           device="cpu")
+    assert len(ranks) == 2 and ranks[0] == ranks[1]
+    assert len(ranks[0]) == 3 and all(len(t) == 2 for *_, t in ranks[0])
 
 
 def test_launcher_serves_rwkv6_through_the_toy_loop(capsys):
