@@ -325,8 +325,25 @@ and never prints the final line:
               lstm_hidden (the gate leaves a rank's units of each gate),
               its blocks gathered over model the one-device leaf bit for
               bit at step 0; the pulls and pushes the plan's methods
-              predict; the all-reduces a step by axes. mesh_card (b)
-              above runs the LSTM at H/4 a rank.
+              predict. Every rank under the verify gate
+              (RunConfig.verify_contract: the first step's record of
+              collectives checked against the plan before it applies), a
+              recorded step clean under strict_dtype, and the record of
+              one step by kind and axes (count, payload and wire bytes,
+              ms), whose sum all-reduces a step are held to
+              LSTM_ALL_REDUCES (model 44 / 804, data 6 / 12). A planted fault on (4, 1),
+              nmt's cell (its plan buckets the exchange): the plan's
+              overlap flipped after the build fails the gate with exactly
+              a schedule finding and applies nothing. mesh_card (b) above
+              runs the LSTM at H/4 a rank.
+     table3   paper Table 3 (repro_torch.benchmarks.table3_transfer): an
+              embedding-only step of ps, ps_gather and mpi_gatherv (and
+              ps without local aggregation) at the paper's sizes (V
+              65,536, E 512, bf16, 256 x 256 uniform ids) on (2, 2) over
+              4 gloo ranks under a record: the wire bytes a replica
+              within 1 % of the cost model's formula plus its named
+              terms, the (16, 16) formula beside, each collective's ms
+              (gloo staged through the host, not exchange times).
      mesh_card_toy = mesh_card (m): ToyServer on process meshes
               (profile_step.MESH_CELLS): rwkv6-7b whole on (1, 2) (32 of
               64 heads a rank), hymba-1.5b at 8 of 32 layers on (2, 2)
@@ -338,10 +355,11 @@ and never prints the final line:
               16 positions too) within 1e-3 of each row's scale of it;
               the idle slots' rows printed beside one device on the
               plain WKV. At
-              bf16 rwkv_serve's 8 requests: wkv at 32 heads on every
-              rank (step route in decode, tc in the prefill), the tokens
-              that differ from rwkv_serve's counted; per-rank init peak,
-              decode-step ms, TTFT.
+              bf16 the first 2 of rwkv_serve's 8 requests: wkv at 32
+              heads on every rank (step route in decode, tc in the
+              prefill), the tokens that differ from rwkv_serve's
+              counted; per-rank init peak, decode-step ms, TTFT (of the
+              2 requests).
      mesh_card_moe_tp = mesh_card (n): grok-1 at its published width, 2
               of 64 layers (profile_step.MESH_CELLS), moe_exec "tp",
               served by the paged Server on (1, 2): (8, 6,144, 16,384)
@@ -394,9 +412,11 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch import compat  # noqa: E402
+from repro_torch.analysis.contract import ContractViolation  # noqa: E402
 from repro_torch.configs import (RunConfig, ShapeConfig, get_config,  # noqa: E402
                                  reduced)
 from repro_torch.core import buckets  # noqa: E402
+from repro_torch.core import collectives as coll  # noqa: E402
 from repro_torch.core.embedding import dedupe  # noqa: E402
 from repro_torch.core.runtime import Runtime  # noqa: E402
 from repro_torch.core.transform import (analyze, get_runner,  # noqa: E402
@@ -2661,9 +2681,13 @@ def _main_batches(steps: int) -> list:
     return [ds.batch(i) for i in range(steps)]
 
 
-def _timed_steps(runner, batches, dev, census_keys=CENSUS) -> dict:
+def _timed_steps(runner, batches, dev, census_keys=CENSUS,
+                 record_batch=None) -> dict:
     """Run ``batches`` through ``runner`` with every launch count set to 0
-    just before and read just after: losses, step ms, launches, peak."""
+    just before and read just after: losses, step ms, launches, peak.
+    ``record_batch``: one more step after those, outside the step times,
+    losses, launches and peak, whose collectives are recorded
+    (``collectives.record``), returned as ``record``."""
     torch.cuda.reset_peak_memory_stats(dev)
     losses, step_ms, census, norms = [], [], [], []
     ops.reset_launch_counts()
@@ -2676,11 +2700,16 @@ def _timed_steps(runner, batches, dev, census_keys=CENSUS) -> dict:
         census.append({k: float(m[k]) for k in census_keys})
         if "grad_norm" in m:
             norms.append(float(m["grad_norm"]))
-    return {"losses": losses, "step_ms": step_ms, "census": census,
-            "grad_norms": norms,
-            "median_step_ms": statistics.median(step_ms),
-            "launches": ops.launch_counts(),
-            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    out = {"losses": losses, "step_ms": step_ms, "census": census,
+           "grad_norms": norms,
+           "median_step_ms": statistics.median(step_ms),
+           "launches": ops.launch_counts(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    if record_batch is not None:
+        with coll.record() as rec:
+            runner.run(record_batch)
+        out["record"] = rec.by_kind_axes()
+    return out
 
 
 def _one_rank(rank: int, world: int, steps: int) -> dict:
@@ -4250,6 +4279,17 @@ LSTM_LEAVES = {"w_x": -1, "w_h": -1, "bias": -1, "w_proj": -2}
 # mesh_card_lstm's bars against one device at bf16: the losses (a sum's
 # order moves them by 1e-5) and the gradients' global norms
 LSTM_LOSS_RTOL, LSTM_NORM_RTOL = 1e-4, 1e-2
+# the all-reduces (sums) a step of each cell issues by axes, as the
+# record of one step counts them: the LSTM's one forward and one backward
+# of (B, P) a time step a layer over model, the dense exchange and the
+# fused metrics over data (the counts a wrapper of all_reduce read before
+# the record existed)
+LSTM_ALL_REDUCES = {"parallax-lm": {"model": 44, "data": 6},
+                    "parallax-nmt": {"model": 804, "data": 12}}
+# the planted fault's cell: nmt's on (4, 1), where the plan buckets the
+# dense exchange (the (2, 2) plans exchange tensor by tensor, where overlap
+# moves nothing)
+PLANTED_MESH = (4, 1)
 
 
 def _lstm_cells() -> list:
@@ -4268,34 +4308,78 @@ def _lstm_leaves(model) -> dict:
             if n.split(".")[-1] in LSTM_LEAVES}
 
 
-def _counted_all_reduces():
-    """Wrap ``core/collectives.py::all_reduce`` to count its calls by
-    axes (the counter dict, and a function that unwraps it)."""
-    from repro_torch.core import collectives as coll
-    calls, orig = {}, coll.all_reduce
+def _all_reduces(record: dict) -> dict:
+    """{axes: count} of the sum all-reduces in a ``by_kind_axes`` record."""
+    return {k.split(" over ")[1]: v["count"] for k, v in record.items()
+            if k.startswith("all-reduce over ")}
 
-    def counted(x, axes, mesh, *a, **k):
-        key = axes if isinstance(axes, str) else "+".join(axes)
-        calls[key] = calls.get(key, 0) + 1
-        return orig(x, axes, mesh, *a, **k)
 
-    coll.all_reduce = counted
-    return calls, lambda: setattr(coll, "all_reduce", orig)
+def _bits_sums(runner) -> list:
+    """Each parameter's raw bits summed: a cheap witness that a step
+    applied nothing (an optimizer update moves every sum)."""
+    return [int(_bits(p.detach()).long().sum())
+            for p in named_parameters(runner.model).values()]
+
+
+def _planted_overlap(mesh, dev) -> dict:
+    """The gate against a planted fault: nmt's cell on ``PLANTED_MESH``
+    (full width, buckets), its plan's overlap flipped after the build, so
+    the step keeps issuing each bucket inside the backward while the plan
+    says after it. The first step must raise ContractViolation with
+    exactly a schedule finding and apply nothing; with the plan put back
+    the same step passes the gate, and its record checks clean under
+    ``strict_dtype``."""
+    cfg, shape, rc = _nmt_setup()
+    batches = _nmt_batches(2)
+    runner = get_runner(cfg, shape, replace(rc, verify_contract=True),
+                        mesh=mesh, seed=0)
+    bp = runner.plan.bucket_plan
+    before = _bits_sums(runner)
+    runner.plan.bucket_plan = replace(bp, overlap=not bp.overlap)
+    try:
+        runner.run(batches[0])
+        flipped = None
+    except ContractViolation as e:
+        flipped = sorted({f.kind for f in e.findings})
+    untouched = _bits_sums(runner) == before and \
+        int(runner.live_state.step) == 0
+    runner.plan.bucket_plan = bp
+    ops.reset_launch_counts()
+    with coll.record() as rec:
+        loss = float(runner.run(batches[0])["loss"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    strict = runner.check_contract(batches[1], strict_dtype=True)
+    out = {"buckets": len(bp.buckets), "overlap": bp.overlap,
+           "flipped_findings": flipped, "untouched": untouched,
+           "loss": loss, "record": rec.by_kind_axes(),
+           "strict_findings": [str(f) for f in strict],
+           "outside": strict.outside, "launches": launches}
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _lstm_card_rank(rank: int, world: int, init: dict) -> dict:
     """One of four ranks on the card over gloo: each of ``_lstm_cells`` on
-    (2, 2) from the seed-0 init, 3 steps. Each LSTM leaf's held shape and
-    its gate-strided blocks gathered over ``model`` at step 0 against the
-    one-device leaf (``init``), the losses, launches, all-reduces by axes,
-    the layout and peaks."""
+    (2, 2) from the seed-0 init, 3 steps under the verify gate (the first
+    step's record checked against the plan before it applies). Each LSTM
+    leaf's held shape and its gate-strided blocks gathered over ``model``
+    at step 0 against the one-device leaf (``init``), the losses,
+    launches, the record of a fourth step (outside the timed three) by
+    kind and axes, a recorded step's
+    findings under ``strict_dtype``, the layout and peaks. Then the
+    planted fault (``_planted_overlap``) on a (4, 1) mesh of the same
+    ranks."""
     from repro_torch.weights import gather_tensor
     dev = torch.device("cuda", 0)
     mesh = make_mesh(LSTM_MESH, ("data", "model"), device=dev)
     out = {}
     for key, cfg, shape, rc, batches, census in _lstm_cells():
         torch.cuda.reset_peak_memory_stats(dev)
-        runner = get_runner(cfg, shape, rc, mesh=mesh, seed=0)
+        runner = get_runner(cfg, shape, replace(rc, verify_contract=True),
+                            mesh=mesh, seed=0)
         torch.cuda.synchronize()
         init_peak = torch.cuda.max_memory_allocated(dev)
         whole = dict(runner.model.param_specs())
@@ -4308,20 +4392,22 @@ def _lstm_card_rank(rank: int, world: int, init: dict) -> dict:
                          "groups": list(pp.groups),
                          "bitwise": torch.equal(_bits(full.cpu()),
                                                 _bits(init[key][n]))}
-        calls, unwrap = _counted_all_reduces()
-        try:
-            r = _timed_steps(runner, batches, dev, census)
-        finally:
-            unwrap()
+        r = _timed_steps(runner, batches, dev, census,
+                         record_batch=batches[-1])
+        strict = runner.check_contract(batches[0], strict_dtype=True)
         r.update(_state_layout(runner), leaves=leaves,
                  init_max_memory_allocated=init_peak,
                  methods=dict(runner.plan.table_methods),
-                 all_reduces_per_step={k: v / len(batches)
-                                       for k, v in calls.items()})
+                 bucketed=runner.plan.bucket_plan is not None,
+                 all_reduces_per_step=_all_reduces(r["record"]),
+                 strict_findings=[str(f) for f in strict],
+                 outside=strict.outside)
         out[key] = r
         del runner
         gc.collect()
         torch.cuda.empty_cache()
+    out["planted"] = _planted_overlap(
+        make_mesh(PLANTED_MESH, ("data", "model"), device=dev), dev)
     return out
 
 
@@ -4338,9 +4424,18 @@ def phase_mesh_card_lstm() -> dict:
     four gates) and the blocks of a model pair gathered give the
     one-device leaf bit for bit at step 0; every rank pulls each table on
     the bulk route once a step and pushes one-pass as the plan's method
-    predicts; its parameter bytes the plan's term. Per rank: peaks, step
-    ms, the all-reduces a step by axes (the LSTM's: one forward and one
-    backward of (B, P) a time step a layer, over model)."""
+    predicts; its parameter bytes the plan's term. Every rank runs under
+    the verify gate (``RunConfig.verify_contract``: the first step's
+    record checked against the plan before it applies) and a recorded
+    step checks clean under ``strict_dtype``; the record of a fourth step,
+    run after the three timed ones (step 0 of those three carries the
+    gate's own record), by kind
+    and axes (count, payload and wire bytes, ms: gloo staged through the
+    host, not exchange times) gives the all-reduces a step,
+    ``LSTM_ALL_REDUCES`` (the LSTM's: one forward and one backward of (B,
+    P) a time step a layer, over model). Then the planted fault on (4, 1)
+    (``_planted_overlap``): exactly a schedule finding, nothing applied.
+    Per rank: peaks, step ms."""
     single, norms, init = {}, {}, {}
     for key, cfg, shape, rc, batches, _ in _lstm_cells():
         one = get_runner(cfg, shape, rc, device="cuda", seed=0)
@@ -4392,19 +4487,49 @@ def phase_mesh_card_lstm() -> dict:
             check(r["param_bytes"] == r["plan_param_bytes"],
                   f"mesh_card (l) {key} rank {m}: {r['param_bytes']} "
                   f"parameter bytes, the plan's {r['plan_param_bytes']}")
+            want = LSTM_ALL_REDUCES[key]
+            got_ar = r["all_reduces_per_step"]
+            check(r["strict_findings"] == []
+                  and {a: got_ar.get(a, 0) for a in want} == want,
+                  f"mesh_card (l) {key} rank {m}: the contract under "
+                  f"strict_dtype {r['strict_findings']}; all-reduces a "
+                  f"step {got_ar}, want {want}")
         rows[key] = {
             "one_device": single[key], "losses": got, "rel_gap": gap,
             "one_device_grad_norms": norms[key],
             "grad_norms": rs[0]["grad_norms"], "grad_norm_rel_gap": norm_gap,
-            "methods": tables,
+            "methods": tables, "bucketed": rs[0]["bucketed"],
             "all_reduces_per_step": rs[0]["all_reduces_per_step"],
+            "contract_findings": rs[0]["strict_findings"],
+            "outside_contract": rs[0]["outside"],
             "leaves": {n: x["shape"] for n, x in rs[0]["leaves"].items()},
             "by_rank": [{k: r[k] for k in (
                 "median_step_ms", "step_ms", "param_bytes",
                 "plan_param_bytes", "moment_bytes",
-                "init_max_memory_allocated", "max_memory_allocated")}
+                "init_max_memory_allocated", "max_memory_allocated",
+                "record")}
                 for r in rs]}
         emit({"phase": "mesh_card_lstm", "arch": key, **rows[key]})
+    planted = [r["planted"] for r in ranks]
+    for m, p in enumerate(planted):
+        check(p["buckets"] >= 2 and p["flipped_findings"] == ["schedule"]
+              and p["untouched"] and p["strict_findings"] == []
+              and p["launches"]["embed_gather"] > 0
+              and p["launches"]["embed_scatter_add"] > 0,
+              f"mesh_card (l) planted fault rank {m}: {p['buckets']} "
+              f"buckets, overlap {p['overlap']} flipped in the plan gave "
+              f"{p['flipped_findings']} (want ['schedule']), nothing "
+              f"applied: {p['untouched']}; restored: "
+              f"{p['strict_findings']}, launches {p['launches']}")
+    emit({"phase": "mesh_card_lstm", "planted": {
+        "cell": "parallax-nmt", "mesh": list(PLANTED_MESH),
+        "buckets": planted[0]["buckets"],
+        "overlap_in_plan_flipped_to": not planted[0]["overlap"],
+        "findings": planted[0]["flipped_findings"],
+        "nothing_applied": [p["untouched"] for p in planted],
+        "restored_findings": planted[0]["strict_findings"],
+        "loss": planted[0]["loss"],
+        "records_by_rank": [p["record"] for p in planted]}})
     # a rank's launches: the sum of its two runs'
     by_rank = [{k: sum(rank[key]["launches"][k] for key in rows)
                 for k in rank[key]["launches"]} for rank in ranks]
@@ -4413,6 +4538,40 @@ def phase_mesh_card_lstm() -> dict:
            "launches": by_rank[0], "launches_by_rank": by_rank}
     emit({k: v for k, v in res.items() if k != "runs"})
     return res
+
+
+def phase_table3() -> dict:
+    """Paper Table 3 on the card (``repro_torch.benchmarks.
+    table3_transfer``): the embedding-only step of each method (ps,
+    ps_gather and mpi_gatherv with local aggregation, ps without) at the
+    paper's sizes (V 65,536, E 512, bf16, 256 x 256 uniform ids) on (2, 2)
+    over 4 gloo ranks, each under a record: the wire bytes a replica
+    against the cost model's formula plus its named terms (within 1 %,
+    the benchmark raises otherwise), the (16, 16) formula beside, and each
+    collective's ms. The ranks share the card over gloo, which stages the
+    gathers through the host: those are not exchange times."""
+    from repro_torch.benchmarks import table3_transfer
+    res = table3_transfer.run(device="cuda")
+    rows = {}
+    for case, r in res["cases"].items():
+        rows[case] = {
+            "recorded_MB": r["recorded_bytes"] / 1e6,
+            "analytic_MB": r["analytic_bytes"] / 1e6,
+            "terms_MB": {k: v / 1e6 for k, v in r["terms"].items()},
+            "rel_to_analytic_plus_terms": r["rel_to_analytic_plus_terms"],
+            "analytic_16x16_MB": r["analytic_bytes_16x16"] / 1e6,
+            "collectives_ms": [
+                {"kind": c["kind"], "axes": c["axes"], "dtype": c["dtype"],
+                 "MB": c["bytes"] / 1e6, "ms": c["ms"]}
+                for c in r["collectives"]]}
+    out = {"phase": "table3", "mesh": res["mesh"], "sizes": res["sizes"],
+           "alpha": res["workload"]["alpha"],
+           "alpha_16x16": res["workload_16x16"]["alpha"],
+           "capacity": res["workload"]["capacity"],
+           "note": "ms: gloo collectives staged through the host on one "
+                   "card, not exchange times", "cases": rows}
+    emit(out)
+    return out
 
 
 HYMBA = "hymba-1.5b"
@@ -4428,6 +4587,9 @@ MESH_F32_RTOL = 1e-3
 # 8 new tokens each, served one after the other, every device step's
 # logits recorded
 TOY_CHECK_REQUESTS, TOY_CHECK_NEW = 2, 8
+# mesh_card_toy's bf16 timing run: the first 2 of rwkv_serve's 8 requests
+# (8 cost 73 s and 50 s a rank over gloo's host staging)
+TOY_TIMED_REQUESTS = 2
 # the prefill positions whose logits mesh_card_toy compares for rwkv6
 TOY_TAIL = 16
 F32_RUN = dict(param_dtype="float32", compute_dtype="float32")
@@ -4500,13 +4662,14 @@ def _toy_check(sv) -> list:
 
 
 def _toy_run(sv, dev, new: int) -> dict:
-    """``rwkv_serve``'s requests through a ToyServer: the same seeds and 8
-    prompts, after the same short warm-up request: the run's launches
-    (set to 0 just before it), TTFT, peak."""
+    """The first ``TOY_TIMED_REQUESTS`` of ``rwkv_serve``'s requests
+    through a ToyServer: the same seeds and prompts, after the same short
+    warm-up request: the run's launches (set to 0 just before it), TTFT,
+    peak."""
     cfg = sv.rt.model_cfg
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 65, size=8)
-    prompts = _prompts(rng, lens, cfg.vocab_size)
+    prompts = _prompts(rng, lens, cfg.vocab_size)[:TOY_TIMED_REQUESTS]
     _drain(sv, _prompts(rng, (4,), cfg.vocab_size), 2)
     before = sv.stats["decode_steps"]
     sv.completed.clear()
@@ -4585,8 +4748,8 @@ def _toy_card_rank(rank: int, world: int, arch: str, new: int,
     ``params_path``'s padded copy): the check's requests with every
     device step's logits recorded (rank 0 returns them), and for rwkv6
     the last positions of rwkv_serve's 2,048-token prefill. At bf16, the
-    seeded draw: rwkv_serve's warm-up and 8 requests, their launches,
-    TTFT and peaks, a decode step's time, the carry's and leaves' shapes;
+    seeded draw: rwkv_serve's warm-up and its first 2 requests, the
+    launches, TTFT and peaks, a decode step's time, the carry's and leaves' shapes;
     for rwkv6 the prefill's launches."""
     dev = torch.device("cuda", 0)
     mesh = make_mesh(MESH_CELLS[TOY_CELLS[arch]].mesh, ("data", "model"),
@@ -4702,10 +4865,11 @@ def phase_mesh_card_toy(rwkv: dict = None, new: int = 16) -> dict:
     step's logits of the slot that holds the request (rwkv6's 2,048-token
     prefill's last positions too) within ``MESH_F32_RTOL`` of each row's
     scale; the idle slots' rows printed beside one device's run on the
-    plain WKV. Then at bf16, rwkv_serve's warm-up, 8 requests, seeds and
-    ServerConfig: every rank launches wkv at its 32 heads, the step route
-    once a layer a device step and the tc route once a layer in the
-    prefill, and one gather a device step; the tokens that differ from
+    plain WKV. Then at bf16, rwkv_serve's warm-up, its first 2 requests
+    (``TOY_TIMED_REQUESTS``: the decode-step ms and TTFT cover these 2),
+    seeds and ServerConfig: every rank launches wkv at its 32 heads, the
+    step route once a layer a device step and the tc route once a layer
+    in the prefill, and one gather a device step; the tokens that differ from
     rwkv_serve's are counted. Per rank: init peak, decode-step ms and
     TTFT (gloo staged through the host); the phase's seconds by arch."""
     rows, launches, by_rank = {}, None, []
@@ -4743,8 +4907,8 @@ def phase_mesh_card_toy(rwkv: dict = None, new: int = 16) -> dict:
                    "decode_step_ms", "ttft_ms_p50", "ttft_ms_max", "run_s",
                    "param_bytes", "cache", "shapes")} for r in ranks]}
         if arch == RWKV and rwkv is not None:
-            pairs = [(a, b) for u, toks in rwkv["tokens"].items()
-                     for a, b in zip(r0["tokens"][u], toks)]
+            pairs = [(a, b) for u, toks in r0["tokens"].items()
+                     for a, b in zip(toks, rwkv["tokens"][u])]
             row["bf16_tokens_differ"] = [sum(a != b for a, b in pairs),
                                          len(pairs)]
             row["one_device"] = {k: rwkv[k] for k in ("ttft_ms_p50",
@@ -5128,6 +5292,7 @@ def main() -> None:
     paths["mesh_card_zero"] = mesh_zero["launches"]
     paths["mesh_card_dp"] = mesh_dp["launches"]
     mesh_lstm = run("mesh_card_lstm", phase_mesh_card_lstm)
+    run("table3", phase_table3)
     mesh_toy = run("mesh_card_toy", phase_mesh_card_toy, rwkv_serve)
     mesh_moe_tp = run("mesh_card_moe_tp", phase_mesh_card_moe_tp)
     paths["mesh_card_lstm"] = mesh_lstm["launches"]

@@ -1,3 +1,5 @@
 """The reference's benchmarks (``benchmarks/``) replayed through the port:
-``adaptive_replan`` (static against adaptive planning, and the two-table
-plan with overflow growth)."""
+``table1_census`` (paper Table 1), ``table3_transfer`` (paper Table 3),
+``bucket_exchange`` (the bucketed dense exchange) and ``adaptive_replan``
+(static against adaptive planning, and the two-table plan with overflow
+growth); ``run`` dispatches them."""

@@ -249,11 +249,11 @@ class RunConfig:
     # the age any applied sparse gradient may reach (asserted in-graph via
     # the ``staleness_violation`` metric).
     max_staleness: int = 0
-    # post-build debug gate (analysis/contract.py): after every step
-    # compile — including replans and remeshes — diff the compiled HLO's
-    # collectives against the plan's exchange contract and raise
-    # ContractViolation on mismatch. Costs one as_text() per build; off by
-    # default.
+    # debug gate (analysis/contract.py): the first step after every build
+    # and replan records its collectives (core/collectives.py::record) and
+    # diffs them against the plan's exchange contract before the optimizer
+    # applies, raising ContractViolation on a mismatch (the state is left
+    # as it was). Costs one synchronize on that step; off by default.
     verify_contract: bool = False
 
 

@@ -11,10 +11,11 @@ every scalar metric rides one more.
 Buckets are assigned greedy first-fit over the *reversed* flatten order,
 so bucket 0 holds the last-forward parameters, whose gradients the
 backward produces first; the layouts match the reference's bucket for
-bucket. With ``RunConfig.overlap`` (the default) each bucket's all-reduce
-is issued, non-blocking, from ``register_post_accumulate_grad_hook`` when
-its last member gradient is ready, concurrent with the rest of the
-backward (the reference places it there with a ``custom_vjp`` tap); with
+bucket. With ``RunConfig.overlap`` (the default) each bucket's exchange
+is issued from ``register_post_accumulate_grad_hook`` when its last
+member gradient is ready, inside the rest of the backward (the reference
+places it there with a ``custom_vjp`` tap): a ring bucket's all-reduce
+without blocking, a two-level bucket's triple at once; with
 ``overlap=False`` every bucket is exchanged after the backward. The values
 are the same either way: the exchange is an elementwise sum.
 
@@ -114,6 +115,33 @@ class BucketPlan:
             "est_seconds_unbucketed": cost_model.exchange_seconds(
                 ring * self.wire_bytes, self.n_params, hw, tier=tier),
         }
+
+    def expected_collectives(self, n_leaves: int = 0,
+                             overlap: Optional[bool] = None) -> list:
+        """The dense exchange's collective contract per bucket, as (kind,
+        element count) pairs in issue order: a ring bucket is one
+        all-reduce of ``sum(sizes)`` elements, a two-level bucket the
+        reduce-scatter(E/L) -> all-reduce(E/L) -> all-gather(E) triple of
+        ``_two_level_psum``, E padded to the L local replicas. The
+        reference's signature; ``n_leaves`` and ``overlap`` change nothing
+        here: the reference pins one element per gradient leaf onto every
+        bucket when overlap is off, and the port has no pin (it orders its
+        exchange itself), so the two modes differ only in when each
+        collective is issued (ROADMAP Queue 3)."""
+        out = []
+        for k, b in enumerate(self.buckets):
+            elems = sum(b.sizes)
+            if b.schedule == "two_level":
+                local = max(self.dims.local_replicas, 1)
+                padded = elems + ((-elems) % local)
+                colls = [("reduce-scatter", padded // local),
+                         ("all-reduce", padded // local),
+                         ("all-gather", padded)]
+            else:
+                colls = [("all-reduce", elems)]
+            out.append({"bucket": k, "dtype": b.key[1],
+                        "schedule": b.schedule, "collectives": colls})
+        return out
 
 
 def exchange_dtype(rt, p: Optional[ParamPlan] = None) -> torch.dtype:
@@ -356,13 +384,20 @@ class OverlapExchange:
         return hook
 
     def _issue(self, k: int) -> None:
+        """Issue bucket ``k``'s exchange: a ring bucket's all-reduce without
+        blocking; a two-level bucket's triple, which blocks, at once."""
         b = self.bp.buckets[k]
         grads = [self.params[i].grad for i in b.idx]
         buf32 = _flat32(grads, self.scale)
         stats = magnitude(buf32) if self.census else None
         buf = buf32.to(torch_dtype(b.key[1]))
-        self._pending[k] = (buf, coll.all_reduce_async(
-            buf, self.bp.batch_axes, self.mesh), grads, stats)
+        if b.schedule == "two_level":
+            buf, work = _two_level_psum(buf, self.bp.batch_axes,
+                                        self.bp.dims.local_replicas,
+                                        self.mesh), None
+        else:
+            work = coll.all_reduce_async(buf, self.bp.batch_axes, self.mesh)
+        self._pending[k] = (buf, work, grads, stats)
 
     def begin(self) -> None:
         self._ready = [set() for _ in self.bp.buckets]

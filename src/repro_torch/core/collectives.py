@@ -43,13 +43,171 @@ run there and copy the result back. That staging exists in this module
 only; compute never moves to the CPU. Several ranks on one card run over
 gloo (NCCL takes one card per rank), so this is what the card's multi-rank
 runs exchange through.
+
+The record (``record()``): every collective above reports one ``Event``
+to each record open while it runs (kind, axes, group size, the result's
+element count, dtype and bytes, a sequence number, whether it was issued
+inside a backward that ``backward()`` marks, and its time: a CUDA-event
+time on the card, the host clock on the CPU; for an ``all_reduce_async``
+the time from issue to its ``wait()``). A staged gloo collective is one
+event, its copies included. The identity over a group of one is no
+collective and records nothing. With no record open the cost is one
+truth test of a module list. ``analysis/contract.py`` diffs a step's
+record against its plan; ``wire_bytes`` applies the ring factors the
+reference applies to HLO (``repro/utils/hlo.py::_ring_factor``).
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
+import time
 import warnings
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+
+@dataclass
+class Event:
+    """One collective as ``record()`` saw it. ``elems`` / ``bytes``: the
+    result's (an all-gather's n blocks, a reduce-scatter's one block), as
+    the reference's HLO reading counts them; ``op``: an all-reduce's
+    reduction ("sum" / "max"), else None; ``ms``: None until the record
+    closes (an async all-reduce's: and its ``wait()`` has run)."""
+    seq: int
+    kind: str                 # all-reduce | all-gather | reduce-scatter |
+                              # all-to-all
+    axes: tuple               # mesh axes, in mesh order
+    group: int                # ranks in the group
+    elems: int
+    dtype: str                # torch dtype name ("bfloat16", "int32", ...)
+    bytes: int
+    op: Optional[str] = None
+    in_backward: bool = False
+    ms: Optional[float] = None
+    clocks: tuple = ()        # (start, end): CUDA events or host seconds
+
+    @property
+    def name(self) -> str:
+        return f"{self.kind}#{self.seq}"
+
+
+def wire_bytes(ev: Event) -> float:
+    """The bytes ``ev`` puts on the wire a rank, the ring factors of the
+    reference's ``utils/hlo.py::_ring_factor``: 2(n-1)/n of an
+    all-reduce's result, (n-1)/n of the others'."""
+    n = ev.group
+    return ev.bytes * (2.0 if ev.kind == "all-reduce" else 1.0) * (n - 1) / n
+
+
+class Record:
+    """The events of one ``record()`` window, in issue order."""
+
+    def __init__(self):
+        self.events: list = []
+
+    def by_kind_axes(self) -> dict:
+        """{"<kind> over <axes>": count, payload and wire bytes, ms}; a max
+        all-reduce keyed apart ("all-reduce/max")."""
+        out = {}
+        for ev in self.events:
+            kind = ev.kind + ("/max" if ev.op == "max" else "")
+            row = out.setdefault(f"{kind} over {'+'.join(ev.axes)}", {
+                "count": 0, "bytes": 0, "wire_bytes": 0.0, "ms": 0.0})
+            row["count"] += 1
+            row["bytes"] += ev.bytes
+            row["wire_bytes"] += wire_bytes(ev)
+            row["ms"] += ev.ms or 0.0
+        return out
+
+    def _resolve(self) -> None:
+        """Read the times of the events whose clocks have stopped."""
+        done = [ev for ev in self.events
+                if ev.ms is None and len(ev.clocks) == 2]
+        if any(isinstance(ev.clocks[0], torch.cuda.Event) for ev in done):
+            torch.cuda.synchronize()
+        for ev in done:
+            start, end = ev.clocks
+            ev.ms = (float(start.elapsed_time(end))
+                     if isinstance(start, torch.cuda.Event)
+                     else (end - start) * 1e3)
+
+
+class _State:
+    """The open records and the depth of ``backward()`` regions. Module
+    state, not a context argument: autograd runs a card's backward, and
+    the gradient hooks that issue the bucketed all-reduces, on a thread
+    of its own."""
+    records: list = []
+    backward: int = 0
+    seq = itertools.count()
+
+
+@contextlib.contextmanager
+def record():
+    """Record every collective issued until the block ends (each open
+    record sees every event) -> the ``Record``. Its events' times are
+    read when it closes: one ``synchronize`` on the card."""
+    rec = Record()
+    _State.records.append(rec)
+    try:
+        yield rec
+    finally:
+        _State.records.remove(rec)
+        rec._resolve()
+
+
+@contextlib.contextmanager
+def backward():
+    """Mark the collectives issued in this block as inside the backward
+    (the training step wraps ``loss.backward()`` in it)."""
+    _State.backward += 1
+    try:
+        yield
+    finally:
+        _State.backward -= 1
+
+
+def _clock(x: torch.Tensor):
+    if x.device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _start(kind: str, x: torch.Tensor, elems: int, axes, mesh, g,
+           op: Optional[str] = None) -> Event:
+    """Report a collective on ``x`` (its dtype and device) whose result has
+    ``elems`` elements to every open record, and start its clock."""
+    ev = Event(seq=next(_State.seq), kind=kind, axes=mesh._key(axes),
+               group=dist.get_world_size(g), elems=int(elems),
+               dtype=str(x.dtype).removeprefix("torch."),
+               bytes=int(elems) * x.element_size(), op=op,
+               in_backward=_State.backward > 0,
+               clocks=(_clock(x),))
+    for rec in _State.records:
+        rec.events.append(ev)
+    return ev
+
+
+def _stop(ev: Event, x: torch.Tensor) -> None:
+    ev.clocks = (ev.clocks[0], _clock(x))
+
+
+class _TimedWork:
+    """An async all-reduce's work handle whose ``wait()`` stops its
+    event's clock."""
+
+    def __init__(self, work, ev: Event, buf: torch.Tensor):
+        self.work, self.ev, self.buf = work, ev, buf
+
+    def wait(self):
+        out = self.work.wait()
+        _stop(self.ev, self.buf)
+        return out
 
 
 def _gloo(mesh) -> bool:
@@ -67,7 +225,11 @@ def all_reduce(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     if g is None:
         return x
     out = x.contiguous().clone()
+    ev = _State.records and _start("all-reduce", out, out.numel(), axes,
+                                   mesh, g, "sum")
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
+    if ev:
+        _stop(ev, out)
     return out
 
 
@@ -76,7 +238,11 @@ def all_reduce_max(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     if g is None:
         return x
     out = x.contiguous().clone()
+    ev = _State.records and _start("all-reduce", out, out.numel(), axes,
+                                   mesh, g, "max")
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
+    if ev:
+        _stop(ev, out)
     return out
 
 
@@ -87,8 +253,11 @@ def all_reduce_async(buf: torch.Tensor, axes, mesh):
     g = mesh.group(axes)
     if g is None:
         return None
-    return dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g,
+    ev = _State.records and _start("all-reduce", buf, buf.numel(), axes,
+                                   mesh, g, "sum")
+    work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g,
                            async_op=True)
+    return _TimedWork(work, ev, buf) if ev else work
 
 
 def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
@@ -100,6 +269,8 @@ def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
     n = dist.get_world_size(g)
     src = x.movedim(dim, 0).contiguous()
     home = src.device
+    ev = _State.records and _start("all-gather", src, n * src.numel(), axes,
+                                   mesh, g)
     if _staged(mesh, src):
         src = src.cpu()
     if _gloo(mesh):
@@ -109,7 +280,10 @@ def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
     else:
         out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
         dist.all_gather_into_tensor(out, src, group=g)
-    return out.to(home).movedim(0, dim)
+    out = out.to(home)
+    if ev:
+        _stop(ev, out)
+    return out.movedim(0, dim)
 
 
 def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0
@@ -125,6 +299,8 @@ def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0
         raise ValueError(f"reduce_scatter: dim of {src.shape[0]} over "
                          f"{n} ranks")
     home = src.device
+    ev = _State.records and _start("reduce-scatter", src, src.numel() // n,
+                                   axes, mesh, g, "sum")
     if _staged(mesh, src):
         src = src.cpu()
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
@@ -133,7 +309,10 @@ def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0
         # every version the port runs on
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=g)
-    return out.to(home).movedim(0, dim)
+    out = out.to(home)
+    if ev:
+        _stop(ev, out)
+    return out.movedim(0, dim)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -141,8 +320,8 @@ class _AllToAll(torch.autograd.Function):
     block home: the all-to-all with the two dims swapped."""
 
     @staticmethod
-    def forward(fctx, x, g, mesh, split_dim, concat_dim):
-        fctx.g, fctx.mesh = g, mesh
+    def forward(fctx, x, axis, g, mesh, split_dim, concat_dim):
+        fctx.axis, fctx.g, fctx.mesh = axis, g, mesh
         fctx.dims = (split_dim, concat_dim)
         n = dist.get_world_size(g)
         if x.shape[split_dim] % n:
@@ -154,13 +333,18 @@ class _AllToAll(torch.autograd.Function):
         src = src.reshape((n, src.shape[0] // n) + tuple(src.shape[1:]))
         src = src.contiguous()
         home = src.device
+        ev = _State.records and _start("all-to-all", src, src.numel(), axis,
+                                       mesh, g)
         if _staged(mesh, src):
             src = src.cpu()
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=g)
+        out = out.to(home)
+        if ev:
+            _stop(ev, out)
         # the chunk back in split_dim's place, then the rank blocks merged
         # into concat_dim
-        out = out.to(home).movedim(1, split_dim + 1).movedim(0, concat_dim)
+        out = out.movedim(1, split_dim + 1).movedim(0, concat_dim)
         shape = list(out.shape)
         shape[concat_dim:concat_dim + 2] = [shape[concat_dim]
                                             * shape[concat_dim + 1]]
@@ -169,8 +353,9 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(fctx, gy):
         split_dim, concat_dim = fctx.dims
-        return (_AllToAll.apply(gy, fctx.g, fctx.mesh, concat_dim,
-                                split_dim), None, None, None, None)
+        return (_AllToAll.apply(gy, fctx.axis, fctx.g, fctx.mesh,
+                                concat_dim, split_dim),
+                None, None, None, None, None)
 
 
 def all_to_all(x: torch.Tensor, axis, mesh, split_dim: int = 0,
@@ -183,7 +368,7 @@ def all_to_all(x: torch.Tensor, axis, mesh, split_dim: int = 0,
     g = mesh.group(axis)
     if g is None:
         return x
-    return _AllToAll.apply(x, g, mesh, split_dim, concat_dim)
+    return _AllToAll.apply(x, axis, g, mesh, split_dim, concat_dim)
 
 
 class _GatherFrom(torch.autograd.Function):

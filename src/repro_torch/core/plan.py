@@ -222,6 +222,32 @@ class Plan:
             "serve": self.table_serve.get(t),
         } for t, m in self.table_methods.items()}
 
+    def exchange_contract(self) -> dict:
+        """What ``analysis/contract.py`` needs to derive a step's expected
+        collectives from this plan alone, key for key the reference's: the
+        per-bucket dense collectives (kind and element count, in issue
+        order), the overlap mode, and each sparse table's method, capacity,
+        wire dtype and staleness."""
+        bp = self.bucket_plan
+        n_leaves = len(self.params)
+        return {
+            "n_leaves": n_leaves,
+            "methods": self.methods(),
+            "bucketed": bp is not None,
+            "overlap": bool(bp.overlap) if bp is not None else False,
+            "replicas": bp.replicas if bp is not None else 1,
+            "buckets": (bp.expected_collectives(n_leaves)
+                        if bp is not None else []),
+            "n_sparse_push": bp.n_sparse_push if bp is not None else 0,
+            "tables": {t: {
+                "method": m,
+                "capacity": self.table_capacity.get(t, self.capacity),
+                "wire_dtype": dtype_name(self.table_wire[t])
+                if t in self.table_wire else None,
+                "stale": t in self.stale_tables,
+            } for t, m in self.table_methods.items()},
+        }
+
 
 def _drifted(old_cap: int, new_cap: int, factor: float) -> bool:
     hi = max(old_cap, new_cap)

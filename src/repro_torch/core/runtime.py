@@ -43,8 +43,6 @@ def check_ported(run_cfg: RunConfig, mesh: Any = None) -> None:
          "slice 7 (elasticity)"),
         (run_cfg.kernel_autotune, "RunConfig.kernel_autotune",
          "slice 8 (tooling)"),
-        (run_cfg.verify_contract, "RunConfig.verify_contract",
-         "slice 8 (tooling)"),
     ]
     for hit, what, where in refusals:
         if hit:

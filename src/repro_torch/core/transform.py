@@ -54,6 +54,8 @@ from typing import Any, Callable, Optional
 import torch
 from torch import nn
 
+from repro_torch.analysis.contract import (check_contract,
+                                           verify_step_contract)
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core import buckets, cost_model, sparsity
 from repro_torch.core import collectives as coll
@@ -318,7 +320,8 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
             overlap.begin()
         try:
             loss, metrics = model.loss_fn(batch, params=full)
-            loss.backward()
+            with coll.backward():
+                loss.backward()
         finally:
             rt.deferred_pushes = None
         done, bufs = overlap.finish() if overlap is not None else ({}, [])
@@ -362,7 +365,16 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
     ``fused_apply`` the optimizer applies bucket-natively from the
     exchange's flat buffers (``update_fused``, against the fused state
     that ``build_step`` lays out); an optimizer without a fused path
-    (sgd) drops the stamp."""
+    (sgd) drops the stamp.
+
+    ``RunConfig.verify_contract``: the first step of this build runs its
+    loss, backward and exchange under ``collectives.record()`` and checks
+    the record against the plan (``analysis/contract.py``) before the
+    optimizer applies, so a step that breaks its plan raises
+    ``ContractViolation`` and changes no state. The check reads the plan's
+    bucket plan when it runs, the step the one it was built with.
+    ``train_step.exchange(state, batch)`` runs the step that far under a
+    record and applies nothing (``Runner.check_contract``)."""
     if plan.fused_apply and optimizer.update_fused is None:
         plan.fused_apply = False
 
@@ -371,7 +383,8 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
         for p in params.values():
             p.grad = None
         loss, metrics = model.loss_fn(batch)
-        loss.backward()
+        with coll.backward():
+            loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
             p.grad = None      # the step owns its gradients from here on
@@ -380,8 +393,23 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
     if rt.mesh is not None:
         value_and_grad = _mesh_value_and_grad(model, rt, plan)
 
+    def exchange(state: TrainState, batch: dict) -> tuple:
+        """The step up to its exchange under a record: -> (value_and_grad's
+        result, the ``collectives.Record``)."""
+        with coll.record() as rec:
+            out = value_and_grad(state, batch)
+        return out, rec
+
+    gate = [bool(rt.run_cfg.verify_contract)]    # armed until a step passes
+
     def train_step(state: TrainState, batch: dict):
-        (loss, metrics), grads, bufs = value_and_grad(state, batch)
+        if gate[0]:
+            out, rec = exchange(state, batch)
+            verify_step_contract(plan, rec)
+            gate[0] = False
+        else:
+            out = value_and_grad(state, batch)
+        (loss, metrics), grads, bufs = out
         metrics = dict(metrics)
         if plan.fused_apply:
             state, opt_metrics = optimizer.update_fused(
@@ -392,6 +420,7 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
         metrics["loss"] = loss
         return state, metrics
 
+    train_step.exchange = exchange
     return train_step
 
 
@@ -699,6 +728,19 @@ class Runner:
             self.model, self.optimizer, self.rt, new_plan, self.live_state,
             diff)
         return diff
+
+    def check_contract(self, batch: dict, *, strict_dtype: bool = False
+                       ) -> list:
+        """The plan-contract check of the live step (analysis/contract.py):
+        one step on ``batch`` (the global batch, as ``run``) as far as its
+        exchange, recorded, and nothing applied: the state is unchanged.
+        Returns the findings (empty: the step carries out the plan). The
+        reference's ``Runner.check_contract`` takes no batch: it reads the
+        collectives from the compiled step's text; the port has no
+        compiled text, so it records a step."""
+        _, rec = self.train_step.exchange(self.live_state,
+                                          local_batch(self.rt, batch))
+        return check_contract(self.plan, rec, strict_dtype=strict_dtype)
 
 
 def get_runner(model_cfg: ModelConfig, shape_cfg: ShapeConfig,

@@ -12,7 +12,9 @@ initialised process group:
                            group, built on ``init_device_mesh``: this rank's
                            coordinates and the process group of each axis
                            and of each tuple of axes.
-``spawn(fn, world, backend, device)``  start ``world`` processes, give each
+``spawn(fn, world, backend, device)``  start ``world`` processes (forked
+                           from a server that has torch loaded and that
+                           is stopped at exit), give each
                            a process group and return each rank's result
                            (the tests' gloo meshes, chip_smoke.py's ranks).
 
@@ -23,6 +25,7 @@ ROADMAP slice 7 (elasticity).
 """
 from __future__ import annotations
 
+import atexit
 import itertools
 import math
 import multiprocessing as mp
@@ -189,15 +192,42 @@ def _worker(job: str, rank: int, world: int, backend: str, device: str,
         queue.put((rank, False, traceback.format_exc()))
 
 
+# Loaded once by the fork server that every rank is forked from, so a
+# rank's start is a fork and not a fresh import of torch and the port,
+# which took most of a mesh phase's start-up on the card's host. The
+# server is a fresh interpreter that never touches CUDA, and nothing here
+# starts a thread on import, so a forked rank initialises its own CUDA
+# context and process group.
+_PRELOAD = ["torch", "numpy", "repro_torch.core.transform"]
+
+
+def stop_fork_server() -> None:
+    """Stop the fork server and the resource tracker, whose pipe the
+    server holds open, and wait for both to exit. Left alone, each outlives
+    the program by the second the server takes to unload torch. Registered
+    at exit by the first ``spawn``; a later ``spawn`` starts both anew."""
+    from multiprocessing import forkserver, resource_tracker
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+
+
+_stop_registered = False
+
+
 def spawn(fn: Callable, world: int, backend: str, device: str = "cpu",
           args: tuple = (), *, timeout: float = 600.0) -> list:
-    """Run ``fn(rank, world, *args)`` in ``world`` fresh processes that
+    """Run ``fn(rank, world, *args)`` in ``world`` new processes that
     share one ``backend`` process group (``tcp://localhost``, a free port)
     and return the results by rank. ``fn`` and its results must pickle.
     On the CPU each rank computes on one thread. Any rank's exception or
     death, or a rank that has not answered within ``timeout`` seconds,
     stops every rank and raises."""
-    ctx = mp.get_context("spawn")
+    global _stop_registered
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(_PRELOAD)
+    if not _stop_registered:
+        atexit.register(stop_fork_server)
+        _stop_registered = True
     queue = ctx.Queue()
     port = free_port()
     # fn and args reach the ranks through a file: a start's arguments go

@@ -40,6 +40,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.analysis.contract import ContractViolation
 from repro_torch.checkpoint.ckpt import (AsyncCheckpointer, latest_step,
                                          restore_checkpoint)
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
@@ -403,6 +404,8 @@ class Trainer:
                 self.monitor.note_overflow(
                     self.profile.dropped(self.plan.table_methods))
                 retries = 0
+            except ContractViolation:
+                raise             # the step breaks its plan: no retry mends it
             except Exception:     # the failure path: restore and retry
                 retries += 1
                 log.exception("step %d failed (retry %d/%d)",

@@ -294,35 +294,13 @@ def launcher_rank(rank, world, argv, dims, escalate):
 # dp
 # ---------------------------------------------------------------------------
 
-COLLECTIVES = ("all_reduce", "all_reduce_max", "all_reduce_async",
-               "all_gather", "reduce_scatter", "all_to_all", "copy_to",
-               "reduce_from", "gather_from", "split_to", "gather_rs",
-               "reduce_scatter_ag")
-
-
-def _norm_axes(axes) -> tuple:
-    return (axes,) if isinstance(axes, str) else tuple(axes or ())
-
-
 def record_collectives(runner, batch) -> list:
-    """[(collective, axes)] of every collective ``core/collectives.py``
-    issues in one step (the forward, the backward and the update)."""
-    calls, saved = [], {n: getattr(coll, n) for n in COLLECTIVES}
-
-    def wrap(name, fn):
-        def rec(x, axes, mesh, *a, **k):
-            calls.append((name, _norm_axes(axes)))
-            return fn(x, axes, mesh, *a, **k)
-        return rec
-
-    for n, fn in saved.items():
-        setattr(coll, n, wrap(n, fn))
-    try:
+    """[(kind, axes)] of every collective ``core/collectives.py`` issues in
+    one step (the forward, the backward and the update), as its record
+    (``collectives.record``) sees them."""
+    with coll.record() as rec:
         runner.run(batch)
-    finally:
-        for n, fn in saved.items():
-            setattr(coll, n, fn)
-    return calls
+    return [(ev.kind, ev.axes) for ev in rec.events]
 
 
 def dp_rank(rank, world, mesh_shape, cases):

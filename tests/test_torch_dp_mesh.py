@@ -139,8 +139,8 @@ def test_dp_ps_runs_fsdp_over_both_axes(ranks):
         p, w = x["leaves"][n]["param"], whole[n]["param"]
         assert np.prod(p) * 4 == np.prod(w), (n, p, w)
     kinds = {(c, a) for c, a in x["collectives"]}
-    assert ("all_gather", ("data", "model")) in kinds
-    assert ("reduce_scatter", ("data", "model")) in kinds
+    assert ("all-gather", ("data", "model")) in kinds
+    assert ("reduce-scatter", ("data", "model")) in kinds
 
 
 @pytest.mark.parametrize("key", DP_CASES + list(MOE_CASES))
