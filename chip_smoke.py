@@ -367,6 +367,34 @@ and never prints the final line:
               2,048-token prefill's logits within 1e-3 of each row's
               scale of a one-device f32 run, moe_dropped of each; at
               bf16 the engine's prefill and 8 decode steps.
+     serve_bench  repro_torch.benchmarks.serve_bench at full width:
+              phi3-medium-14b whole, bf16, flash, ServerConfig(4, 2048),
+              the reference's mix (prompts of 5/11/23/37 tokens in 1..200,
+              loads 2, 6 and 12 in a burst, 16 new, greedy) through
+              Server, then ToyServer on the same weights at load 12:
+              tok/s, TTFT and inter-token gap p50/p99 per load, the
+              speedup; the reference's five asserts; every prefill's flash
+              launches on the tc route.
+     autotune  kernels/autotune.py: the one-pass scatter's R swept at
+              main's shape ((800,000, 512), main's 2,560-slot buffer, bf16
+              rows) and dense_train's ((100,352, 5,120), 4,096 slots), the
+              cache in a temp file under build/; every R bit for bit the
+              plain scatter, tuned <= fixed; then 3 main steps with and
+              without RunConfig(kernel_autotune=True) under deterministic
+              algorithms: the sweep's tile stamped, equal losses bit for
+              bit. The dry-run's production cells run in 3 host processes
+              beside mesh_card_moe_tp, serve_bench and autotune (workers
+              that never touch the card).
+     dryrun   launch/dryrun.py, on the host (no kernel launched): the main
+              cell on one device against main's run (counted FLOPs within
+              0.95-1.4x _train_work's, the median step no shorter than the
+              bound, the peak within 20 % of max_memory_allocated); on the
+              16x16 production mesh at train_4k parallax-lm, parallax-nmt
+              and phi3-medium-14b, and Table 4's five stages for
+              parallax-lm (batch-axis wire bytes within 1e-3 of the cost
+              model plus its named terms): each ok with no contract
+              finding; per-card wire GB, the three roofline times, the
+              dominant one, the peak.
 
 Each path (main, main_no_la, nmt, train (its adaptive run), train_growth,
 train_resume (both runs), dense_parity (its card runs), dense_train,
@@ -379,7 +407,8 @@ hymba_train, chameleon_train, rwkv_train, mesh_card_encdec, moe_parity
 mesh_card_serve, mesh_card_tp, mesh_card_zero (both runs), mesh_card_dp,
 mesh_card_lstm (both runs), mesh_card_toy (the bf16 serve loops of both
 meshes and rwkv6's prefill), mesh_card_moe_tp (its bf16 prefills and
-decode steps)) runs with
+decode steps), serve_bench (the engine's run and the toy's), autotune
+(the tuned run)) runs with
 every launch
 count set to 0 just before it and read just after: the mesh phases in
 each rank's own process (mesh_card's (a), (b) and (c)'s two runs each so,
@@ -413,8 +442,8 @@ import torch.distributed as dist  # noqa: E402
 
 from repro_torch import compat  # noqa: E402
 from repro_torch.analysis.contract import ContractViolation  # noqa: E402
-from repro_torch.configs import (RunConfig, ShapeConfig, get_config,  # noqa: E402
-                                 reduced)
+from repro_torch.configs import (SHAPES, RunConfig,  # noqa: E402
+                                 ShapeConfig, get_config, reduced)
 from repro_torch.core import buckets  # noqa: E402
 from repro_torch.core import collectives as coll  # noqa: E402
 from repro_torch.core.embedding import dedupe  # noqa: E402
@@ -593,7 +622,13 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 "mesh_card_toy": ("embed_gather", "wkv_tc", "wkv_step"),
                 # grok-1's routed experts over model: flash on the tc
                 # route at 24 q heads a rank, a bulk gather a step
-                "mesh_card_moe_tp": ("embed_gather", "flash_attention")}
+                "mesh_card_moe_tp": ("embed_gather", "flash_attention"),
+                # serve_bench's engine (phi3 whole): flash on the tc route
+                # in every prefill, a bulk gather a prefill and a step
+                "serve_bench": ("embed_gather", "flash_attention"),
+                # main's steps under kernel_autotune: the tuned tile on
+                # the one-pass scatter
+                "autotune": ("embed_gather", "embed_scatter_add")}
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
 NMT_CENSUS = tuple(f"{t}_{k}" for t in ("embed", "enc_embed")
                    for k in ("rows", "unique", "dropped"))
@@ -2203,6 +2238,7 @@ def _train(dev, rc: RunConfig, steps: int) -> dict:
             "tokens_per_s": shape.tokens / (med / 1e3),
             "max_memory_allocated": peak, "launches": counts,
             "setup_s": build_s,
+            "table_tiles": dict(runner.plan.table_tiles),
             "nvidia_smi": nvidia_smi(
                 "clocks.sm,power.draw,power.limit,temperature.gpu")}
 
@@ -5168,6 +5204,257 @@ def phase_mesh_card_moe_tp() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice 17: serve_bench, the dry-run, the scatter-tile autotune
+# ---------------------------------------------------------------------------
+
+def phase_serve_bench(dev) -> dict:
+    """``repro_torch.benchmarks.serve_bench`` at full width: phi3-medium-14b
+    whole, bf16, attention "pallas", ServerConfig(4, 2048); the reference's
+    mix (prompts of 5/11/23/37 tokens, loads 2, 6 and 12 in a burst, 16
+    new tokens, greedy) through Server, then ToyServer on the same weights
+    at load 12, with the launch counts set to 0 just before and read just
+    after. Its five asserts (one prefill call a request at each load, a
+    finite p99 TTFT, the engine faster than the toy loop, no token across
+    slots, one trace a bucket); every prefill launches flash once a layer
+    on the tc route."""
+    from repro_torch.benchmarks import serve_bench
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve_bench.run("cuda", full=True)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    serve_bench.check(res)
+    n_layers = get_config("phi3-medium-14b").n_layers
+    prefills = res["stats"]["prefill_calls"]
+    check(counts["flash_attention"] == n_layers * prefills,
+          f"serve_bench: flash launched {counts['flash_attention']} times in "
+          f"{prefills} prefills of {n_layers} layers")
+    missed = counts["flash_attention"] - counts["flash_attention_tc"]
+    check(missed == 0, f"serve_bench: {missed} prefill launches of flash "
+          "missed the tensor-core route")
+    check(counts["embed_gather_bulk"] == counts["embed_gather"] > 0,
+          f"serve_bench: gathers {counts['embed_gather']}, bulk "
+          f"{counts['embed_gather_bulk']}")
+    ms = lambda d: {k: v * 1e3 for k, v in d.items()}
+    out = {"phase": "serve_bench", "arch": res["arch"], "run_s": wall,
+           "loads": {n: {"tok_per_s": r["tok_per_s"],
+                         "ttft_ms": ms(r["ttft_s"]),
+                         "gap_ms": ms(r["per_token_s"]),
+                         "prefill_calls": r["prefill_calls"],
+                         "wall_s": r["wall_s"]}
+                     for n, r in res["engine"].items()},
+           "toy": {"tok_per_s": res["toy"]["tok_per_s"],
+                   "ttft_ms": ms(res["toy"]["ttft_s"]),
+                   "gap_ms": ms(res["toy"]["per_token_s"]),
+                   "wall_s": res["toy"]["wall_s"]},
+           "speedup_vs_toy": res["speedup_vs_toy"],
+           "prefill_traces": res["stats"]["prefill_traces"],
+           "buckets": res["stats"]["buckets"],
+           "decode_steps": res["stats"]["decode_steps"],
+           "cross_slot_mismatches": res["stats"]["cross_slot_mismatches"],
+           "flash_attention_launches_tc": counts["flash_attention_tc"],
+           "launches": counts,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "nvidia_smi": nvidia_smi(
+               "clocks.sm,power.draw,power.limit,temperature.gpu")}
+    emit(out)
+    return out
+
+
+# the dry-run's cells on the production mesh: parallax-lm, parallax-nmt
+# and phi3 at train_4k under RunConfig(), and Table 4's five stages for
+# parallax-lm
+DRY_ARCHS = ("parallax-nmt", "parallax-lm", "phi3-medium-14b")
+# host processes of the dry cells: parallax-nmt's on one, the other seven
+# shared by the rest, leaving the card's phases most of the host's cores
+DRY_WORKERS = 3
+DRY_RATIO = (0.95, 1.4)     # dry FLOPs over _train_work's (the recompute)
+DRY_PEAK_RTOL = 0.2
+
+
+def start_dry_cells():
+    """The production-mesh dry-run cells on the host's cores, in worker
+    processes that never touch the card (they import the port and run on
+    meta): started before mesh_card_moe_tp and collected by the dryrun
+    phase. -> (executor, futures)."""
+    import multiprocessing as mp
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.benchmarks import table4_ablation as t4
+    from repro_torch.launch import dryrun
+    cells = [dict(arch=a, shape_name="train_4k", run_cfg=RunConfig(),
+                  verbose=False) for a in DRY_ARCHS]
+    cells += [dict(arch="parallax-lm", shape_name="train_4k",
+                   run_cfg=t4.stage_config(f), verbose=False,
+                   account=t4.accounting) for _, f in t4.STAGES]
+    pool = ProcessPoolExecutor(min(DRY_WORKERS, os.cpu_count() or 1),
+                               mp_context=mp.get_context("spawn"))
+    return pool, [pool.submit(dryrun._cell_worker, kw) for kw in cells]
+
+
+def phase_dryrun(main_res: dict, dry) -> dict:
+    """launch/dryrun.py on the host, no kernel launched: (i) the main cell
+    (parallax-lm, ("lm1b", 20, 128), RunConfig(), one device) beside
+    main's run of this call: its counted FLOPs between 0.95x and 1.4x
+    ``_train_work``'s, main's median step no shorter than the dry-run's
+    bound, its peak within 20 % of main's max_memory_allocated; (ii) on
+    the 16x16 production mesh at train_4k, parallax-lm, parallax-nmt and
+    phi3-medium-14b, and Table 4's five stages for parallax-lm (each
+    stage's batch-axis bytes within 1e-3 of the cost model plus its named
+    terms): every cell ok with no contract finding; per-card wire GB, the
+    three roofline times, the dominant one and the peak."""
+    from repro_torch.benchmarks import table4_ablation as t4
+    from repro_torch.launch import dryrun
+    pool, futures = dry
+    shape = ShapeConfig("lm1b", SEQ, BATCH, "train")
+    launches0 = ops.launch_counts()
+    t0 = time.perf_counter()
+    main_cell = dryrun.run_cell("parallax-lm", shape, run_cfg=RunConfig(),
+                                mesh=None, verbose=False)
+    main_s = time.perf_counter() - t0
+    try:
+        cells = [f.result() for f in futures]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    check(ops.launch_counts() == launches0, "the dry-run launched a kernel")
+    check(main_cell["ok"], f"dryrun main: {main_cell.get('error')}")
+    work = _train_work(get_config("parallax-lm"), shape)["flops"]
+    flops = main_cell["flop_count"]["flops"]
+    bound_ms = main_cell["roofline"]["bound_s"] * 1e3
+    peak = main_cell["memory_analysis"]["peak_bytes"]
+    ratios = {"flops_over_train_work": flops / work,
+              "median_step_over_bound": main_res["median_step_ms"]
+              / bound_ms,
+              "peak_over_measured": peak / main_res["max_memory_allocated"]}
+    check(DRY_RATIO[0] <= ratios["flops_over_train_work"] <= DRY_RATIO[1],
+          f"dryrun main: {flops} FLOPs against _train_work's {work}")
+    check(ratios["median_step_over_bound"] >= 1.0,
+          f"dryrun main: median step {main_res['median_step_ms']} ms under "
+          f"the bound {bound_ms} ms")
+    check(abs(ratios["peak_over_measured"] - 1) <= DRY_PEAK_RTOL,
+          f"dryrun main: peak {peak} against measured "
+          f"{main_res['max_memory_allocated']}")
+    names = list(DRY_ARCHS) + [f"parallax-lm/{n}" for n, _ in t4.STAGES]
+    rows = {}
+    for tag, res in zip(names, cells):
+        check(res["ok"], f"dryrun {tag}: {res.get('error')} "
+              f"{res.get('contract')}")
+        check(not res["contract"]["findings"],
+              f"dryrun {tag}: {res['contract']['findings']}")
+        r = res["roofline"]
+        row = {"collective_GB": r["per_chip_collective_bytes"] / 1e9,
+               "compute_ms": r["compute_s"] * 1e3,
+               "memory_ms": r["memory_s"] * 1e3,
+               "collective_ms": r["collective_s"] * 1e3,
+               "dominant": r["dominant"], "bound_ms": r["bound_s"] * 1e3,
+               "peak_GB": res["memory_analysis"]["peak_bytes"] / 1e9,
+               "flops": res["flop_count"]["flops"],
+               "dry_step_s": res["compile_s"]}
+        if "account" in res:
+            row.update(t4.summary(res, SHAPES["train_4k"].tokens))
+        rows[tag] = row
+    base = rows["parallax-lm/BASE"]["tok_s"]
+    for n, _ in t4.STAGES:
+        rows[f"parallax-lm/{n}"]["speedup_vs_base"] = \
+            rows[f"parallax-lm/{n}"]["tok_s"] / base
+    out = {"phase": "dryrun", "main": {
+        "flops": flops, "train_work_flops": work, "bound_ms": bound_ms,
+        "dominant": main_cell["roofline"]["dominant"],
+        "peak_bytes": peak, "measured_peak_bytes":
+            main_res["max_memory_allocated"],
+        "median_step_ms": main_res["median_step_ms"], "dry_step_s": main_s,
+        **ratios}, "production_16x16": rows,
+        "note": "a projection on the H100 record: counted operations, "
+                "recorded collectives and utils/traffic.py's bytes; "
+                "nothing computed on the card"}
+    emit(out)
+    return out
+
+
+TUNE_SHAPES = ("main", "dense_train")
+
+
+def phase_autotune(dev, steps: int = 3) -> dict:
+    """kernels/autotune.py on the card: the scatter's R swept at main's
+    shape ((800,000, 512), main's first dedupe buffer of 2,560 ids, bf16
+    rows) and at phi3's training shape ((100,352, 5,120), its 4,096-slot
+    buffer), the cache written to a temp path; every measured R bit for
+    bit the plain scatter's output, tuned <= fixed. Then ``steps`` main
+    steps with and without ``kernel_autotune`` under deterministic
+    algorithms: the stamped tile is the sweep's, the losses equal bit for
+    bit, one one-pass scatter a step (the tuned run's launches counted
+    from 0)."""
+    import os
+    import tempfile
+    from repro_torch.kernels import autotune
+    tmp = tempfile.mkdtemp(prefix="autotune_", dir=str(ROOT / "build"))
+    cache = os.path.join(tmp, "kernel_autotune.json")
+    os.environ[autotune.CACHE_ENV] = cache
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sweeps = {}
+    try:
+        for name in TUNE_SHAPES:
+            if name == "main":
+                ids, vs, e = _main_ids(dev), VOCAB, E
+            else:
+                ids = _dense_ids(dev)["dense_train"]
+                cfg = get_config(DENSE_ARCH)
+                vs, e = cfg.vocab_size, cfg.d_model
+            n = ids.numel()
+            rows = torch.randn((n, e), generator=gen, device=dev).to(
+                torch.bfloat16)
+            best, us = autotune.tune("scatter", vs, e, n, torch.bfloat16,
+                                     device=dev, inputs=(ids, rows))
+            want = _bits(ref.embed_scatter_add_ref(ids, rows, vs))
+            for r in us:
+                got = ops.embed_scatter_add(ids, rows, vs, block=r)
+                check(torch.equal(_bits(got), want),
+                      f"autotune {name}: R {r} differs from the plain scatter")
+            check(us[best] <= us[0], f"autotune {name}: tuned {us[best]} us "
+                  f"over fixed {us[0]} us")
+            sweeps[name] = {
+                "shape": [vs, e, n], "best_R": best,
+                "fixed_R": ops.scatter_partition(vs, e, n)[0],
+                "us_by_R": {str(k): v for k, v in us.items()},
+                "tuned_over_fixed": us[best] / us[0]}
+            del rows, want
+        with open(cache) as f:
+            keys = sorted(json.load(f))
+        check(len(keys) == len(TUNE_SHAPES), f"autotune cache {keys}")
+        # three main steps with and without the autotune, deterministic
+        det = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            fixed = _train(dev, RunConfig(), steps)
+            tuned = _train(dev, RunConfig(kernel_autotune=True), steps)
+        finally:
+            torch.use_deterministic_algorithms(det)
+    finally:
+        os.environ.pop(autotune.CACHE_ENV, None)
+        for f in os.listdir(tmp):
+            os.unlink(os.path.join(tmp, f))
+        os.rmdir(tmp)
+    check(fixed["losses"] == tuned["losses"],
+          f"autotune: losses {fixed['losses']} vs {tuned['losses']}")
+    check(tuned["table_tiles"].get("embed") == (0, sweeps["main"]["best_R"]),
+          f"autotune: stamped {tuned['table_tiles']}, swept "
+          f"{sweeps['main']['best_R']}")
+    check(fixed["table_tiles"] == {}, f"autotune off: {fixed['table_tiles']}")
+    counts = tuned["launches"]
+    check(counts["embed_scatter_add_fused"] == steps
+          and counts["embed_gather_bulk"] == steps,
+          f"autotune: {counts}")
+    out = {"phase": "autotune", "cache_keys": keys, "sweeps": sweeps,
+           "tile": list(tuned["table_tiles"]["embed"]),
+           "losses": tuned["losses"], "launches": counts,
+           "step_ms_fixed": fixed["median_step_ms"],
+           "step_ms_tuned": tuned["median_step_ms"]}
+    emit(out)
+    return out
+
+
 def _check_nmt_card(ranks: list, nmt_losses: list, steps: int) -> dict:
     """mesh_card (c)'s checks, over every rank's record."""
     f0, p0 = ranks[0]["fused"], ranks[0]["per_param"]
@@ -5294,10 +5581,19 @@ def main() -> None:
     mesh_lstm = run("mesh_card_lstm", phase_mesh_card_lstm)
     run("table3", phase_table3)
     mesh_toy = run("mesh_card_toy", phase_mesh_card_toy, rwkv_serve)
+    # the dry-run's production cells run in DRY_WORKERS host processes
+    # beside mesh_card_moe_tp, serve_bench and autotune (parallax-nmt's
+    # takes ~100 s on one core; the other seven ~10-20 s each)
+    dry = start_dry_cells()
     mesh_moe_tp = run("mesh_card_moe_tp", phase_mesh_card_moe_tp)
     paths["mesh_card_lstm"] = mesh_lstm["launches"]
     paths["mesh_card_toy"] = mesh_toy["launches"]
     paths["mesh_card_moe_tp"] = mesh_moe_tp["launches"]
+    bench = run("serve_bench", phase_serve_bench, dev)
+    paths["serve_bench"] = bench["launches"]
+    tune = run("autotune", phase_autotune, dev)
+    paths["autotune"] = tune["launches"]
+    run("dryrun", phase_dryrun, main_res, dry)
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} not launched on {path}")
@@ -5333,6 +5629,10 @@ def main() -> None:
         if name in ("embed_gather", "embed_scatter_add"):
             rows[-1]["dense_train_shape"] = kern["dense_train_shape"][name]
         if name == "embed_scatter_add":
+            # the measured tile sweep (kernels/autotune.py): per-R µs and
+            # the chosen R at main's and dense_train's shapes
+            rows[-1]["autotune"] = {"tile": tune["tile"],
+                                    "sweeps": tune["sweeps"]}
             rows[-1]["launches_fused"] = {
                 p: c["embed_scatter_add_fused"] for p, c in paths.items()
                 if name in PATH_KERNELS[p]}
@@ -5379,6 +5679,8 @@ def main() -> None:
             rows[-1]["moe_launches_tc"] = {
                 p: r["flash_attention_launches_tc"]
                 for p, r in moe_serve.items()}
+            rows[-1]["serve_bench_launches_tc"] = \
+                bench["flash_attention_launches_tc"]
     for row in rows:
         if row["name"] in ("embed_gather", "embed_scatter_add",
                            "flash_attention"):

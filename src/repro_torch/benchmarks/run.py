@@ -7,8 +7,15 @@ reference's ``benchmarks/run.py``):
 
 ``census`` (Table 1), ``table3`` (Table 3), ``buckets`` (the bucketed
 exchange, ``results/torch_exchange.json``), ``adaptive_replan`` (the
-replan replay). Each prints ``name,us_per_call,derived`` lines and runs
-on the card unless ``--device cpu``.
+replan replay), ``serve`` (the serving engine against the toy loop,
+``results/torch_serve.json``: phi3-medium-14b whole on the card, the
+reference's reduced config with ``--device cpu``) and ``kernels`` (each
+kernel against its plain version, the fused apply, the autotune sweep,
+``results/torch_kernels.json``) run on the card unless ``--device cpu``.
+``table4`` (Table 4), ``fig13`` (Figure 13) and ``roofline`` (the
+dry-run's cells as a table) are dry-runs (launch/dryrun.py): they run on
+the host whatever ``--device`` says, and each line says so. Each prints
+``name,us_per_call,derived`` lines.
 """
 from __future__ import annotations
 
@@ -16,7 +23,10 @@ import argparse
 import importlib
 
 BENCHES = {"census": "table1_census", "table3": "table3_transfer",
-           "buckets": "bucket_exchange", "adaptive_replan": "adaptive_replan"}
+           "buckets": "bucket_exchange", "adaptive_replan": "adaptive_replan",
+           "table4": "table4_ablation", "fig13": "fig13_scaling",
+           "roofline": "roofline_table", "serve": "serve_bench",
+           "kernels": "kernel_bench"}
 
 
 def main(argv=None) -> None:
@@ -31,6 +41,8 @@ def main(argv=None) -> None:
             f"repro_torch.benchmarks.{BENCHES[name]}")
         if name == "adaptive_replan":
             mod.main([], device=args.device)
+        elif name == "serve":
+            mod.main(args.device, full=args.device != "cpu")
         else:
             mod.main(args.device)
 

@@ -55,6 +55,12 @@ collective and records nothing. With no record open the cost is one
 truth test of a module list. ``analysis/contract.py`` diffs a step's
 record against its plan; ``wire_bytes`` applies the ring factors the
 reference applies to HLO (``repro/utils/hlo.py::_ring_factor``).
+
+A record-only mesh (``launch/mesh.py::DryMesh``, the dry-run's stand-in
+for the reference's fake devices) hands out ``DryGroup``s, which know
+only their size. Each function here, given one, reports the same event a
+process group's call would, returns a tensor of the result's shape,
+dtype and device (empty: nothing is computed) and communicates nothing.
 """
 from __future__ import annotations
 
@@ -100,6 +106,31 @@ def wire_bytes(ev: Event) -> float:
     all-reduce's result, (n-1)/n of the others'."""
     n = ev.group
     return ev.bytes * (2.0 if ev.kind == "all-reduce" else 1.0) * (n - 1) / n
+
+
+class DryGroup:
+    """A group of a record-only mesh: its size, and no process."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+
+    def __repr__(self) -> str:
+        return f"DryGroup({self.size})"
+
+
+def _size(g) -> int:
+    return g.size if isinstance(g, DryGroup) else dist.get_world_size(g)
+
+
+def _dry(g) -> bool:
+    return isinstance(g, DryGroup)
+
+
+class _DoneWork:
+    """The work handle of a record-only all-reduce: nothing to wait for."""
+
+    def wait(self):
+        return True
 
 
 class Record:
@@ -183,7 +214,7 @@ def _start(kind: str, x: torch.Tensor, elems: int, axes, mesh, g,
     """Report a collective on ``x`` (its dtype and device) whose result has
     ``elems`` elements to every open record, and start its clock."""
     ev = Event(seq=next(_State.seq), kind=kind, axes=mesh._key(axes),
-               group=dist.get_world_size(g), elems=int(elems),
+               group=_size(g), elems=int(elems),
                dtype=str(x.dtype).removeprefix("torch."),
                bytes=int(elems) * x.element_size(), op=op,
                in_backward=_State.backward > 0,
@@ -227,7 +258,8 @@ def all_reduce(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     out = x.contiguous().clone()
     ev = _State.records and _start("all-reduce", out, out.numel(), axes,
                                    mesh, g, "sum")
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
+    if not _dry(g):
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
     if ev:
         _stop(ev, out)
     return out
@@ -240,7 +272,8 @@ def all_reduce_max(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     out = x.contiguous().clone()
     ev = _State.records and _start("all-reduce", out, out.numel(), axes,
                                    mesh, g, "max")
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
+    if not _dry(g):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
     if ev:
         _stop(ev, out)
     return out
@@ -255,8 +288,9 @@ def all_reduce_async(buf: torch.Tensor, axes, mesh):
         return None
     ev = _State.records and _start("all-reduce", buf, buf.numel(), axes,
                                    mesh, g, "sum")
-    work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g,
-                           async_op=True)
+    work = (_DoneWork() if _dry(g) else
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g,
+                            async_op=True))
     return _TimedWork(work, ev, buf) if ev else work
 
 
@@ -266,14 +300,16 @@ def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
     g = mesh.group(axes)
     if g is None:
         return x
-    n = dist.get_world_size(g)
+    n = _size(g)
     src = x.movedim(dim, 0).contiguous()
     home = src.device
     ev = _State.records and _start("all-gather", src, n * src.numel(), axes,
                                    mesh, g)
     if _staged(mesh, src):
         src = src.cpu()
-    if _gloo(mesh):
+    if _dry(g):
+        out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    elif _gloo(mesh):
         parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=g)
         out = torch.cat(parts, 0)
@@ -293,7 +329,7 @@ def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0
     g = mesh.group(axes)
     if g is None:
         return x
-    n = dist.get_world_size(g)
+    n = _size(g)
     src = x.movedim(dim, 0).contiguous()
     if src.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim of {src.shape[0]} over "
@@ -304,11 +340,13 @@ def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0
     if _staged(mesh, src):
         src = src.cpu()
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-    with warnings.catch_warnings():
-        # renamed reduce_scatter_single in newer torch; this name is in
-        # every version the port runs on
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=g)
+    if not _dry(g):
+        with warnings.catch_warnings():
+            # renamed reduce_scatter_single in newer torch; this name is
+            # in every version the port runs on
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                                       group=g)
     out = out.to(home)
     if ev:
         _stop(ev, out)
@@ -323,7 +361,7 @@ class _AllToAll(torch.autograd.Function):
     def forward(fctx, x, axis, g, mesh, split_dim, concat_dim):
         fctx.axis, fctx.g, fctx.mesh = axis, g, mesh
         fctx.dims = (split_dim, concat_dim)
-        n = dist.get_world_size(g)
+        n = _size(g)
         if x.shape[split_dim] % n:
             raise ValueError(f"all_to_all: dim of {x.shape[split_dim]} "
                              f"over {n} ranks")
@@ -338,7 +376,8 @@ class _AllToAll(torch.autograd.Function):
         if _staged(mesh, src):
             src = src.cpu()
         out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=g)
+        if not _dry(g):
+            dist.all_to_all_single(out, src, group=g)
         out = out.to(home)
         if ev:
             _stop(ev, out)

@@ -74,6 +74,8 @@ class EmbedCtx:
                                 # overlap=False: the push's (ids, rows) go
                                 # here and the step exchanges them after
                                 # the backward (``deferred_push``)
+    scatter_block: int = 0      # the one-pass scatter's rows per block
+                                # (Plan.table_tiles; 0: the kernel's own)
 
     @property
     def model_shards(self) -> int:
@@ -156,7 +158,8 @@ def _scatter_rows(local_ids: torch.Tensor, rows: torch.Tensor, vs: int,
     card its index_add_ adds repeats with atomics, in an order that varies
     from run to run."""
     if ctx.local_agg:
-        return ops.embed_scatter_add(local_ids, rows, vs)
+        return ops.embed_scatter_add(local_ids, rows, vs,
+                                     block=ctx.scatter_block)
     return ref.embed_scatter_add_ref(local_ids, rows, vs)
 
 

@@ -191,6 +191,10 @@ class Plan:
     grown_tables: tuple = ()
     stale_tables: tuple = ()
     table_serve: dict = field(default_factory=dict)
+    table_tiles: dict = field(default_factory=dict)     # name -> (gather
+                                       # tile, scatter tile): (0, R) from
+                                       # kernels/autotune.py; absent
+                                       # (0, 0): the kernels' own choices
 
     def census(self) -> dict:
         dense = sparse = 0

@@ -41,8 +41,6 @@ def check_ported(run_cfg: RunConfig, mesh: Any = None) -> None:
         (run_cfg.heartbeat, "RunConfig.heartbeat", "slice 7 (elasticity)"),
         (run_cfg.max_staleness > 0, "RunConfig.max_staleness > 0",
          "slice 7 (elasticity)"),
-        (run_cfg.kernel_autotune, "RunConfig.kernel_autotune",
-         "slice 8 (tooling)"),
     ]
     for hit, what, where in refusals:
         if hit:
@@ -203,10 +201,11 @@ class Runtime:
 
     # ---- the sparse path (per table) ----
     def embed_ctx(self, name: str = "embed") -> EmbedCtx:
-        method, wire = "dense", self.wire_dtype
+        method, wire, tile = "dense", self.wire_dtype, 0
         if self.plan is not None:
             method = self.plan.table_methods.get(name, self.plan.embed_method)
             wire = self.plan.table_wire.get(name, wire)
+            tile = self.plan.table_tiles.get(name, (0, 0))[1]
         elif self.mesh is not None:
             method = ("ps" if self.run_cfg.comm_mode in ("hybrid", "ps")
                       else "mpi_gatherv")
@@ -232,6 +231,7 @@ class Runtime:
             # prefill runs on the replica that owns the slot
             bucketed=self.bucketed or self.shape_cfg.kind == "decode",
             deferred=self.deferred_pushes if defer else None,
+            scatter_block=tile,
         )
 
     def embed_capacity_for(self, name: str = "embed") -> int:

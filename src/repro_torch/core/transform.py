@@ -63,7 +63,7 @@ from repro_torch.core import embedding
 from repro_torch.core.plan import (ParamPlan, Plan, add_fsdp, entry_axes,
                                    gate_groups, per_device_bytes, plan_diff)
 from repro_torch.core.runtime import Runtime, check_ported, mesh_dims
-from repro_torch.launch.mesh import Mesh, MeshShape
+from repro_torch.launch.mesh import DryMesh, Mesh, MeshShape
 from repro_torch.models.layers import flatten_specs, init_std
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizer import (Optimizer, TrainState, fuse_state,
@@ -639,6 +639,11 @@ def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
         state = optimizer.init(own, shapes=moment_shapes(own, plan))
     else:
         state = load_state(model, rt, plan, state)
+    if rt.run_cfg.kernel_autotune:
+        # the scatter's measured tile per table (on the card; the CPU's
+        # plain version has none)
+        from repro_torch.kernels import autotune
+        autotune.ensure_for_plan(plan, rt, model)
     step = make_train_step(model, optimizer, rt, plan)
     if plan.fused_apply:
         state = fuse_state(state, plan.bucket_plan)
@@ -680,6 +685,16 @@ def local_batch(rt: Runtime, batch: dict) -> dict:
         batch = {k: v[len(v) // n * r:len(v) // n * (r + 1)]
                  for k, v in batch.items()}
     return {k: torch.as_tensor(v).to(rt.device) for k, v in batch.items()}
+
+
+def _abstract_batch(model, rt: Runtime) -> dict:
+    """The global batch as empty meta tensors of the shapes and dtypes
+    ``model.input_specs()`` gives (the reference's ShapeDtypeStructs for
+    lowering a step without data; ``local_batch`` cuts this replica's
+    rows from it). The heartbeat input belongs to slice 7, which
+    ``check_ported`` refuses."""
+    return {k: torch.empty(shape, dtype=dtype, device="meta")
+            for k, (shape, dtype) in model.input_specs().items()}
 
 
 def fresh_state(model, optimizer: Optimizer, seed: int) -> TrainState:
@@ -756,6 +771,9 @@ def get_runner(model_cfg: ModelConfig, shape_cfg: ShapeConfig,
         raise ValueError(f"{mesh!r} holds no process groups: a MeshShape "
                          "plans (analyze) but runs nothing; build the mesh "
                          "with launch/mesh.py::make_mesh")
+    if isinstance(mesh, DryMesh):
+        raise ValueError(f"{mesh!r} is record-only: it computes nothing and "
+                         "only launch/dryrun.py builds on it")
     rt = Runtime(model_cfg, run_cfg, shape_cfg, mesh=mesh, device=device)
     model = build_model(model_cfg, rt)
     plan = analyze(model, rt)

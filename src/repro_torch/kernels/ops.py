@@ -4,7 +4,14 @@ the embedding pull and push, flash attention and the RWKV6 WKV recurrence.
 Dispatch is by the tensor's device, never by a flag:
   * a CPU tensor takes the plain version (kernels/ref.py);
   * a CUDA tensor launches the hand-written kernel (csrc/*.cu, built with
-    nvcc on first use by kernels/_build.py) or raises. Nothing falls back.
+    nvcc on first use by kernels/_build.py) or raises. Nothing falls back;
+  * a meta tensor (launch/dryrun.py's step, which computes nothing)
+    gets an empty meta tensor of the kernel's output shape and dtype: it
+    calls neither the kernel nor the plain version. The operations the
+    kernel would do on those inputs go to each open ``meta_flops()``
+    count (flash: its QK^T and P.V over the unmasked pairs; wkv: its
+    chunk products; the embed kernels: none), since a meta tensor's
+    ``FlopCounterMode`` sees only ATen operators.
 
 Each wrapper checks device, dtype, shape and contiguity before it hands a
 pointer to the kernel, and carries a launch counter (``<wrapper>.launches``,
@@ -12,6 +19,8 @@ a plain integer) that it bumps where it launches the kernel and nowhere
 else, so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -61,6 +70,57 @@ def launch_counts() -> dict:
             "wkv": wkv.launches,
             "wkv_tc": wkv.launches_tc,
             "wkv_step": wkv.launches_step}
+
+
+class _MetaCounts:
+    """The open ``meta_flops()`` counts (module state: autograd runs a
+    backward on a thread of its own)."""
+    open: list = []
+
+
+@contextlib.contextmanager
+def meta_flops():
+    """Count the kernel calls made on meta tensors until the block ends:
+    -> {"flops": operations the kernels would do, "calls": {kernel: n}}."""
+    count = {"flops": 0, "calls": {}}
+    _MetaCounts.open.append(count)
+    try:
+        yield count
+    finally:
+        _MetaCounts.open.remove(count)
+
+
+def _meta_out(kernel: str, shape: tuple, dtype: torch.dtype,
+              flops: int = 0) -> torch.Tensor:
+    """A meta call's result: an empty meta tensor of the kernel's output
+    shape and dtype, its operations counted."""
+    for count in _MetaCounts.open:
+        count["flops"] += int(flops)
+        count["calls"][kernel] = count["calls"].get(kernel, 0) + 1
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def flash_flops(b: int, sq: int, sk: int, h: int, d: int,
+                causal: bool) -> int:
+    """QK^T and P.V over the unmasked (q, k) pairs, 2 per FMA: causal
+    positions count from 0 on both sides, so q row i sees min(i + 1, Sk)
+    keys."""
+    if causal:
+        full = min(sq, sk)
+        pairs = full * (full + 1) // 2 + max(sq - sk, 0) * sk
+    else:
+        pairs = sq * sk
+    return 4 * d * b * h * pairs
+
+
+def wkv_flops(b: int, s: int, h: int, e: int, chunk: int) -> int:
+    """Per (b, h) and chunk of n tokens, the products the chunk form does:
+    the strictly lower r k^T and its product with v (n(n-1)/2 E MACs
+    each), r state and k^T v (n E^2 each), the bonus term (2 n E); 2 per
+    MAC."""
+    c, full = min(chunk, s), s // min(chunk, s)
+    macs = lambda n: n * (n - 1) * e + 2 * n * e * e + 2 * n * e
+    return 2 * b * h * (full * macs(c) + macs(s - full * c))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -115,6 +175,9 @@ def embed_gather(table_shard: torch.Tensor, ids: torch.Tensor,
            f"ids on {ids.device}, table on {table_shard.device}")
     if table_shard.device.type == "cpu":
         return ref.embed_gather_ref(table_shard, ids, row_offset)
+    if table_shard.device.type == "meta":
+        return _meta_out("embed_gather", (ids.shape[0], table_shard.shape[1]),
+                         table_shard.dtype)
     if table_shard.device.type != "cuda":
         raise NotImplementedError(
             f"embed_gather: no kernel for device {table_shard.device}")
@@ -180,13 +243,25 @@ def scatter_partition(vs: int, e: int, n: int) -> tuple:
     return per_block, -(-vs // per_block)
 
 
+def scatter_grid(vs: int, e: int, n: int, block: int = 0) -> tuple:
+    """(rows per block R, grid G) of one one-pass scatter launch: the tile
+    ``block`` when it is given (G = ceil(Vs / R)), else
+    ``scatter_partition``'s."""
+    if block:
+        return block, -(-vs // block)
+    return scatter_partition(vs, e, n)
+
+
 def embed_scatter_add(ids: torch.Tensor, rows: torch.Tensor,
-                      vs: int) -> torch.Tensor:
+                      vs: int, block: int = 0) -> torch.Tensor:
     """ids (N,) int32 local-space ids, unique among owned rows (the dedupe
     buffer; in any order); rows (N, E) bf16|f32 -> (Vs, E) f32 gradient
     rows, zeros where no id lands. Unowned ids are dropped. One launch
     (csrc/embed_scatter_fused.cu) writes every row of the output once;
-    counts in ``embed_scatter_add.launches`` and ``.launches_fused``."""
+    counts in ``embed_scatter_add.launches`` and ``.launches_fused``.
+    ``block``: the kernel's rows per block R (the autotuned tile,
+    ``Plan.table_tiles``), 0 for ``scatter_partition``'s; the plain
+    version has no tile and ignores it. Every R gives the same bits."""
     _check(rows.dim() == 2, f"rows must be 2-D, got {tuple(rows.shape)}")
     _check(rows.dtype in _DTYPES, f"rows dtype {rows.dtype} not in {_DTYPES}")
     _check(ids.dim() == 1 and ids.dtype == torch.int32
@@ -196,8 +271,16 @@ def embed_scatter_add(ids: torch.Tensor, rows: torch.Tensor,
     _check(ids.device == rows.device,
            f"ids on {ids.device}, rows on {rows.device}")
     _check(vs >= 0, f"vs must be >= 0, got {vs}")
+    # 0, or rows per block whose map (4 B a row) fits the kernel's
+    # shared memory
+    _check(isinstance(block, int) and 0 <= block <= _SCATTER_MAX_ROWS,
+           f"scatter block must be 0 or rows per block in [1, "
+           f"{_SCATTER_MAX_ROWS}], got {block!r}")
     if rows.device.type == "cpu":
         return ref.embed_scatter_add_ref(ids, rows, vs)
+    if rows.device.type == "meta":
+        return _meta_out("embed_scatter_add", (vs, rows.shape[1]),
+                         torch.float32)
     if rows.device.type != "cuda":
         raise NotImplementedError(
             f"embed_scatter_add: no kernel for device {rows.device}")
@@ -207,7 +290,7 @@ def embed_scatter_add(ids: torch.Tensor, rows: torch.Tensor,
     out = torch.empty((vs, e), dtype=torch.float32, device=rows.device)
     if out.numel() == 0:
         return out
-    per_block, grid = scatter_partition(vs, e, n)
+    per_block, grid = scatter_grid(vs, e, n, block)
     fn = _build.load("embed_scatter_fused")
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     err = fn(ids.data_ptr(), rows.data_ptr(), out.data_ptr(), n, vs, e,
@@ -297,6 +380,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  "attention_impl 'naive' or 'chunked'")
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        return _meta_out("flash_attention", tuple(q.shape), q.dtype,
+                         flash_flops(b, sq, k.shape[1], h, d, causal))
     if q.device.type != "cuda":
         raise NotImplementedError(
             f"flash_attention: no kernel for device {q.device}")
@@ -393,6 +479,10 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
                  "models/rwkv.py::chunk_wkv (the reference's _chunk_wkv)")
     if r.device.type == "cpu":
         return ref.wkv_chunked_ref(r, k, v, lw, bonus, state, chunk=chunk)
+    if r.device.type == "meta":
+        out = _meta_out("wkv", (b, s, h, e), r.dtype,
+                        wkv_flops(b, s, h, e, chunk))
+        return out, torch.empty_like(state)
     if r.device.type != "cuda":
         raise NotImplementedError(f"wkv: no kernel for device {r.device}")
     _check(e in _WKV_DIMS, f"wkv: head size {e} not in {_WKV_DIMS}")

@@ -12,6 +12,14 @@ initialised process group:
                            group, built on ``init_device_mesh``: this rank's
                            coordinates and the process group of each axis
                            and of each tuple of axes.
+``DryMesh(shape, axes)``   a record-only mesh: rank 0 of a mesh with no
+                           process behind it, whose groups know only their
+                           size (core/collectives.py records their
+                           collectives and sends nothing). Only the
+                           dry-run (launch/dryrun.py) builds on it, as the
+                           reference compiles on fake devices.
+``make_production_mesh()`` the reference's 16x16 and 2x16x16 production
+                           meshes, as ``MeshShape``s.
 ``spawn(fn, world, backend, device)``  start ``world`` processes (forked
                            from a server that has torch loaded and that
                            is stopped at exit), give each
@@ -41,6 +49,8 @@ from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core.collectives import DryGroup
 
 
 class MeshShape:
@@ -107,6 +117,37 @@ class Mesh(MeshShape):
         for a in self._key(axes):
             i = i * self.shape[a] + self.coords[a]
         return i
+
+
+class DryMesh(Mesh):
+    """A record-only mesh: a ``MeshShape`` that acts as rank 0 (its
+    ``coords`` all 0, ``index()`` as on a ``Mesh``) on ``device`` (the
+    meta device by default), with no process group behind it. Its
+    ``group(axes)`` is a ``collectives.DryGroup`` that knows only its size,
+    so each collective reports the event a real mesh's would and returns
+    an empty result of the right shape. ``get_runner`` refuses it: only
+    the dry-run builds on it."""
+
+    def __init__(self, shape, axes, *, device="meta", hosts: int = 1):
+        MeshShape.__init__(self, shape, axes, hosts=hosts)
+        self.device = torch.device(device)
+        self.device_mesh = None
+        self.rank = 0
+        self.backend = "dry"
+        self.coords = {a: 0 for a in self.axis_names}
+        self._groups = {}
+
+    def group(self, axes):
+        n = self.axes_size(self._key(axes))
+        return DryGroup(n) if n > 1 else None
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production meshes: 16x16 over (data, model), 256
+    cards, or 2x16x16 over (pod, data, model), 512."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
 
 
 def _subset_groups(shape: tuple, axes: tuple) -> dict:

@@ -22,8 +22,9 @@ Mapped or refused, never ignored:
     CUDA kernels on the card, their plain versions on the CPU, dispatched
     on the tensor's device; ``jnp`` (plain versions on the card) is
     refused;
-  * ``--kernel-autotune`` reaches ``RunConfig.kernel_autotune``, which the
-    runtime refuses (ROADMAP slice 8);
+  * ``--kernel-autotune`` reaches ``RunConfig.kernel_autotune``: on the
+    card each table's scatter tile is measured and cached
+    (kernels/autotune.py); on the CPU nothing is measured;
   * ``--attention`` is ``RunConfig.attention_impl`` (every attention
     family's; no LSTM reads it); ``pallas`` is refused for training (the
     flash kernel is forward-only, as the reference's);

@@ -118,6 +118,16 @@ class ServerConfig:
     temperature: float = 1.0      # categorical sampling when greedy=False
 
 
+def hold_for_serving_(model, plan) -> None:
+    """Stamp each parameter's executed placement for serving: the plan's
+    placement with the batch axes dropped (a server holds its weights
+    whole over them) and the model-axis groups of that block."""
+    for name, spec in model.param_specs():
+        p = plan.params[name]
+        p.held = model_part(p.placement)
+        p.groups = gate_groups(name, spec.axes, p.held)
+
+
 def _setup(model_cfg, run_cfg, scfg, mesh, params, seed, device, *,
            paged: bool):
     """Runtime, model (parameters filled), plan — shared by both engines.
@@ -141,10 +151,7 @@ def _setup(model_cfg, run_cfg, scfg, mesh, params, seed, device, *,
     rt.plan = plan
     mesh_plan = None
     if mesh is not None:
-        for name, spec in model.param_specs():
-            p = plan.params[name]
-            p.held = model_part(p.placement)
-            p.groups = gate_groups(name, spec.axes, p.held)
+        hold_for_serving_(model, plan)
         place_params_(model, plan, mesh)
         mesh_plan = plan
     if params is None:

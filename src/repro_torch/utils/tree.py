@@ -14,7 +14,10 @@ port enumerates through ``flatten`` / ``flatten_order`` below.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Iterable
+
+import torch
 
 
 def path_name(path: Iterable) -> str:
@@ -57,3 +60,50 @@ def named_parameters(module) -> dict:
     """{dotted_name: parameter} of an ``nn.Module`` in JAX's flatten order."""
     params = dict(module.named_parameters())
     return {n: params[n] for n in flatten_order(params)}
+
+
+# ---------------------------------------------------------------------------
+# byte and count helpers (the reference's, over tensors — meta tensors
+# included, whose shape and dtype are all they hold — and over the port's
+# dicts of named tensors)
+# ---------------------------------------------------------------------------
+
+def _is_leaf(x: Any) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def named_leaves(tree: Any) -> list:
+    """[(dotted_name, leaf)] for every leaf of the tree, in JAX's flatten
+    order (``flatten``); a leaf is a tensor or any non-container value."""
+    return flatten(tree, _is_leaf)
+
+
+def leaf_count(leaf) -> int:
+    """Elements of a leaf: the product of its shape (1 for a scalar or a
+    leaf without one)."""
+    shape = getattr(leaf, "shape", None)
+    if shape is None:
+        return 1
+    return int(math.prod(shape)) if len(shape) else 1
+
+
+def leaf_bytes(leaf) -> int:
+    """Bytes of a leaf at its dtype (4 a element when it has none)."""
+    dtype = getattr(leaf, "dtype", None)
+    if isinstance(dtype, torch.dtype):
+        itemsize = dtype.itemsize
+    elif dtype is not None:
+        itemsize = getattr(dtype, "itemsize", 4)
+    else:
+        itemsize = 4
+    return leaf_count(leaf) * itemsize
+
+
+def tree_count(tree: Any) -> int:
+    """Total number of scalar elements in the tree."""
+    return sum(leaf_count(l) for _, l in named_leaves(tree))
+
+
+def tree_bytes(tree: Any) -> int:
+    """Total bytes of the tree at its leaf dtypes."""
+    return sum(leaf_bytes(l) for _, l in named_leaves(tree))

@@ -194,12 +194,30 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(bad):
         ops.flash_attention(q, k, v)
 
 
-def test_flash_wrapper_raises_off_cpu_without_a_kernel():
-    """A tensor neither on the CPU nor on the card is refused, never routed
-    to the plain version."""
-    t = torch.zeros((1, 4, 2, 16), device="meta")
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(t, t, t)
+def test_flash_wrapper_raises_off_cpu_without_a_kernel(monkeypatch):
+    """A meta tensor (the dry-run's) is never routed to the plain version,
+    nor to a kernel: the wrapper returns an empty meta tensor of the
+    output's shape and dtype and counts the kernel's QK^T and P.V
+    operations (causal: the unmasked pairs). q, k and v on two devices
+    are refused."""
+    def boom(*a, **k):
+        raise AssertionError("a meta call reached a kernel or its plain "
+                             "version")
+    monkeypatch.setattr(tref, "flash_attention_ref", boom)
+    monkeypatch.setattr(ops._build, "load", boom)
+    t = torch.zeros((1, 4, 2, 16), device="meta", dtype=torch.bfloat16)
+    with ops.meta_flops() as count:
+        out = ops.flash_attention(t, t, t)
+        full = ops.flash_attention(t, t, t, causal=False)
+    for o in (out, full):
+        assert o.device.type == "meta" and o.dtype == torch.bfloat16
+        assert tuple(o.shape) == (1, 4, 2, 16)
+    # 2 heads of 16: causal 4·5/2 pairs, full 16
+    assert count["flops"] == 4 * 16 * 2 * (10 + 16)
+    assert count["calls"] == {"flash_attention": 2}
+    with pytest.raises(ValueError):
+        ops.flash_attention(t, torch.zeros((1, 4, 2, 16),
+                                           dtype=torch.bfloat16), t)
 
 
 def test_ref_matches_reference_ref_at_a_ragged_shape():

@@ -138,15 +138,32 @@ def test_scatter_wrapper_refuses_what_the_kernel_does_not_take(bad):
         ops.embed_scatter_add(ids, rows, vs)
 
 
-def test_wrappers_raise_off_cpu_without_a_kernel():
-    """A tensor that is neither on the CPU nor on the card is refused, never
-    routed to the plain version."""
-    table = torch.zeros((8, 4), device="meta")
+def test_wrappers_raise_off_cpu_without_a_kernel(monkeypatch):
+    """A meta tensor (the dry-run's) is never routed to the plain version,
+    nor to a kernel: the wrapper returns an empty meta tensor of the
+    kernel's output shape and dtype, and counts no operation for the
+    embed kernels. A device with neither a kernel nor a meta shape (here
+    a CPU table's ids on meta) is refused."""
+    def boom(*a, **k):
+        raise AssertionError("a meta call reached a kernel or its plain "
+                             "version")
+    for name in ("embed_gather_ref", "embed_scatter_add_ref"):
+        monkeypatch.setattr(tref, name, boom)
+    monkeypatch.setattr(_build, "load", boom)
+    table = torch.zeros((8, 4), device="meta", dtype=torch.bfloat16)
     ids = torch.zeros(3, dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError):
-        ops.embed_gather(table, ids)
-    with pytest.raises(NotImplementedError):
-        ops.embed_scatter_add(ids, torch.zeros((3, 4), device="meta"), 8)
+    with ops.meta_flops() as count:
+        rows = ops.embed_gather(table, ids)
+        grad = ops.embed_scatter_add(ids, torch.zeros((3, 4), device="meta"),
+                                     8, block=16)
+    assert rows.device.type == "meta" and rows.dtype == torch.bfloat16
+    assert tuple(rows.shape) == (3, 4)
+    assert grad.device.type == "meta" and grad.dtype == torch.float32
+    assert tuple(grad.shape) == (8, 4)
+    assert count == {"flops": 0, "calls": {"embed_gather": 1,
+                                           "embed_scatter_add": 1}}
+    with pytest.raises(ValueError):
+        ops.embed_gather(torch.zeros((8, 4)), ids)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -78,16 +78,26 @@ def test_seeded_init_is_deterministic():
 @pytest.mark.parametrize("kw,where", [
     (dict(heartbeat=True), "slice 7"),
     (dict(max_staleness=2), "slice 7"),
-    (dict(kernel_autotune=True), "slice 8"),
-    # verify_contract is ported (the gate, analysis/contract.py); it does
-    # not lift the autotune refusal beside it
-    (dict(kernel_autotune=True, verify_contract=True), "slice 8"),
+    # kernel_autotune is ported (kernels/autotune.py): on the CPU the
+    # plain scatter has no tile, so it runs, measures nothing and leaves
+    # every table's tiles at (0, 0); with the verify gate beside it too
+    (dict(kernel_autotune=True), None),
+    (dict(kernel_autotune=True, verify_contract=True), None),
 ])
-def test_unported_options_are_refused(kw, where):
-    with pytest.raises(NotImplementedError, match=where):
-        get_runner(tc.reduced(tc.get_config("parallax-lm")),
-                   tc.ShapeConfig("t", 8, 2, "train"), tc.RunConfig(**kw),
-                   device="cpu")
+def test_unported_options_are_refused(kw, where, tmp_path, monkeypatch):
+    cfg = tc.reduced(tc.get_config("parallax-lm"))
+    shape = tc.ShapeConfig("t", 8, 2, "train")
+    if where is not None:
+        with pytest.raises(NotImplementedError, match=where):
+            get_runner(cfg, shape, tc.RunConfig(**kw), device="cpu")
+        return
+    cache = tmp_path / "tune.json"
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(cache))
+    run = get_runner(cfg, shape, tc.RunConfig(**kw), device="cpu")
+    m = run.run(SyntheticLM(cfg.vocab_size, 8, 2).batch(0))
+    assert torch.isfinite(m["loss"])
+    assert run.plan.table_tiles.get("embed", (0, 0)) == (0, 0)
+    assert not cache.exists()               # nothing measured, nothing kept
 
 
 def test_mesh_is_refused():

@@ -268,7 +268,9 @@ LM = ["--arch", "parallax-lm", "--reduced", "--seq", "16", "--batch", "4"]
     (["--arch", "grok-1-314b", "--reduced", "--attention", "pallas"],
      NotImplementedError, "pallas.*forward-only"),
     (LM + ["--embed-impl", "jnp"], NotImplementedError, "embed-impl jnp"),
-    (LM + ["--kernel-autotune"], NotImplementedError, "slice 8"),
+    # --kernel-autotune is ported: it trains on the CPU, where nothing is
+    # measured and every table keeps tiles (0, 0)
+    (LM + ["--kernel-autotune", "--steps", "1"], None, None),
     (LM + ["--remesh-on-straggle"], NotImplementedError,
      "remesh_on_straggle.*slice 7"),
     (LM + ["--heartbeat"], NotImplementedError, "heartbeat.*slice 7"),
@@ -280,7 +282,14 @@ LM = ["--arch", "parallax-lm", "--reduced", "--seq", "16", "--batch", "4"]
      "attribution.*slice 7"),
     (LM + ["--devices", "4"], ValueError, "--mesh"),
 ])
-def test_launcher_refuses_by_name(argv, err, match):
+def test_launcher_refuses_by_name(argv, err, match, tmp_path, monkeypatch):
+    if err is None:
+        cache = tmp_path / "tune.json"
+        monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(cache))
+        out = launch_train.main(argv, device="cpu")
+        assert out["step"] == 1 and all(np.isfinite(out["losses"]))
+        assert not cache.exists()
+        return
     with pytest.raises(err, match=match):
         launch_train.main(argv, device="cpu")
 

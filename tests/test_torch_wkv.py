@@ -197,9 +197,25 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         ops.wkv(*args, **kw)
 
 
-def test_wrapper_raises_off_cpu_without_a_kernel():
-    """A tensor neither on the CPU nor on the card is refused, never routed
-    to the plain version."""
+def test_wrapper_raises_off_cpu_without_a_kernel(monkeypatch):
+    """A meta tensor (the dry-run's) is never routed to the plain version,
+    nor to a kernel: the wrapper returns empty meta tensors of the
+    output's and the final state's shapes and dtypes, and counts the
+    chunk form's products. Inputs on two devices are refused."""
+    def boom(*a, **k):
+        raise AssertionError("a meta call reached a kernel or its plain "
+                             "version")
+    for name in ("wkv_chunked_ref", "wkv_ref"):
+        monkeypatch.setattr(tref, name, boom)
+    monkeypatch.setattr(ops._build, "load", boom)
     _, ta = _inputs(1, 1, 8, 2, 16)
-    with pytest.raises(NotImplementedError):
-        ops.wkv(*(t.to("meta") for t in ta))
+    meta = [t.to("meta") for t in ta]
+    with ops.meta_flops() as count:
+        out, st = ops.wkv(*meta)
+    assert out.device.type == "meta" and out.dtype == meta[0].dtype
+    assert tuple(out.shape) == tuple(meta[0].shape)
+    assert st.dtype == torch.float32 and tuple(st.shape) == \
+        tuple(meta[-1].shape)
+    assert count["flops"] == ops.wkv_flops(1, 8, 2, 16, 32) > 0
+    with pytest.raises(ValueError):
+        ops.wkv(meta[0], *ta[1:])
