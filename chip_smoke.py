@@ -344,12 +344,37 @@ and never prints the final line:
               within 1 % of the cost model's formula plus its named
               terms, the (16, 16) formula beside, each collective's ms
               (gloo staged through the host, not exchange times).
+     elastic  the elastic half (runtime/trainer.py) at full width: the
+              flap and jitter runs of benchmarks/elastic_remesh.py on
+              main's parallax-lm cell, (2, 2) over 4 gloo ranks, heartbeats,
+              max_staleness 2 and the verify gate on (ELASTIC_*), the four
+              runs in one set of ranks. (a) data slice 0 sleeps 2x the
+              healthy median inside each step from step 3; its own beats
+              name slot 0, the trainer evicts it after step 5 ((1, 2):
+              embed re-priced from the dense exchange to mpi_gatherv,
+              capacity doubled) and readmits it at index 0 on probation
+              2 steps later; (b) slice 1 stalls 2.5x on steps 5 and 7,
+              embed flips to the stale push and back with the drain
+              (largest age <= 2, no violation). Each run
+              equals a control run with the same schedule by hand bit for
+              bit, deterministic algorithms on; after each change of mesh
+              or plan both embed kernels are held bit for bit against
+              their plain versions at the live capacity on every rank
+              (those launches not counted); the gate checks the first
+              step of each build. Per rank: step ms healthy / straggled /
+              shrunk / regrown, tokens/s, launches.
+     tools    repro_torch.tools: check_env --json in its own process (the
+              card, nvcc, every kernel library built, the lint clean) and
+              profile_collectives fit on 2 gloo ranks on the card, its
+              profile read back by cost_model.load_hw_profile (gloo's
+              times are the host's staging, not a link's).
      mesh_card_toy = mesh_card (m): ToyServer on process meshes
               (profile_step.MESH_CELLS): rwkv6-7b whole on (1, 2) (32 of
               64 heads a rank), hymba-1.5b at 8 of 32 layers on (2, 2)
               (800 SSM channels, 13 padded q heads a rank). At f32 (the
-              leaves the init makes constant varied) the first 2 of
-              rwkv_serve's prompts, one after the other: the tokens of a
+              leaves the init makes constant varied) the first of
+              rwkv_serve's prompts for rwkv6 (2 until PR 28), the first 2
+              for hymba, one after the other: the tokens of a
               one-device f32 run, every device step's logits of the slot
               that holds the request (rwkv6's 2,048-token prefill's last
               16 positions too) within 1e-3 of each row's scale of it;
@@ -405,7 +430,8 @@ stablelm_serve, families_parity (its card runs), seamless_train,
 hymba_train, chameleon_train, rwkv_train, mesh_card_encdec, moe_parity
 (its card runs), grok_serve, llama4_serve, mesh_card_moe,
 mesh_card_serve, mesh_card_tp, mesh_card_zero (both runs), mesh_card_dp,
-mesh_card_lstm (both runs), mesh_card_toy (the bf16 serve loops of both
+mesh_card_lstm (both runs), elastic (both elastic runs, each rank's),
+mesh_card_toy (the bf16 serve loops of both
 meshes and rwkv6's prefill), mesh_card_moe_tp (its bf16 prefills and
 decode steps), serve_bench (the engine's run and the toy's), autotune
 (the tuned run)) runs with
@@ -426,6 +452,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -628,7 +655,12 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 "serve_bench": ("embed_gather", "flash_attention"),
                 # main's steps under kernel_autotune: the tuned tile on
                 # the one-pass scatter
-                "autotune": ("embed_gather", "embed_scatter_add")}
+                "autotune": ("embed_gather", "embed_scatter_add"),
+                # the elastic half on (2, 2): every step pulls on the bulk
+                # route; the flap's dense-exchanged table pushes one-pass
+                # on (2, 2), the gatherv push on (1, 2) and in the jitter
+                # run takes the plain scatter
+                "elastic": ("embed_gather", "embed_scatter_add")}
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
 NMT_CENSUS = tuple(f"{t}_{k}" for t in ("embed", "enc_embed")
                    for k in ("rows", "unique", "dropped"))
@@ -4576,6 +4608,235 @@ def phase_mesh_card_lstm() -> dict:
     return res
 
 
+# the elastic phase (benchmarks/elastic_remesh.py's flap and jitter at
+# full width): main's parallax-lm cell on (2, 2), four gloo ranks on the
+# card, heartbeats on, stale buffers (max_staleness 2), the verify gate on
+# every build; data slice 0 straggles (its ranks sleep 2x the healthy
+# median inside each step from step 3), is evicted on its beats and comes
+# back 2 steps later. The flap declares embed's α 0.6: (2, 2) exchanges it
+# densely (each rank pushes its unique ids one-pass; the 0.8 GB gradient
+# through gloo's host staging makes a (2, 2) step slow, PERF.md §6, so the
+# run is short), the shrink
+# to N = 1 re-prices it onto mpi_gatherv. The jitter run keeps main's plan
+# (mpi_gatherv on (2, 2), stale-eligible): slice 1 stalls on steps 5 and 7,
+# the table flips stale once 4 samples hold 2 outliers and back once 4
+# hold none.
+ELASTIC_MESH = (2, 2)
+ELASTIC_RC = replace(CELLS["parallax-lm"].run, heartbeat=True,
+                     max_staleness=2, verify_contract=True)
+ELASTIC_BASE = dict(arch="parallax-lm", vocab=None, seq=SEQ, batch=BATCH,
+                    mesh=ELASTIC_MESH)
+ELASTIC_FLAP = dict(ELASTIC_BASE, steps=8, slow_from=2, slot=0,
+                    return_after=2, sleep="2x",
+                    rc=replace(ELASTIC_RC, table_alpha=(("embed", 0.6),)),
+                    tcfg=dict(remesh_cooldown=20, probation_steps=50,
+                              probation_sustained=2),
+                    monitor=dict(sustained=3, min_samples=4))
+ELASTIC_JITTER = dict(ELASTIC_BASE, steps=11, jit_from=4, jit_to=8, slot=1,
+                      sleep="2.5x", rc=ELASTIC_RC,
+                      tcfg=dict(stale_on_jitter=True),
+                      monitor=dict(sustained=8, min_samples=4, window=8))
+
+
+def _elastic_probe(rank: int, t, tag: str) -> dict:
+    """On this rank, after a change of mesh or plan: both embed kernels
+    bit for bit against their plain versions (``_held_at``) on its table
+    at the live plan's capacity, the ids the dedupe of the next batch
+    gives there."""
+    own = named_parameters(t.model)
+    out = {"tag": tag, "mesh": list(t.mesh.ranks.shape)}
+    for name, cap in t.plan.table_capacity.items():
+        table = own[name].detach()
+        flat = torch.from_numpy(np.ascontiguousarray(
+            t.dataset.batch(t.step)["tokens"])).reshape(-1)
+        uids, _, _ = dedupe(flat.to(t.mesh.device), cap, VOCAB, True)
+        rows = torch.randn((cap, table.shape[1]), device=t.mesh.device,
+                           generator=torch.Generator(t.mesh.device)
+                           .manual_seed(rank)).to(table.dtype)
+        out[name] = {"capacity": cap, "table": list(table.shape),
+                     "method": t.plan.table_methods[name],
+                     "max_abs_err": _held_at(table, uids, rows)}
+    return out
+
+
+def _elastic_pushes(steps: list, res: dict) -> int:
+    """The one-pass pushes of a rank that trained ``steps``: one a step
+    whose plan (``methods0`` for step 1, else the plan in force after the
+    step before) pushes unique ids (``_one_pass_pushes``)."""
+    by_step, first = res["methods_by_step"], res["methods0"]
+    return sum(_one_pass_pushes((by_step[s - 1] if s > 1 else first)
+                                ["embed"], 1) for s in steps)
+
+
+def _elastic_launches(phase: str, res: dict, steps_by_rank: list) -> None:
+    """Every rank's launches against the steps it trained (none on the
+    CPU: there the wrappers take the plain versions)."""
+    for r, c in enumerate(res["launches_by_rank"]):
+        if res["device"] == "cpu":
+            steps_by_rank = [[]] * len(steps_by_rank)
+        steps = steps_by_rank[r]
+        check(c["embed_gather"] == c["embed_gather_bulk"] == len(steps)
+              and c["embed_scatter_add_fused"] == c["embed_scatter_add"]
+              == _elastic_pushes(steps, res),
+              f"elastic {phase} rank {r}: launches {c} over steps {steps}"
+              f" (methods {res['methods_by_step']})")
+
+
+def phase_elastic(device: str = "cuda", probe=_elastic_probe,
+                  **over) -> dict:
+    """The elastic half at full width on the card (``ELASTIC_*``):
+
+    (a) flap (``ELASTIC_FLAP``): the ranks of data slice ``slot`` (0)
+        straggle once the run is past ``slow_from``; their own beats
+        (step less blocked time) name that slot while every rank's wall
+        time is theirs; the trainer evicts the slice ((2, 2) -> (1, 2),
+        the table re-priced onto mpi_gatherv at N = 1, its capacity
+        doubled), and ``return_after`` steps later ``readmit`` grows it
+        back at the same index on probation; a control run applying the
+        same shrink and grow by hand, no sleep, equals it bit for bit over
+        all steps (its first steps the never-straggled run); tokens/s
+        after the shrink above the straggled plateau;
+    (b) jitter (``ELASTIC_JITTER``): slice ``slot`` (1) stalls every other
+        step between ``jit_from`` and ``jit_to``; ``embed`` flips to the
+        stale push and back with the drain; no staleness violation, ages
+        at most 2; a control run with the same flips by hand equals it bit
+        for bit.
+
+    Deterministic algorithms in every rank. On every rank and every mesh
+    the run passes through, both embed kernels are held bit for bit
+    against their plain versions at the live capacity (``_elastic_probe``,
+    its launches not counted), the gather runs on its bulk route once a
+    step and the push one-pass where the plan pushes unique ids; the
+    verify gate checks the first step after each build (a remesh, a
+    regrow, a flip), and a violation fails the run. No checkpoint (a
+    full-width state is ~4.9 GB and every rank would gather it; the
+    checkpointed remesh is the CPU tests'). Gloo's steps stage through the
+    host: the step times are the ranks' on that host, not an exchange's.
+    ``device``, ``probe`` and ``over`` (spec keys) let a CPU run of a
+    reduced model check the same logic."""
+    from repro_torch.benchmarks import elastic_remesh as er
+    t0 = time.perf_counter()
+    # the four runs in one set of ranks (the card's contexts paid once)
+    f, j = er.flap_and_jitter(device,
+                              {**ELASTIC_FLAP, "probe": probe, **over},
+                              {**ELASTIC_JITTER, "probe": probe, **over})
+    e, r = f["evict_at"], f["readmit_at"]
+    m = ELASTIC_MESH[1]
+    check(f["attributed"] == [0] and f["grid_shrunk"] == [[2, 3]]
+          and f["grid_final"] == [[0, 1], [2, 3]] and f["probation"] == 0
+          and f["remeshes"] == 1 and f["regrows"] == 1
+          and r == e + ELASTIC_FLAP["return_after"],
+          f"elastic (a): evicted at {e} (attributed {f['attributed']}, "
+          f"beats {f['heartbeats_at_evict']}), grid {f['grid_shrunk']}, "
+          f"readmitted at {r} -> {f['grid_final']} on probation "
+          f"{f['probation']}; remeshes {f['remeshes']}, regrows "
+          f"{f['regrows']}")
+    check(f["equal"], f"elastic (a): losses {f['losses']} vs the control "
+          f"run's {f['control_losses']}")
+    tp = f["tokens_per_s"]
+    check(tp["shrunk"] > tp["straggled"],
+          f"elastic (a): tokens/s {tp}: the shrink did not beat the "
+          f"straggled plateau")
+    # the plan in force after each step: re-priced at the eviction and
+    # back at the re-admission
+    by_step = f["methods_by_step"]
+    check(by_step[e - 1]["embed"] == "allreduce"
+          and by_step[e]["embed"] == "mpi_gatherv"
+          and by_step[r - 1]["embed"] == "mpi_gatherv"
+          and by_step[r]["embed"] == "allreduce",
+          f"elastic (a): methods by step {by_step}")
+    # an evicted rank trained the eviction step too (it left after it)
+    _elastic_launches("(a)", f, [sorted(set(s) | ({e} if k < m else set()))
+                                 for k, s in enumerate(f["steps_by_rank"])])
+    probed = {rank: sorted(k for k, v in p.items() if v is not None)
+              for rank, p in f["probes"].items()}
+    check(probe is None or (
+        all({"start", "end"} <= set(p) for p in probed.values())
+        and all("shrunk" in probed[k] for k in (m, m + 1))),
+          f"elastic (a): probes by rank {probed}")
+    check(j["stale_flips"] == 2 and j["evictions"] == 0
+          and j["final_stale_tables"] == []
+          and 1 <= j["max_staleness_applied"] <= 2 and j["violations"] == 0
+          and j["methods"]["embed"] == "mpi_gatherv",
+          f"elastic (b): flips {j['stale_flips']} at {j['stale_on_at']} / "
+          f"{j['stale_off_at']}, evictions {j['evictions']}, largest age "
+          f"{j['max_staleness_applied']}, violations {j['violations']}")
+    check(j["equal"], f"elastic (b): losses {j['losses']} vs the control "
+          f"run's {j['control_losses']}")
+    steps = list(range(1, ELASTIC_JITTER["steps"] + 1))
+    _elastic_launches("(b)", j, [steps] * math.prod(ELASTIC_MESH))
+    # a rank's launches: the sum of its two runs'
+    by_rank = [{k: a[k] + b[k] for k in a}
+               for a, b in zip(f["launches_by_rank"],
+                               j["launches_by_rank"])]
+    res = {"phase": "elastic", "backend": "gloo",
+           "mesh": list(ELASTIC_MESH),
+           "card": nvidia_smi("name,power.limit") if device != "cpu"
+           else "cpu",
+           "evict_at": e, "readmit_at": r,
+           "attributed": f["attributed"],
+           "heartbeats_at_evict": f["heartbeats_at_evict"],
+           "step_ms_by_rank": {k: {rk: v * 1e3 for rk, v in d.items()}
+                               for k, d in f["step_time_s"].items()},
+           "tokens_per_s": tp, "methods_by_step": by_step,
+           "capacity": {"before": f["capacity_by_step"][e - 1],
+                        "after": f["capacity_by_step"][e]},
+           "evict_s": f["evict_s"], "readmit_s": f["readmit_s"],
+           "init_s": f["init_s"],
+           "stale_on_at": j["stale_on_at"], "stale_off_at": j["stale_off_at"],
+           "stale_flips": j["stale_flips"],
+           "max_staleness_applied": j["max_staleness_applied"],
+           "jitter_tokens_per_s": j["tokens_per_s"],
+           "probes": {"flap": f["probes"], "jitter": j["probes"]},
+           "launches": by_rank[0], "launches_by_rank": by_rank,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def phase_tools() -> dict:
+    """The port's tools on the card (``repro_torch.tools``):
+    ``check_env --json`` in its own process (the card, ``nvcc``, the
+    kernels' build directory with every library ``build`` made, the lint
+    clean), and ``profile_collectives fit`` on 2 gloo ranks sharing the
+    card, whose profile ``cost_model.load_hw_profile`` reads back. Gloo
+    stages each buffer through the host: the fitted α and β are the
+    host's, not a link's (the profile says so)."""
+    from repro_torch.core.cost_model import load_hw_profile
+    from repro_torch.tools import profile_collectives
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.tools.check_env",
+                          "--json"], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT, env=env)
+    check(out.returncode == 0, f"tools: check_env failed: {out.stderr}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    check(rep["devices"] == [torch.cuda.get_device_name(0)]
+          and rep["nvcc"]["path"] and rep["card_ready"]
+          and sorted(rep["build"]["built"]) == sorted(_build.KERNELS)
+          and rep["analysis"]["clean"],
+          f"tools: check_env reports {rep['devices']}, nvcc "
+          f"{rep['nvcc']}, built {rep['build']['built']}, lint "
+          f"{rep['analysis']}")
+    prof = profile_collectives.fit(2, 1, sizes=(1 << 12, 1 << 16, 1 << 20,
+                                                1 << 23), iters=5,
+                                   device="cuda")
+    path = ROOT / "build" / "hw_profile.json"
+    path.write_text(json.dumps(prof))
+    hw = load_hw_profile(str(path))
+    path.unlink()
+    check(prof["backend"] == "gloo" and "host" in prof["note"]
+          and hw.link_bw == prof["link_bw"]
+          and hw.link_latency == prof["link_latency"],
+          f"tools: fitted profile {prof} read back as {hw}")
+    res = {"phase": "tools", "card": nvidia_smi("name,power.limit"),
+           "check_env": {k: rep[k] for k in (
+               "torch", "torch_cuda", "devices", "nvcc", "build",
+               "kernel_autotune", "remesh", "attribution")},
+           "hw_profile": prof}
+    emit(res)
+    return res
+
+
 def phase_table3() -> dict:
     """Paper Table 3 on the card (``repro_torch.benchmarks.
     table3_transfer``): the embedding-only step of each method (ps,
@@ -4619,10 +4880,10 @@ TOY_CELLS = {RWKV: "mesh_card_toy", HYMBA: "mesh_card_toy_hymba"}
 # over its largest |logit|. The two differ only in the order of their
 # sums; a block missing from a rank's sum moves whole units of the scale.
 MESH_F32_RTOL = 1e-3
-# mesh_card_toy's f32 comparison: the first 2 of rwkv_serve's 8 prompts,
-# 8 new tokens each, served one after the other, every device step's
-# logits recorded
-TOY_CHECK_REQUESTS, TOY_CHECK_NEW = 2, 8
+# mesh_card_toy's f32 comparison: the first 2 of rwkv_serve's 8 prompts
+# for rwkv6 and for hymba, 8 new tokens each, served one after the other,
+# every device step's logits recorded
+TOY_CHECK_REQUESTS, TOY_CHECK_NEW = {"rwkv6-7b": 2, "hymba-1.5b": 2}, 8
 # mesh_card_toy's bf16 timing run: the first 2 of rwkv_serve's 8 requests
 # (8 cost 73 s and 50 s a rank over gloo's host staging)
 TOY_TIMED_REQUESTS = 2
@@ -4678,8 +4939,8 @@ def _steps_rel(mine: list, want: list) -> dict:
 
 
 def _toy_check(sv) -> list:
-    """mesh_card_toy's f32 schedule: the first ``TOY_CHECK_REQUESTS`` of
-    rwkv_serve's prompts, each submitted when the one before has drained,
+    """mesh_card_toy's f32 schedule: the arch's first ``TOY_CHECK_REQUESTS``
+    of rwkv_serve's prompts, each submitted when the one before has drained,
     so each is served in slot 0 from the carry its predecessor left. (A
     request admitted beside another starts in a slot whose carry the
     idle steps with token 0 have drifted: rwkv6's logits there lie as far
@@ -4689,7 +4950,8 @@ def _toy_check(sv) -> list:
     prompts = _prompts(rng, rng.integers(16, 65, size=8),
                        sv.rt.model_cfg.vocab_size)
     out = []
-    for i, p in enumerate(prompts[:TOY_CHECK_REQUESTS]):
+    n = TOY_CHECK_REQUESTS[sv.rt.model_cfg.name]
+    for i, p in enumerate(prompts[:n]):
         req = Request(i, p, max_new_tokens=TOY_CHECK_NEW)
         sv.submit(req)
         sv.run_until_drained()
@@ -5580,6 +5842,9 @@ def main() -> None:
     paths["mesh_card_dp"] = mesh_dp["launches"]
     mesh_lstm = run("mesh_card_lstm", phase_mesh_card_lstm)
     run("table3", phase_table3)
+    elastic = run("elastic", phase_elastic)
+    paths["elastic"] = elastic["launches"]
+    run("tools", phase_tools)
     mesh_toy = run("mesh_card_toy", phase_mesh_card_toy, rwkv_serve)
     # the dry-run's production cells run in DRY_WORKERS host processes
     # beside mesh_card_moe_tp, serve_bench and autotune (parallax-nmt's
@@ -5694,7 +5959,8 @@ def main() -> None:
                                ("mesh_card_dp", mesh_dp),
                                ("mesh_card_lstm", mesh_lstm),
                                ("mesh_card_toy", mesh_toy),
-                               ("mesh_card_moe_tp", mesh_moe_tp))}
+                               ("mesh_card_moe_tp", mesh_moe_tp),
+                               ("elastic", elastic))}
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

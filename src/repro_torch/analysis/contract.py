@@ -26,8 +26,9 @@ The rules, as the reference's:
   * each two-level bucket is the reduce-scatter(E/L) -> all-reduce(E/L)
     -> all-gather(E) triple, E padded to the local replica count L;
   * the loss and every metric scalar ride exactly ONE all-reduce of at
-    most ``SCALAR_MAX`` elements (``buckets.py::fused_metrics``), and no
-    other all-reduce crosses the replicas;
+    most ``SCALAR_MAX`` elements (``buckets.py::fused_metrics``; the
+    heartbeat slots of ``RunConfig.heartbeat`` among them), and no other
+    all-reduce crosses the replicas;
   * a gatherv table's push shows as a row-buffer all-gather (elements a
     multiple of the replica count, at least replicas x capacity) and an
     integer uid all-gather;

@@ -9,7 +9,9 @@ reference's ``benchmarks/run.py``):
 exchange, ``results/torch_exchange.json``), ``adaptive_replan`` (the
 replan replay), ``serve`` (the serving engine against the toy loop,
 ``results/torch_serve.json``: phi3-medium-14b whole on the card, the
-reference's reduced config with ``--device cpu``) and ``kernels`` (each
+reference's reduced config with ``--device cpu``), ``elastic`` (the
+straggler eviction, the re-admission and the stale fallback on gloo
+ranks, ``results/torch_elastic.json``) and ``kernels`` (each
 kernel against its plain version, the fused apply, the autotune sweep,
 ``results/torch_kernels.json``) run on the card unless ``--device cpu``.
 ``table4`` (Table 4), ``fig13`` (Figure 13) and ``roofline`` (the
@@ -26,7 +28,7 @@ BENCHES = {"census": "table1_census", "table3": "table3_transfer",
            "buckets": "bucket_exchange", "adaptive_replan": "adaptive_replan",
            "table4": "table4_ablation", "fig13": "fig13_scaling",
            "roofline": "roofline_table", "serve": "serve_bench",
-           "kernels": "kernel_bench"}
+           "kernels": "kernel_bench", "elastic": "elastic_remesh"}
 
 
 def main(argv=None) -> None:
@@ -39,7 +41,7 @@ def main(argv=None) -> None:
     for name in args.which or list(BENCHES):
         mod = importlib.import_module(
             f"repro_torch.benchmarks.{BENCHES[name]}")
-        if name == "adaptive_replan":
+        if name in ("adaptive_replan", "elastic"):
             mod.main([], device=args.device)
         elif name == "serve":
             mod.main(args.device, full=args.device != "cpu")

@@ -12,7 +12,9 @@ Layout (one directory per step):
 
 A leaf is named as the reference's ``named_leaves`` names a ``TrainState``
 leaf: ``step``, then ``params.<name>``, ``m.<name>``, ``v.<name>``,
-``ema.<name>`` in flatten order (a ``None`` part has no leaves). bf16 is
+``ema.<name>`` in flatten order (a ``None`` part has no leaves), then the
+staleness buffers ``stale.<table>.age`` and ``stale.<table>.g``, tables
+in sorted order. bf16 is
 stored as a ``uint16`` view and its logical dtype recorded, through
 torch's 16-bit view (no numpy bf16 type needed).
 
@@ -63,6 +65,9 @@ def state_leaves(state: TrainState) -> list:
         tree = getattr(state, part)
         for n, t in (tree or {}).items():
             out.append((f"{part}.{n}", t))
+    for n in sorted(state.stale or {}):
+        for k in ("age", "g"):
+            out.append((f"stale.{n}.{k}", state.stale[n][k]))
     return out
 
 
@@ -171,6 +176,10 @@ def restore_checkpoint(ckpt_dir: str, state_like: TrainState,
             tree = getattr(state_like, part)
             parts[part] = None if tree is None else {
                 n: leaf(f"{part}.{n}", t) for n, t in tree.items()}
+        if state_like.stale is not None:
+            parts["stale"] = {n: {k: leaf(f"stale.{n}.{k}", b[k])
+                                  for k in ("age", "g")}
+                              for n, b in state_like.stale.items()}
     state = replace(state_like, step=step_val, **parts)
     return state, manifest["step"], manifest.get("extra", {})
 
@@ -185,10 +194,13 @@ def host_snapshot(state: TrainState) -> TrainState:
     """A copy of ``state`` on the host that no later step can touch: the
     port's steps update parameters and moments in place, and ``.cpu()`` of
     a CPU tensor is the same storage, so every leaf is cloned."""
+    copy = lambda t: t.detach().to("cpu", copy=True)
     parts = {part: None if getattr(state, part) is None else
-             {n: t.detach().to("cpu", copy=True)
-              for n, t in getattr(state, part).items()}
+             {n: copy(t) for n, t in getattr(state, part).items()}
              for part in STATE_PARTS}
+    if state.stale is not None:
+        parts["stale"] = {n: {k: copy(t) for k, t in b.items()}
+                          for n, b in state.stale.items()}
     return replace(state, step=int(state.step), **parts)
 
 

@@ -16,6 +16,12 @@ friends inline; the port names the same operations here).
                           an autograd function whose backward is the
                           inverse all-to-all: the MoE's expert-parallel
                           dispatch;
+``broadcast`` / ``broadcast_object``  a tensor or a picklable object of
+                          one rank on every rank of a mesh (or, for an
+                          object, of the world): the elastic trainer's
+                          verdicts, re-admissions and messages to the
+                          ranks off the mesh (``barrier`` waits over the
+                          mesh's own ranks);
 ``copy_to`` / ``reduce_from``  the model-axis pair as autograd functions:
                           identity forward / all-reduce backward, and its
                           mirror;
@@ -52,7 +58,9 @@ time on the card, the host clock on the CPU; for an ``all_reduce_async``
 the time from issue to its ``wait()``). A staged gloo collective is one
 event, its copies included. The identity over a group of one is no
 collective and records nothing. With no record open the cost is one
-truth test of a module list. ``analysis/contract.py`` diffs a step's
+truth test of a module list. Every blocking call also adds its host
+seconds to ``blocked_seconds()`` (two clock reads): a rank's heartbeat is
+its step less that. ``analysis/contract.py`` diffs a step's
 record against its plan; ``wire_bytes`` applies the ring factors the
 reference applies to HLO (``repro/utils/hlo.py::_ring_factor``).
 
@@ -174,6 +182,25 @@ class _State:
     records: list = []
     backward: int = 0
     seq = itertools.count()
+    blocked: float = 0.0          # host seconds spent waiting in collectives
+
+
+def blocked_seconds() -> float:
+    """Host seconds this process has spent inside collectives so far (each
+    blocking call's wall time, an async all-reduce's ``wait()``). A step's
+    time less its share of this is the rank's own work: its heartbeat
+    (runtime/trainer.py), since in a synchronous step every rank's wall
+    time is gated by the slowest rank at each collective."""
+    return _State.blocked
+
+
+@contextlib.contextmanager
+def _blocking():
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _State.blocked += time.perf_counter() - t0
 
 
 @contextlib.contextmanager
@@ -229,15 +256,18 @@ def _stop(ev: Event, x: torch.Tensor) -> None:
 
 
 class _TimedWork:
-    """An async all-reduce's work handle whose ``wait()`` stops its
-    event's clock."""
+    """An async all-reduce's work handle whose ``wait()`` counts as
+    blocked time and stops its event's clock (``ev``: None when no record
+    was open)."""
 
-    def __init__(self, work, ev: Event, buf: torch.Tensor):
+    def __init__(self, work, ev, buf: torch.Tensor):
         self.work, self.ev, self.buf = work, ev, buf
 
     def wait(self):
-        out = self.work.wait()
-        _stop(self.ev, self.buf)
+        with _blocking():
+            out = self.work.wait()
+        if self.ev:
+            _stop(self.ev, self.buf)
         return out
 
 
@@ -259,7 +289,8 @@ def all_reduce(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     ev = _State.records and _start("all-reduce", out, out.numel(), axes,
                                    mesh, g, "sum")
     if not _dry(g):
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
+        with _blocking():
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
     if ev:
         _stop(ev, out)
     return out
@@ -273,7 +304,8 @@ def all_reduce_max(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     ev = _State.records and _start("all-reduce", out, out.numel(), axes,
                                    mesh, g, "max")
     if not _dry(g):
-        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
+        with _blocking():
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
     if ev:
         _stop(ev, out)
     return out
@@ -288,10 +320,11 @@ def all_reduce_async(buf: torch.Tensor, axes, mesh):
         return None
     ev = _State.records and _start("all-reduce", buf, buf.numel(), axes,
                                    mesh, g, "sum")
-    work = (_DoneWork() if _dry(g) else
-            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g,
-                            async_op=True))
-    return _TimedWork(work, ev, buf) if ev else work
+    if _dry(g):
+        return _TimedWork(_DoneWork(), ev, buf) if ev else _DoneWork()
+    work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=g,
+                           async_op=True)
+    return _TimedWork(work, ev, buf)
 
 
 def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
@@ -311,11 +344,13 @@ def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
         out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     elif _gloo(mesh):
         parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=g)
+        with _blocking():
+            dist.all_gather(parts, src, group=g)
         out = torch.cat(parts, 0)
     else:
         out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-        dist.all_gather_into_tensor(out, src, group=g)
+        with _blocking():
+            dist.all_gather_into_tensor(out, src, group=g)
     out = out.to(home)
     if ev:
         _stop(ev, out)
@@ -345,8 +380,9 @@ def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0
             # renamed reduce_scatter_single in newer torch; this name is
             # in every version the port runs on
             warnings.simplefilter("ignore", FutureWarning)
-            dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
-                                       group=g)
+            with _blocking():
+                dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                                           group=g)
     out = out.to(home)
     if ev:
         _stop(ev, out)
@@ -377,7 +413,8 @@ class _AllToAll(torch.autograd.Function):
             src = src.cpu()
         out = torch.empty_like(src)
         if not _dry(g):
-            dist.all_to_all_single(out, src, group=g)
+            with _blocking():
+                dist.all_to_all_single(out, src, group=g)
         out = out.to(home)
         if ev:
             _stop(ev, out)
@@ -550,8 +587,56 @@ def reduce_from(x: torch.Tensor, axes, mesh) -> torch.Tensor:
 
 
 def barrier(mesh) -> None:
-    """Every rank of the mesh's group waits for the others (a no-op off a
-    mesh): the trainer's checkpoint hand-off between the writing rank and
-    the readers."""
-    if mesh is not None and dist.is_initialized():
-        dist.barrier()
+    """Every rank of the mesh waits for the others (a no-op off a mesh or
+    on a mesh of one rank): the trainer's checkpoint hand-off between the
+    writing rank and the readers. Over the mesh's own ranks, which after a
+    shrink are not the whole world."""
+    if mesh is None or not dist.is_initialized():
+        return
+    g = mesh.group(mesh.axis_names)
+    if g is not None:
+        with _blocking():
+            dist.barrier(group=g)
+
+
+def broadcast(x: torch.Tensor, mesh, src: Optional[int] = None,
+              axes=None) -> torch.Tensor:
+    """``x`` of global rank ``src`` (default: the mesh's lead, its first
+    rank) on every rank of ``group(axes)`` (default: the whole mesh), in
+    place (a no-op over a group of one): how a returning slice receives
+    the live state at a re-admission."""
+    axes = mesh.axis_names if axes is None else axes
+    g = mesh.group(axes)
+    if g is None:
+        return x
+    ev = _State.records and _start("broadcast", x, x.numel(), axes, mesh,
+                                   g)
+    with _blocking():
+        dist.broadcast(x, src=mesh.lead if src is None else src, group=g)
+    if ev:
+        _stop(ev, x)
+    return x
+
+
+def broadcast_object(obj, mesh=None, *, src: Optional[int] = None,
+                     axes=None):
+    """A picklable ``obj`` of global rank ``src`` on every rank: over the
+    mesh's ``group(axes)`` (default: all its ranks; ``src`` default: its
+    lead), or (``mesh`` None) over the whole world — the channel between a
+    mesh's live ranks and the ranks a shrink left off it, which wait on
+    the world. A control-plane message: no record sees it."""
+    g = None
+    if mesh is not None:
+        g = mesh.group(mesh.axis_names if axes is None else axes)
+        if g is None:
+            return obj
+        src = mesh.lead if src is None else src
+    box = [obj]
+    with _blocking():
+        dist.broadcast_object_list(box, src=src, group=g)
+    return box[0]
+
+
+def world_size() -> int:
+    """Ranks in the default process group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1

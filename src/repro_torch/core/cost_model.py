@@ -288,6 +288,20 @@ def serve_table_pricing(*, b: float, alpha: float, method: str,
             "s_per_token": pull_s / max(int(batch_tokens), 1)}
 
 
+def stale_push_seconds(*, b: float, alpha: float, method: str,
+                       dims: MeshDims, hw: Optional[Hardware] = None) -> dict:
+    """One sparse table's push under the bounded-staleness fallback. The
+    stale mode changes scheduling, not volume: the exchange still runs
+    every step (every replica must buffer the same aggregate), but the
+    applied gradient no longer gates this step's update, so the exchange
+    can leave the critical path. -> ``sync_s`` (the synchronous cost,
+    ``method_seconds``), ``stale_s`` (the wire seconds still paid, off
+    the path) and ``critical_s`` (what stays on it: 0.0)."""
+    hw = hw or HW
+    sync = method_seconds(b=b, alpha=alpha, dims=dims, hw=hw)[method]
+    return {"sync_s": sync, "stale_s": sync, "critical_s": 0.0}
+
+
 def pick_dense_strategy(cfg, shape, dims: MeshDims, hbm_bytes: float = 16e9,
                         param_dtype_bytes: int = 2) -> str:
     """tp(+SP) or dp (ZeRO-3 over every axis) for the dense params.

@@ -156,7 +156,7 @@ class ParamPlan:
     sparse: bool
     bytes: int
     capacity: int = 0                  # sparse tables: dedupe-buffer rows
-    stale: bool = False                # bounded-staleness push (slice 7)
+    stale: bool = False                # bounded-staleness push
     est_cost: dict = field(default_factory=dict)
     held: tuple = ()                   # the placement the port executes
     opt_held: tuple = ()               # ... and the optimizer state's
@@ -269,8 +269,9 @@ def plan_diff(old: Plan, new: Plan, capacity_drift: float = 1.5) -> dict:
     ``capacity_drift``x or more in either direction, the overflow rule grew
     a table (never deadbanded: rows are being dropped under the live plan),
     or the plans price different mesh shapes. Dtypes render as the
-    reference's names (``"bfloat16"``). ``stale_flips`` stays empty until
-    the bounded-staleness fallback is ported (ROADMAP slice 7)."""
+    reference's names (``"bfloat16"``). ``stale_flips`` lists each table
+    flipped between the synchronous and the bounded-stale push (the
+    step's update rule changes, so the step is rebuilt)."""
     olds = dict(old.params)
     flips, wire_flips, pspecs_changed = [], [], False
     for p in new.params.values():

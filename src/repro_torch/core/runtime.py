@@ -31,21 +31,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_ported(run_cfg: RunConfig, mesh: Any = None) -> None:
-    """Refuse, by name, what this slice of the port does not run, rather
-    than silently ignoring it. A mesh is a ``launch/mesh.py`` ``Mesh`` (or
-    a ``MeshShape``, which plans but holds no process groups)."""
+    """Check what the port runs on: a mesh is a ``launch/mesh.py``
+    ``Mesh`` (or a ``MeshShape``, which plans but holds no process
+    groups). Every ``RunConfig`` option of the reference runs."""
     if mesh is not None and not isinstance(mesh, MeshShape):
         raise TypeError(f"mesh must be a launch/mesh.py MeshShape or Mesh, "
                         f"got {type(mesh).__name__}")
-    refusals = [
-        (run_cfg.heartbeat, "RunConfig.heartbeat", "slice 7 (elasticity)"),
-        (run_cfg.max_staleness > 0, "RunConfig.max_staleness > 0",
-         "slice 7 (elasticity)"),
-    ]
-    for hit, what, where in refusals:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP {where}")
 
 
 def mesh_dims(mesh) -> cost_model.MeshDims:
@@ -89,6 +80,10 @@ class Runtime:
         # the live step's OverlapExchange (its hooks sit on the
         # parameters; a rebuilt step takes them off first)
         self.overlap: Optional[Any] = None
+        # () -> this rank's own work so far in the running step, seconds
+        # (runtime/trainer.py sets it): the heartbeat a mesh step reports
+        # in place of the batch's ``_heartbeat`` value when set
+        self.beat: Optional[Any] = None
 
     @property
     def param_device(self) -> torch.device:

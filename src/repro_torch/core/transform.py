@@ -36,6 +36,14 @@ strategy the model axis is a batch axis (no tensor parallelism, FSDP over
 both axes). The correctness contract (paper §3.1): the step computes what
 the single-device step computes at equal global batch.
 
+Under ``RunConfig.max_staleness > 0`` the state carries a staleness
+buffer for each table with its own sparse exchange
+(``ensure_stale_buffers``), and the step rewrites those tables' gradients
+between the exchange and the optimizer (``_make_staleness_rule``): a table
+of ``Plan.stale_tables`` applies the previous step's aggregate. Under
+``RunConfig.heartbeat`` a mesh step carries each replica's beat in the
+one metrics all-reduce (runtime/trainer.py reads them).
+
 ``apply_replan`` / ``Runner.replan(census)`` hot-swap the step onto a plan
 recomputed from a measured census (paper §5's profile -> re-optimize loop;
 runtime/trainer.py drives it): the state stays where it is when the
@@ -76,6 +84,11 @@ from repro_torch.weights import (block_dims, block_of, gather_state,
                                  shard_tensor)
 
 
+# the methods whose table has a sparse exchange of its own, which a
+# bounded-stale push can defer (a dense-routed table rides the buckets)
+STALE_METHODS = ("ps", "ps_gather", "mpi_gatherv")
+
+
 def estimate_census(model, rt: Runtime) -> sparsity.Census:
     """Stage 1: the build-time workload-model census (estimated α)."""
     return sparsity.run_census(model.specs(), rt.model_cfg, rt.shape_cfg,
@@ -84,22 +97,28 @@ def estimate_census(model, rt: Runtime) -> sparsity.Census:
 
 def analyze(model, rt: Runtime,
             memory_budget: Optional[float] = None,
-            census: Optional[sparsity.Census] = None) -> Plan:
+            census: Optional[sparsity.Census] = None,
+            stale_tables: tuple = ()) -> Plan:
     """Census + cost model -> Plan (the paper's analysis phase). Pass
     ``census`` to plan from a measured census instead of the estimate;
     ``memory_budget`` (bytes per device) defaults to 90 % of the card's
-    memory."""
+    memory. ``stale_tables`` names the sparse tables that run the
+    bounded-staleness push (the jitter fallback), stamped on the plan so
+    the step builds the stale rule for exactly those."""
     if census is None:
         census = estimate_census(model, rt)
-    return choose_methods(model, rt, census, memory_budget)
+    return choose_methods(model, rt, census, memory_budget,
+                          stale_tables=stale_tables)
 
 
 def choose_methods(model, rt: Runtime, census: sparsity.Census,
-                   memory_budget: Optional[float] = None) -> Plan:
+                   memory_budget: Optional[float] = None,
+                   stale_tables: tuple = ()) -> Plan:
     """Stage 2: pure census -> Plan (the Table-3 argmin per parameter, its
-    placement on the mesh, the memory escalation and the bucket plan). No
-    stale table here: the staleness machinery is refused by
-    check_ported."""
+    placement on the mesh, the memory escalation and the bucket plan). A
+    table of ``stale_tables`` is stamped stale where the machinery is on
+    (``max_staleness > 0``) and the table has its own sparse exchange (a
+    dense-routed table rides the synchronous buckets)."""
     check_ported(rt.run_cfg, rt.mesh)
     if memory_budget is None:
         memory_budget = 0.9 * cost_model.HW.hbm_bytes
@@ -115,6 +134,9 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census,
     table_alpha: dict = {}
     table_serve: dict = {}
     serving = rt.shape_cfg.kind == "decode"
+    stale_requested = (set(stale_tables) if rt.run_cfg.max_staleness > 0
+                       else set())
+    stale_stamped: set = set()
 
     def wire_for(name: str):
         """OPSW wire dtype: the census's profiled hint when present (and
@@ -157,6 +179,10 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census,
             if method in ("mpi_gatherv", "allreduce"):
                 # the table replicated (MPI baseline / dense-AR pick)
                 pspec = (None,) * len(spec.shape)
+        stale = bool(spec.sparse and name in stale_requested
+                     and method in STALE_METHODS)
+        if stale:
+            stale_stamped.add(name)
         if method == "fsdp" and mesh is not None:
             pspec = add_fsdp(pspec, spec.shape, mesh, strategy)
         opt_pspec = pspec
@@ -166,7 +192,7 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census,
         params[name] = ParamPlan(
             name=name, method=method, placement=pspec,
             opt_placement=opt_pspec, wire_dtype=wire, sparse=spec.sparse,
-            bytes=int(b), capacity=capacity, est_cost=costs)
+            bytes=int(b), capacity=capacity, stale=stale, est_cost=costs)
 
     embed_method = table_methods.get(
         "embed", next(iter(table_methods.values()), "dense"))
@@ -178,7 +204,8 @@ def choose_methods(model, rt: Runtime, census: sparsity.Census,
                 table_wire=table_wire, table_alpha=table_alpha,
                 table_serve=table_serve,
                 grown_tables=tuple(sorted(
-                    n for n, t in census.tables.items() if t.grown)))
+                    n for n, t in census.tables.items() if t.grown)),
+                stale_tables=tuple(sorted(stale_stamped)))
 
     if mesh is not None:
         # memory escalation: replicate -> ZeRO-1 -> ZeRO-3 (auto-PS)
@@ -311,6 +338,8 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
     def value_and_grad(state: TrainState, batch: dict):
         for p in own.values():
             p.grad = None
+        batch = dict(batch)
+        hb = batch.pop("_heartbeat", None)
         full = {n: coll.all_gather(own[n].detach(), axes, mesh,
                                    dim=d).requires_grad_()
                 for n, (d, axes) in gathered.items()}
@@ -351,11 +380,115 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
             # the reference's global-semantics step casts every f32
             # gradient to its wire dtype (the sparse ones too)
             grads = opsw_cast(grads, plan)
+        if hb is not None:
+            # straggler attribution: this replica's beat at N x in its own
+            # slot, zero in the others, so the mean the fused all-reduce
+            # takes decodes slot j as replica j's beat: D more scalars in
+            # the one metrics all-reduce, no collective of their own. The
+            # beat is the batch's, or (``rt.beat``) this rank's own work
+            # in this step so far
+            beat = hb[0] if rt.beat is None else torch.tensor(
+                rt.beat(), dtype=torch.float32, device=hb.device)
+            slot = mesh.index(ba)
+            for j in range(n_rep):
+                stats[f"heartbeat{j}"] = beat * (float(n_rep) if j == slot
+                                                 else 0.0)
         loss, metrics = buckets.fused_metrics(
             loss.detach(), {**metrics, **stats}, ba, mesh, n_rep)
         return (loss, metrics), grads, bufs
 
     return value_and_grad
+
+
+# ---------------------------------------------------------------------------
+# bounded-staleness buffers (the jitter fallback's part of the state)
+# ---------------------------------------------------------------------------
+
+def stale_buffer_tables(plan: Plan, rt: Runtime) -> tuple:
+    """The tables that carry a staleness buffer in the state: every sparse
+    table with its own exchange, whenever the machinery is on
+    (``max_staleness > 0``), flipped stale or not, so the state's layout
+    does not change at a sync <-> stale flip."""
+    if rt.run_cfg.max_staleness <= 0:
+        return ()
+    return tuple(sorted(p.name for p in plan.params.values()
+                        if p.sparse and p.method in STALE_METHODS))
+
+
+def ensure_stale_buffers(state: TrainState, plan: Plan,
+                         rt: Runtime) -> TrainState:
+    """Attach (or drop) the staleness buffers for ``plan``: a zero f32
+    gradient buffer and an int32 age for every eligible table. A buffer
+    whose shape still matches its table (this rank's shard) carries across
+    (a replan or remesh inside a stale window keeps a buffered gradient);
+    a changed shape or a newly eligible table starts from zero."""
+    names = stale_buffer_tables(plan, rt)
+    old = state.stale
+    if not names:
+        return replace(state, stale=None) if old is not None else state
+    old = old or {}
+    new = {}
+    for n in names:
+        p = state.params[n]
+        o = old.get(n)
+        if o is not None and tuple(o["g"].shape) == tuple(p.shape):
+            new[n] = o
+        else:
+            new[n] = {"g": torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device),
+                      "age": torch.zeros((), dtype=torch.int32,
+                                         device=p.device)}
+    return replace(state, stale=new)
+
+
+def _make_staleness_rule(plan: Plan, rt: Runtime) -> Callable:
+    """The per-table gradient rewrite between the exchange and the
+    optimizer, op for op the reference's:
+
+      stale table: apply the buffered (previous step's) exchanged gradient
+                   and buffer the fresh one; the exchange itself still
+                   runs every step, so every replica buffers the same
+                   aggregate;
+      sync table:  apply fresh + buffered and zero the buffer: an ordinary
+                   step adds an exact zero, and the first step after a
+                   stale -> sync flip drains the last buffered gradient.
+
+    Emits ``staleness_age`` (the largest applied age over the stale
+    tables) and ``staleness_violation`` (the sum of relu(age -
+    max_staleness)). ``(stale, grads, metrics) -> (stale, grads,
+    metrics)``. The buffers are updated in place (at a full-width table
+    an f32 buffer is GBs a rank): the values are the reference's."""
+    stale_set = frozenset(plan.stale_tables)
+    smax = int(rt.run_cfg.max_staleness)
+
+    @torch.no_grad()
+    def apply_rule(stale, grads: dict, metrics: dict):
+        if stale is None:
+            return None, grads, metrics
+        grads = dict(grads)
+        ages = []
+        for name, buf in stale.items():
+            g = grads[name]
+            age = buf["age"]
+            buf["age"] = torch.zeros((), dtype=torch.int32, device=g.device)
+            if name in stale_set:
+                ages.append(age + 1)
+                grads[name] = buf["g"].to(g.dtype, copy=True)
+                buf["g"].copy_(g)
+            else:
+                # g is this step's own exchanged gradient: summed into
+                grads[name] = g.float().add_(buf["g"]).to(g.dtype)
+                buf["g"].zero_()
+        if ages:
+            age_max = ages[0]
+            for a in ages[1:]:
+                age_max = torch.maximum(age_max, a)
+            metrics["staleness_age"] = age_max
+            metrics["staleness_violation"] = sum(
+                torch.clamp(a - smax, min=0) for a in ages)
+        return stale, grads, metrics
+
+    return apply_rule
 
 
 def make_train_step(model, optimizer: Optimizer, rt: Runtime,
@@ -374,15 +507,29 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
     ``ContractViolation`` and changes no state. The check reads the plan's
     bucket plan when it runs, the step the one it was built with.
     ``train_step.exchange(state, batch)`` runs the step that far under a
-    record and applies nothing (``Runner.check_contract``)."""
+    record and applies nothing (``Runner.check_contract``).
+
+    Between the exchange and the optimizer, the staleness rule rewrites
+    the gradients of the tables with a staleness buffer
+    (``RunConfig.max_staleness > 0``: ``_make_staleness_rule``). A
+    ``_heartbeat`` batch entry (``RunConfig.heartbeat``: this replica's
+    (1,) beat on a mesh) comes back as the metrics ``heartbeat{j}``
+    (``_mesh_value_and_grad``; one device echoes each slot)."""
     if plan.fused_apply and optimizer.update_fused is None:
         plan.fused_apply = False
+    stale_rule = _make_staleness_rule(plan, rt)
 
     def value_and_grad(state: TrainState, batch: dict):
         params = state.params
         for p in params.values():
             p.grad = None
+        batch = dict(batch)
+        hb = batch.pop("_heartbeat", None)
         loss, metrics = model.loss_fn(batch)
+        if hb is not None:
+            metrics = dict(metrics)
+            for j in range(hb.shape[0]):
+                metrics[f"heartbeat{j}"] = hb[j]
         with coll.backward():
             loss.backward()
         grads = {n: p.grad for n, p in params.items()}
@@ -411,11 +558,13 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
             out = value_and_grad(state, batch)
         (loss, metrics), grads, bufs = out
         metrics = dict(metrics)
+        new_stale, grads, metrics = stale_rule(state.stale, grads, metrics)
         if plan.fused_apply:
             state, opt_metrics = optimizer.update_fused(
                 state, grads, bufs, plan.bucket_plan)
         else:
             state, opt_metrics = optimizer.update(state, grads)
+        state.stale = new_stale
         metrics.update(opt_metrics)
         metrics["loss"] = loss
         return state, metrics
@@ -645,6 +794,9 @@ def build_step(model, optimizer: Optimizer, rt: Runtime, plan: Plan,
         from repro_torch.kernels import autotune
         autotune.ensure_for_plan(plan, rt, model)
     step = make_train_step(model, optimizer, rt, plan)
+    # the staleness buffers live on the canonical state: attached, carried
+    # or dropped for this plan before any fused re-layout
+    state = ensure_stale_buffers(state, plan, rt)
     if plan.fused_apply:
         state = fuse_state(state, plan.bucket_plan)
     return step, state
@@ -691,10 +843,14 @@ def _abstract_batch(model, rt: Runtime) -> dict:
     """The global batch as empty meta tensors of the shapes and dtypes
     ``model.input_specs()`` gives (the reference's ShapeDtypeStructs for
     lowering a step without data; ``local_batch`` cuts this replica's
-    rows from it). The heartbeat input belongs to slice 7, which
-    ``check_ported`` refuses."""
-    return {k: torch.empty(shape, dtype=dtype, device="meta")
-            for k, (shape, dtype) in model.input_specs().items()}
+    rows from it), with the (replicas,) heartbeat under
+    ``RunConfig.heartbeat``."""
+    out = {k: torch.empty(shape, dtype=dtype, device="meta")
+           for k, (shape, dtype) in model.input_specs().items()}
+    if rt.run_cfg.heartbeat:
+        out["_heartbeat"] = torch.empty((rt.replicas,), dtype=torch.float32,
+                                        device="meta")
+    return out
 
 
 def fresh_state(model, optimizer: Optimizer, seed: int) -> TrainState:

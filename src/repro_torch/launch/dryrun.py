@@ -169,11 +169,16 @@ class DryCount(TorchDispatchMode):
     kept and the next call with that signature makes an empty tensor of
     the same layout in place of running the meta function again. The
     counts and the tensors are those the uncached calls give
-    (``tests/test_torch_dryrun.py``)."""
+    (``tests/test_torch_dryrun.py``). ``by_op`` (a dict), when given,
+    gathers the count by operator and argument shapes:
+    ``{"aten.mm (a, b)x(b, c)": [flops, calls]}`` (the dot census of
+    ``repro_torch.tools.profile_dots``)."""
 
-    def __init__(self, tracker: Optional[PeakTracker] = None):
+    def __init__(self, tracker: Optional[PeakTracker] = None,
+                 by_op: Optional[dict] = None):
         super().__init__()
         self.tracker = tracker
+        self.by_op = by_op
         self.flops = 0
         self._memo: dict = {}
         self._pure: dict = {}
@@ -188,6 +193,16 @@ class DryCount(TorchDispatchMode):
                             for r in sch.returns))
             self._pure[func] = pure
         return pure
+
+    def _note(self, func, args, flops: int) -> None:
+        if self.by_op is None or not flops:
+            return
+        shapes = "x".join(str(tuple(a.shape)) for a in args
+                          if isinstance(a, torch.Tensor))
+        row = self.by_op.setdefault(f"{func._overloadpacket} {shapes}",
+                                    [0, 0])
+        row[0] += int(flops)
+        row[1] += 1
 
     def _track(self, outs) -> None:
         if self.tracker is not None:
@@ -208,6 +223,7 @@ class DryCount(TorchDispatchMode):
             if hit is not None:
                 layouts, flops = hit
                 self.flops += flops
+                self._note(func, args, flops)
                 outs = [torch.empty_strided(shape, stride, dtype=dtype,
                                             device="meta")
                         for shape, stride, dtype in layouts]
@@ -230,6 +246,7 @@ class DryCount(TorchDispatchMode):
         flops = (flop_registry[packet](*args, **kwargs, out_val=out)
                  if packet in flop_registry else 0)
         self.flops += flops
+        self._note(func, args, flops)
         if isinstance(out, torch.Tensor):
             outs = [out]
         elif isinstance(out, (tuple, list)):
@@ -329,16 +346,18 @@ def _step_and_inputs(model, rt, plan, optimizer) -> tuple:
     return make_decode_step(model, rt, plan), (cache, tokens, lens)
 
 
-def dry_step(model, rt, plan, optimizer) -> DryStep:
+def dry_step(model, rt, plan, optimizer,
+             by_op: Optional[dict] = None) -> DryStep:
     """Run the cell's one step on meta under the record, the counting
-    mode and the peak tracker."""
+    mode (``by_op``: its count by operator, ``DryCount``) and the peak
+    tracker."""
     fn, inputs = _step_and_inputs(model, rt, plan, optimizer)
     tracker = PeakTracker()
     tracker.note_all([inputs, named_parameters(model)])
     base = tracker.live
     t0 = time.perf_counter()
     with coll.record() as rec, ops.meta_flops() as kernels, \
-            DryCount(tracker) as count:
+            DryCount(tracker, by_op) as count:
         out = fn(*inputs)
     seconds = time.perf_counter() - t0
     del out

@@ -27,9 +27,29 @@ initialised process group:
                            (the tests' gloo meshes, chip_smoke.py's ranks).
 
 The backend is always the caller's choice (``nccl`` or ``gloo``); nothing
-here probes for one. Ranks lie on the mesh in row-major order, as devices
-lie on a ``jax.make_mesh`` grid. ``shrink_mesh`` / ``grow_mesh`` belong to
-ROADMAP slice 7 (elasticity).
+here probes for one. Every mesh carries its grid of world ranks
+(``ranks``); ``make_mesh`` lays the world's ranks on it in row-major
+order, as devices lie on a ``jax.make_mesh`` grid.
+
+The elastic helpers (the reference's ``shrink_mesh`` / ``grow_mesh`` /
+``slice_for_process``, with ranks in place of devices):
+
+``shrink_mesh(mesh, i)``   the grid without data slice ``i``; the kept
+                           ranks keep their grid positions;
+``grow_mesh(mesh, ranks, i)``  the grid with a returning slice inserted at
+                           index ``i`` (a shrink -> grow round trip gives
+                           the grid back exactly);
+``slice_for_process(mesh, h)``  the data slice whose ranks all run on host
+                           ``h`` (a "process" of the reference: the
+                           controller of one host's devices), or None.
+
+On a ``MeshShape`` they return a ``MeshShape`` (plans only). On a ``Mesh``
+the new grid becomes a ``Mesh`` over a subset of the world's ranks
+(``mesh_from_ranks``): its process groups are created on every rank of the
+world, in the same order, so each call is collective over the default
+group, the ranks off the new grid included. A rank off the grid gets a
+``Mesh`` with ``member`` False: it knows the grid and its lead rank, and
+belongs to none of its groups.
 """
 from __future__ import annotations
 
@@ -45,8 +65,9 @@ import tempfile
 import time
 import traceback
 from datetime import timedelta
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -55,19 +76,35 @@ from repro_torch.core.collectives import DryGroup
 
 class MeshShape:
     """Axis names and sizes of a mesh, without process groups.
-    ``shape[axis]`` is an axis's size, as on a JAX mesh."""
+    ``shape[axis]`` is an axis's size, as on a JAX mesh. ``ranks``: the
+    grid of world ranks (default: 0..n-1 in row-major order); ``host_of``:
+    {rank: host index} (default: ``hosts`` contiguous blocks of ranks)."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str],
-                 hosts: int = 1):
+                 hosts: int = 1, *, ranks=None, host_of: Optional[dict] = None):
         shape, axes = tuple(int(s) for s in shape), tuple(axes)
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
             raise ValueError(f"mesh shape {shape} vs axes {axes}")
+        n = math.prod(shape)
+        self.ranks = (np.arange(n).reshape(shape) if ranks is None
+                      else np.asarray(ranks, dtype=np.int64))
+        if self.ranks.shape != shape:
+            raise ValueError(f"rank grid {self.ranks.shape} vs shape {shape}")
+        if host_of is None:
+            host_of = {r: r * int(hosts) // n for r in range(n)}
+        self.host_of = dict(host_of)
         self.axis_names = axes
         self.shape = dict(zip(axes, shape))
-        self.hosts = int(hosts)
+        self.hosts = len({self.host_of[int(r)] for r in self.ranks.flat})
 
     def axes_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in _as_axes(axes))
+
+    @property
+    def lead(self) -> int:
+        """The first rank of the grid: the rank that writes and decides
+        for the mesh (global rank 0 may have been evicted)."""
+        return int(self.ranks.flat[0])
 
     def __repr__(self) -> str:
         dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
@@ -81,23 +118,25 @@ def _as_axes(axes) -> tuple:
 
 
 class Mesh(MeshShape):
-    """A ``MeshShape`` over an initialised process group: this rank's
+    """A ``MeshShape`` over initialised process groups: this rank's
     ``coords`` ({axis: index}), its ``device``, and ``group(axes)`` — the
     process group of the ranks that share every coordinate outside
     ``axes`` (None for a group of one: every collective over it is the
-    identity)."""
+    identity). A rank off the grid (``member`` False: evicted) has no
+    coordinates and no groups."""
 
-    def __init__(self, shape, axes, *, device, device_mesh, groups: dict,
-                 hosts: int):
-        super().__init__(shape, axes, hosts=hosts)
+    def __init__(self, ranks, axes, *, device, groups: dict,
+                 host_of: dict, device_mesh=None):
+        ranks = np.asarray(ranks, dtype=np.int64)
+        super().__init__(ranks.shape, axes, ranks=ranks, host_of=host_of)
         self.device = torch.device(device)
         self.device_mesh = device_mesh
         self.rank = dist.get_rank()
         self.backend = dist.get_backend()
-        idx, coords = self.rank, {}
-        for a in reversed(self.axis_names):
-            idx, coords[a] = divmod(idx, self.shape[a])
-        self.coords = {a: coords[a] for a in self.axis_names}
+        where = np.argwhere(self.ranks == self.rank)
+        self.member = len(where) == 1
+        self.coords = (dict(zip(self.axis_names, map(int, where[0])))
+                       if self.member else None)
         self._groups = groups
 
     def _key(self, axes) -> tuple:
@@ -134,6 +173,7 @@ class DryMesh(Mesh):
         self.device_mesh = None
         self.rank = 0
         self.backend = "dry"
+        self.member = True
         self.coords = {a: 0 for a in self.axis_names}
         self._groups = {}
 
@@ -190,8 +230,159 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     groups.update(_subset_groups(shape, axes))
     names = [None] * dist.get_world_size()
     dist.all_gather_object(names, socket.gethostname())
-    return Mesh(shape, axes, device=device, device_mesh=dm, groups=groups,
-                hosts=len(set(names)))
+    order = list(dict.fromkeys(names))     # hosts by their first rank
+    return Mesh(np.arange(math.prod(shape)).reshape(shape), axes,
+                device=device, device_mesh=dm, groups=groups,
+                host_of={r: order.index(h) for r, h in enumerate(names)})
+
+
+# the groups ``mesh_from_ranks`` made, by their tuple of world ranks, for
+# the default group they were made in (a later world starts afresh)
+_GROUPS: dict = {}
+_GROUPS_WORLD: list = [None]
+
+
+def _group_of(row: list):
+    """The process group of the world ranks ``row``: made once with
+    ``new_group`` (collective over the default group), then reused, so a
+    shrink -> grow round trip creates nothing and the groups a run holds
+    are bounded by the distinct grids it passes through. Every rank of the
+    world makes the same calls in the same order, so each fills the cache
+    alike and the creations stay matched."""
+    if _GROUPS_WORLD[0] is not dist.group.WORLD:
+        _GROUPS.clear()
+        _GROUPS_WORLD[0] = dist.group.WORLD
+    key = tuple(row)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(row))
+    return _GROUPS[key]
+
+
+def mesh_from_ranks(ranks, axes: Sequence[str], *, device,
+                    host_of: dict) -> Mesh:
+    """A ``Mesh`` over ``ranks`` (a grid of world ranks: a subset of the
+    world, as a shrink or a grow leaves it). Collective over the default
+    group: every rank of the world calls it with the same arguments, in
+    the same order, since each of the grid's process groups is created on
+    all of them (``new_group``, once for each tuple of ranks:
+    ``_group_of``). A rank off the grid gets a ``Mesh`` with ``member``
+    False."""
+    ranks = np.asarray(ranks, dtype=np.int64)
+    axes = tuple(axes)
+    me = dist.get_rank()
+    groups = {}
+    for k in range(1, len(axes) + 1):
+        for sub in itertools.combinations(range(len(axes)), k):
+            rest = tuple(d for d in range(len(axes)) if d not in sub)
+            size = math.prod(ranks.shape[d] for d in sub)
+            if size <= 1:
+                continue
+            rows = np.transpose(ranks, rest + sub).reshape(-1, size)
+            for row in rows.tolist():
+                g = _group_of(row)
+                if me in row:
+                    groups[tuple(axes[d] for d in sub)] = g
+    return Mesh(ranks, axes, device=device, groups=groups, host_of=host_of)
+
+
+# ---------------------------------------------------------------------------
+# elasticity: shrink, grow, attribution (the reference's launch/mesh.py)
+# ---------------------------------------------------------------------------
+
+def _regrid(mesh: MeshShape, ranks: np.ndarray) -> MeshShape:
+    """``ranks`` as the same kind of mesh as ``mesh``: a ``MeshShape``, or
+    (collectively, on every rank of the world) a ``Mesh``."""
+    if isinstance(mesh, Mesh):
+        return mesh_from_ranks(ranks, mesh.axis_names, device=mesh.device,
+                               host_of=mesh.host_of)
+    return MeshShape(ranks.shape, mesh.axis_names, ranks=ranks,
+                     host_of=mesh.host_of)
+
+
+def slice_for_process(mesh: Optional[MeshShape], process_index: int,
+                      axis: str = "data") -> Optional[int]:
+    """The ``axis`` slice whose ranks all run on host ``process_index``
+    (``mesh.host_of``): the attribution step between "host P is slow" and
+    "drop slice i" (``shrink_mesh``). None when no slice is wholly that
+    host's (no mesh, the axis is absent, or the host's ranks straddle
+    slices): the caller falls back to its by-convention choice rather than
+    evicting healthy ranks."""
+    if mesh is None or axis not in mesh.axis_names:
+        return None
+    moved = np.moveaxis(mesh.ranks, mesh.axis_names.index(axis), 0)
+    for i in range(moved.shape[0]):
+        if {mesh.host_of[int(r)] for r in moved[i].flat} == {process_index}:
+            return i
+    return None
+
+
+def shrink_mesh(mesh: Optional[MeshShape],
+                drop_axis_index: Optional[int] = None, axis: str = "data",
+                min_axis_size: int = 1,
+                drop_process_index: Optional[int] = None):
+    """``mesh`` without one slice along ``axis``: the straggler eviction.
+    The kept ranks keep their grid positions, so every other slice's
+    placement is stable across the shrink. ``drop_process_index`` names
+    the slow host instead of a grid index (through ``slice_for_process``;
+    None when that host owns no whole slice).
+
+    Returns None when the mesh cannot shrink: no mesh, the axis is absent,
+    or the shrink would take it below ``min_axis_size`` (the trainer's
+    ``min_data_parallel`` floor). Raises ``ValueError`` on an out-of-range
+    index. On a ``Mesh``: collective over the world (``mesh_from_ranks``)."""
+    if mesh is None or axis not in mesh.axis_names:
+        return None
+    if drop_process_index is not None:
+        if drop_axis_index is not None:
+            raise ValueError(
+                "pass drop_axis_index or drop_process_index, not both")
+        drop_axis_index = slice_for_process(mesh, drop_process_index, axis)
+        if drop_axis_index is None:
+            return None
+    elif drop_axis_index is None:
+        raise ValueError("need drop_axis_index or drop_process_index")
+    ax = mesh.axis_names.index(axis)
+    size = mesh.ranks.shape[ax]
+    if not 0 <= drop_axis_index < size:
+        raise ValueError(f"drop_axis_index {drop_axis_index} out of range "
+                         f"for {axis}={size}")
+    if size <= 1 or size - 1 < min_axis_size:
+        return None
+    return _regrid(mesh, np.delete(mesh.ranks, drop_axis_index, axis=ax))
+
+
+def grow_mesh(mesh: Optional[MeshShape], slice_ranks,
+              insert_axis_index: Optional[int] = None, axis: str = "data"):
+    """``mesh`` with one more slice along ``axis``: the re-admission. The
+    returning ranks ``slice_ranks`` (the shape of one slice, or a flat
+    sequence of its size) go in at ``insert_axis_index`` (their old grid
+    position, so a shrink -> grow round trip restores the grid exactly;
+    default: after the last slice). None when there is no mesh or the axis
+    is absent; ``ValueError`` on a wrong-sized slice, ranks already on the
+    mesh, or an out-of-range index. On a ``Mesh``: collective over the
+    world (``mesh_from_ranks``)."""
+    if mesh is None or axis not in mesh.axis_names:
+        return None
+    ax = mesh.axis_names.index(axis)
+    size = mesh.ranks.shape[ax]
+    if insert_axis_index is None:
+        insert_axis_index = size
+    if not 0 <= insert_axis_index <= size:
+        raise ValueError(f"insert_axis_index {insert_axis_index} out of "
+                         f"range for {axis}={size} (0..{size} valid)")
+    shape = mesh.ranks.shape[:ax] + mesh.ranks.shape[ax + 1:]
+    new = np.asarray(slice_ranks, dtype=np.int64)
+    if new.shape != shape:
+        if new.size != math.prod(shape):
+            raise ValueError(f"slice of {new.size} ranks cannot fill a "
+                             f"{shape} grid slice")
+        new = new.reshape(shape)
+    overlap = set(mesh.ranks.ravel().tolist()) & set(new.ravel().tolist())
+    if overlap:
+        raise ValueError(f"returning slice overlaps the live mesh: ranks "
+                         f"{sorted(overlap)}")
+    return _regrid(mesh, np.insert(mesh.ranks, insert_axis_index, new,
+                                   axis=ax))
 
 
 # ---------------------------------------------------------------------------

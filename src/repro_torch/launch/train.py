@@ -28,10 +28,13 @@ Mapped or refused, never ignored:
   * ``--attention`` is ``RunConfig.attention_impl`` (every attention
     family's; no LSTM reads it); ``pallas`` is refused for training (the
     flash kernel is forward-only, as the reference's);
-  * the elastic flags (``--remesh-on-straggle``, ``--heartbeat``,
-    ``--max-staleness``, ``--stale-on-jitter``, ``--no-attribution``,
-    ``--probation-*``, ``--min-data-parallel``) reach their config fields,
-    which refuse them by name away from their defaults (ROADMAP slice 7).
+  * the elastic flags (``--remesh-on-straggle``, ``--remesh-cooldown``,
+    ``--min-data-parallel``, ``--heartbeat``, ``--no-attribution``,
+    ``--probation-*``, ``--max-staleness``, ``--stale-on-jitter``) reach
+    ``TrainerConfig`` and ``RunConfig`` (runtime/trainer.py): on a mesh a
+    straggling data slice is evicted and its ranks wait off the mesh; the
+    record of such a rank says ``live`` False, and the lead rank of the
+    live mesh prints.
 """
 from __future__ import annotations
 
@@ -205,13 +208,12 @@ def train(args, device=None, mesh=None) -> dict:
                       device=device)
     plan0 = trainer.plan.tables()
     trainer.maybe_restore()
-    rank0 = mesh is None or mesh.rank == 0
     history = []
 
     def on_metrics(step, m):
         history.append({k: v for k, v in m.items()
                         if isinstance(v, (int, float, bool))})
-        if rank0 and step % args.log_every == 0:
+        if trainer.writer and step % args.log_every == 0:
             extra = ""
             if "observed_alpha" in m:
                 extra = (f"  alpha {m['observed_alpha']:.4f}"
@@ -234,7 +236,7 @@ def train(args, device=None, mesh=None) -> dict:
     t0 = time.perf_counter()
     trainer.run(on_metrics=on_metrics)
     dt = time.perf_counter() - t0
-    if rank0:
+    if trainer.writer and trainer.live:
         print(f"done: {len(history)} steps in {dt:.1f}s "
               f"({len(history) * shape.tokens / max(dt, 1e-9):.0f} tok/s "
               "avg)", flush=True)
@@ -242,6 +244,7 @@ def train(args, device=None, mesh=None) -> dict:
             "step_time_s": [h["step_time_s"] for h in history],
             "tokens_per_s": [h["tokens_per_s"] for h in history],
             "history": history, "seconds": dt, "step": trainer.step,
+            "live": trainer.live,
             "plan0": plan0, "plan": trainer.plan.tables(),
             "replans": [{k: d[k] for k in (
                 "step", "flips", "pspecs_changed", "capacity_drifted",

@@ -54,7 +54,12 @@ class TrainState:
     m: Optional[dict]           # first moment / momentum (None for sgd)
     v: Optional[dict]           # second moment (None for sgd/momentum)
     ema: Optional[dict]         # EMA shadow params (None if disabled)
-    stale: Any = None           # bounded-staleness buffers (slice 7)
+    # bounded-staleness buffers (None unless RunConfig.max_staleness > 0):
+    # {table: {"g": f32 gradient buffer, "age": int32 scalar}} for every
+    # eligible table (core/transform.py ensure_stale_buffers), flipped
+    # stale or not; the updates never touch it, the step's staleness rule
+    # replaces it
+    stale: Any = None
 
 
 @dataclass(frozen=True)

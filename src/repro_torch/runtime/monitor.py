@@ -12,9 +12,9 @@ as a straggler.
 The heartbeat attribution (``note_heartbeats``, ``straggler_slice``), the
 remesh / re-growth bookkeeping (``note_remesh``, ``note_regrow``,
 probation) and the jitter fallback's signals (``stale_suggested``,
-``stale_recovered``) come along whole; nothing in the port acts on them
-until the elasticity slice (ROADMAP slice 7): the trainer refuses the
-knobs that would.
+``stale_recovered``) are the reference's; runtime/trainer.py acts on
+them. On a process mesh each rank's monitor times its own clock, so the
+trainer acts on the live mesh's lead rank's verdict.
 
 The monitor also carries the replan loop's telemetry (the observed α,
 each plan hot-swap), the per-table overflow EMA (``note_overflow``), the

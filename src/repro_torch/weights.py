@@ -15,8 +15,10 @@ layout; the tests hold the port's sharded state against the JAX package
 with it.
 ``gather_state`` / ``shard_state`` do the same for a whole canonical
 ``TrainState`` (the parameters and EMA shadows by ``held``, the moments by
-``opt_held``): a replan whose placements moved, and a checkpoint's save
-and restore, carry the state whole between two plans' placements. Under
+``opt_held``; a staleness buffer's gradient by its table's ``held``, its
+age as it is): a replan whose placements moved, a remesh, and a
+checkpoint's save and restore, carry the state whole between two plans'
+placements. Under
 ZeRO-1 ``opt_dims`` names the dimensions the moments are sharded over
 apart from their parameter; ``block_of`` cuts a parameter-shaped tensor
 to that block and ``gather_blocks`` puts the blocks back together.
@@ -170,6 +172,13 @@ def _placed(plan, part: str, name: str) -> tuple:
     return getattr(p, PART_PLACEMENT[part]), p.groups
 
 
+def _stale_part(stale: dict, fn) -> dict:
+    """The staleness buffers with ``fn(name, g)`` applied to each table's
+    gradient buffer (its age, a replicated scalar, as it is)."""
+    return {n: {"g": fn(n, b["g"]), "age": b["age"]}
+            for n, b in stale.items()}
+
+
 def gather_state(state, plan, mesh):
     """A canonical TrainState of this rank's shards under ``plan`` (the
     moments by ``opt_held``) -> the same state with every leaf whole (a
@@ -185,6 +194,9 @@ def gather_state(state, plan, mesh):
     out = {part: None if getattr(state, part) is None else
            {n: whole(part, n, t) for n, t in getattr(state, part).items()}
            for part in STATE_PARTS}
+    if state.stale is not None:
+        out["stale"] = _stale_part(state.stale,
+                                   lambda n, g: whole("params", n, g))
     return replace(state, **out)
 
 
@@ -206,4 +218,7 @@ def shard_state(state, plan, mesh, whole_shapes: dict):
     out = {part: None if getattr(state, part) is None else
            {n: cut(part, n, t) for n, t in getattr(state, part).items()}
            for part in STATE_PARTS}
+    if state.stale is not None:
+        out["stale"] = _stale_part(state.stale,
+                                   lambda n, g: cut("params", n, g))
     return replace(state, **out)

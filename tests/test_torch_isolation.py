@@ -52,7 +52,14 @@ def test_importing_the_port_pulls_in_no_jax():
               "repro_torch.examples.train_lm",
               "repro_torch.benchmarks.adaptive_replan",
               # the moe family's experts and their all-to-all
-              "repro_torch.models.moe"):
+              "repro_torch.models.moe",
+              # the elastic half's benchmark and the tools
+              "repro_torch.benchmarks.elastic_remesh",
+              "repro_torch.tools.check_env",
+              "repro_torch.tools.profile_collectives",
+              "repro_torch.tools.spmd_lint",
+              "repro_torch.tools.profile_dots",
+              "repro_torch.tools.make_experiments"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib.util, json, sys

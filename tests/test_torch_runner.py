@@ -76,25 +76,44 @@ def test_seeded_init_is_deterministic():
 
 
 @pytest.mark.parametrize("kw,where", [
-    (dict(heartbeat=True), "slice 7"),
-    (dict(max_staleness=2), "slice 7"),
+    # the elastic knobs run (ROADMAP slice 7, ported): heartbeats echo a
+    # batch's ``_heartbeat`` slots on one device; max_staleness attaches a
+    # zero buffer per stale-eligible table and, no table being flipped,
+    # changes no bit of the trajectory
+    (dict(heartbeat=True), "heartbeat"),
+    (dict(max_staleness=2), "staleness"),
     # kernel_autotune is ported (kernels/autotune.py): on the CPU the
     # plain scatter has no tile, so it runs, measures nothing and leaves
     # every table's tiles at (0, 0); with the verify gate beside it too
     (dict(kernel_autotune=True), None),
     (dict(kernel_autotune=True, verify_contract=True), None),
 ])
-def test_unported_options_are_refused(kw, where, tmp_path, monkeypatch):
+def test_run_config_options_run(kw, where, tmp_path, monkeypatch):
     cfg = tc.reduced(tc.get_config("parallax-lm"))
     shape = tc.ShapeConfig("t", 8, 2, "train")
-    if where is not None:
-        with pytest.raises(NotImplementedError, match=where):
-            get_runner(cfg, shape, tc.RunConfig(**kw), device="cpu")
+    ds = SyntheticLM(cfg.vocab_size, 8, 2)
+    if where == "heartbeat":
+        run = get_runner(cfg, shape, tc.RunConfig(**kw), device="cpu")
+        m = run.run({**ds.batch(0), "_heartbeat": np.float32([0.5, 0.25])})
+        assert torch.isfinite(m["loss"])
+        assert (float(m["heartbeat0"]), float(m["heartbeat1"])) == \
+            (0.5, 0.25)
+        return
+    if where == "staleness":
+        run = get_runner(cfg, shape, tc.RunConfig(**kw), device="cpu")
+        base = get_runner(cfg, shape, tc.RunConfig(), device="cpu")
+        assert run.state.stale and base.state.stale is None
+        for i in range(2):
+            m, b = run.run(ds.batch(i)), base.run(ds.batch(i))
+            assert float(m["loss"]) == float(b["loss"])
+            assert "staleness_age" not in m
+        assert all(int(torch.count_nonzero(x["g"])) == 0
+                   for x in run.state.stale.values())
         return
     cache = tmp_path / "tune.json"
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(cache))
     run = get_runner(cfg, shape, tc.RunConfig(**kw), device="cpu")
-    m = run.run(SyntheticLM(cfg.vocab_size, 8, 2).batch(0))
+    m = run.run(ds.batch(0))
     assert torch.isfinite(m["loss"])
     assert run.plan.table_tiles.get("embed", (0, 0)) == (0, 0)
     assert not cache.exists()               # nothing measured, nothing kept

@@ -244,16 +244,53 @@ ELASTIC_KNOBS = {"remesh_on_straggle": True, "stale_on_jitter": True,
 @pytest.mark.parametrize("what", [
     *ELASTIC_KNOBS, "remesh", "_auto_remesh", "readmit", "_flip_stale",
     "_heartbeat_batch"])
-def test_elastic_half_is_refused_by_name(what):
+def test_elastic_half_runs_on_one_device(what):
+    """Each elastic knob is accepted and trains; each entry point does on
+    one device what the reference's does there (the meshes' cases are
+    tests/test_torch_elastic_mesh.py)."""
+    rc = dict(F32, max_staleness=2)
     if what in ELASTIC_KNOBS:
-        with pytest.raises(NotImplementedError, match=f"{what}.*slice 7"):
-            TrainerConfig(**{what: ELASTIC_KNOBS[what]})
+        t = _trainer(rc, TrainerConfig(total_steps=2,
+                                       **{what: ELASTIC_KNOBS[what]}))
+        assert getattr(t.tcfg, what) == ELASTIC_KNOBS[what]
+        if what == "remesh_on_straggle":
+            t.monitor._probation_trip = 0     # the escalation fires ...
+        if what == "stale_on_jitter":
+            # ... and a jitter ratio past jitter_enter
+            t.monitor.min_samples = 1
+            t.monitor._outlier_flags.extend([True] * 10)
+        out = _run(t)
+        assert len(out) == 2 and all(np.isfinite(m["loss"]) for _, m in out)
+        if what == "remesh_on_straggle":
+            # no mesh to shrink: nothing evicted, the run goes on
+            assert t.mesh is None and t.monitor.remeshes == 0
+        if what == "stale_on_jitter":
+            # stale after step 1; step 2's one calm sample (min_samples 1)
+            # drains it back
+            assert t.monitor.stale_flips == 2 and t.plan.stale_tables == ()
+            assert "staleness_age" not in out[0][1]
+            assert out[1][1]["staleness_age"] == 1.0
+            assert out[1][1]["staleness_violation"] == 0.0
         return
-    t = _trainer(tcfg=TrainerConfig(total_steps=1))
-    args = {"remesh": (None,), "_flip_stale": (True,),
-            "_heartbeat_batch": ({},)}.get(what, ())
-    with pytest.raises(NotImplementedError, match=f"{what}.*slice 7"):
-        getattr(t, what)(*args)
+    t = _trainer(rc, TrainerConfig(total_steps=2))
+    _run(t)
+    if what == "remesh":
+        before = _bits(t._canonical_state())
+        assert t.remesh(None) is None and t.mesh is None
+        assert _equal(before, _bits(t._canonical_state()))
+        t.tcfg = dataclasses.replace(t.tcfg, total_steps=3)
+        assert np.isfinite(_run(t)[0][1]["loss"])
+    elif what in ("_auto_remesh", "readmit"):
+        assert getattr(t, what)() is None     # no mesh, nothing evicted
+    elif what == "_flip_stale":
+        d = t._flip_stale(True)
+        assert d["stale_flips"] == [("embed", False, True)]
+        assert t._flip_stale(True) is None    # already stale
+        assert t._flip_stale(False)["stale_flips"] == [("embed", True,
+                                                         False)]
+    else:
+        # one device carries no heartbeat (the reference's too)
+        assert t._heartbeat_batch({"tokens": 1}) == {"tokens": 1}
 
 
 LM = ["--arch", "parallax-lm", "--reduced", "--seq", "16", "--batch", "4"]
@@ -271,18 +308,16 @@ LM = ["--arch", "parallax-lm", "--reduced", "--seq", "16", "--batch", "4"]
     # --kernel-autotune is ported: it trains on the CPU, where nothing is
     # measured and every table keeps tiles (0, 0)
     (LM + ["--kernel-autotune", "--steps", "1"], None, None),
-    (LM + ["--remesh-on-straggle"], NotImplementedError,
-     "remesh_on_straggle.*slice 7"),
-    (LM + ["--heartbeat"], NotImplementedError, "heartbeat.*slice 7"),
-    (LM + ["--max-staleness", "2"], NotImplementedError,
-     "max_staleness.*slice 7"),
-    (LM + ["--probation-steps", "5"], NotImplementedError,
-     "probation_steps.*slice 7"),
-    (LM + ["--no-attribution"], NotImplementedError,
-     "attribution.*slice 7"),
+    # the elastic flags are ported (ROADMAP slice 7): each trains
+    (LM + ["--remesh-on-straggle", "--steps", "1"], None, None),
+    (LM + ["--heartbeat", "--steps", "1"], None, None),
+    (LM + ["--max-staleness", "2", "--stale-on-jitter", "--steps", "1"],
+     None, None),
+    (LM + ["--probation-steps", "5", "--steps", "1"], None, None),
+    (LM + ["--no-attribution", "--steps", "1"], None, None),
     (LM + ["--devices", "4"], ValueError, "--mesh"),
 ])
-def test_launcher_refuses_by_name(argv, err, match, tmp_path, monkeypatch):
+def test_launcher_refuses_or_runs(argv, err, match, tmp_path, monkeypatch):
     if err is None:
         cache = tmp_path / "tune.json"
         monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(cache))
