@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.core import collectives as coll
 from repro_torch.kernels import ops, ref
+from repro_torch.utils.spans import span
 
 
 # the push methods whose table gradient the lookup's backward delivers
@@ -238,7 +239,8 @@ def deferred_push(uids: torch.Tensor, d_rows: torch.Tensor, vs: int,
                   ctx: EmbedCtx) -> torch.Tensor:
     """The gatherv push a deferred lookup left (``EmbedCtx.deferred``),
     run after the backward: the same exchange as in the backward."""
-    return _gathered_push(uids, d_rows, vs, 0, ctx)
+    with span("embed.push"):
+        return _gathered_push(uids, d_rows, vs, 0, ctx)
 
 
 class _Lookup(torch.autograd.Function):
@@ -248,7 +250,9 @@ class _Lookup(torch.autograd.Function):
 
     @staticmethod
     def forward(fctx, table, ids, ectx: EmbedCtx, capacity: int, name: str):
-        out, uids, inv, dropped, uniq = _fwd_local(table, ids, ectx, capacity)
+        with span("embed.pull"):
+            out, uids, inv, dropped, uniq = _fwd_local(table, ids, ectx,
+                                                       capacity)
         fctx.save_for_backward(uids, inv)
         fctx.ectx, fctx.name = ectx, name
         fctx.table_dtype = table.dtype
@@ -260,12 +264,14 @@ class _Lookup(torch.autograd.Function):
     def backward(fctx, d_out, _d_dropped, _d_uniq):
         uids, inv = fctx.saved_tensors
         ectx = fctx.ectx
-        d_table = _bwd_local(uids, inv, d_out, fctx.vs, ectx)
-        if ectx.deferred is not None:
-            # the push runs after the backward (core/transform.py)
-            ectx.deferred.append((fctx.name, uids, d_table, fctx.vs, ectx))
-            return None, None, None, None, None
-        return d_table.to(fctx.table_dtype), None, None, None, None
+        with span("embed.push"):
+            d_table = _bwd_local(uids, inv, d_out, fctx.vs, ectx)
+            if ectx.deferred is not None:
+                # the push runs after the backward (core/transform.py)
+                ectx.deferred.append((fctx.name, uids, d_table, fctx.vs,
+                                      ectx))
+                return None, None, None, None, None
+            return d_table.to(fctx.table_dtype), None, None, None, None
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor, *, ctx: EmbedCtx,

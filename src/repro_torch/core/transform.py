@@ -78,6 +78,7 @@ from repro_torch.optim.optimizer import (Optimizer, TrainState, fuse_state,
                                          is_fused, make_optimizer,
                                          unfuse_state)
 from repro_torch.utils.dtypes import torch_dtype
+from repro_torch.utils.spans import span
 from repro_torch.utils.tree import named_parameters
 from repro_torch.weights import (block_dims, block_of, gather_state,
                                  opt_dims, shard_shape, shard_state,
@@ -348,54 +349,57 @@ def _mesh_value_and_grad(model, rt: Runtime, plan: Plan) -> Callable:
         if overlap is not None:
             overlap.begin()
         try:
-            loss, metrics = model.loss_fn(batch, params=full)
-            with coll.backward():
+            with span("step.forward"):
+                loss, metrics = model.loss_fn(batch, params=full)
+            with span("step.backward"), coll.backward():
                 loss.backward()
         finally:
             rt.deferred_pushes = None
-        done, bufs = overlap.finish() if overlap is not None else ({}, [])
-        local = {n: (full[n].grad if n in full else own[n].grad)
-                 for n in names}
-        for p in own.values():
-            p.grad = None      # the step owns its gradients from here on
-        for n, uids, d_rows, vs, ectx in deferred or ():
-            # overlap=False: the gatherv pushes, after the backward
-            local[n] = embedding.deferred_push(uids, d_rows, vs, ectx).to(
-                own[n].dtype)
-        grads, stats = {}, {}
-        mags = overlap.stats if overlap is not None else []
-        if bp is not None and overlap is None:
-            for b in bp.buckets:
-                ex, buf = buckets._exchange_bucket(
-                    b, [local[names[i]] for i in b.idx], scale, bp, mesh,
-                    census=mags if census else None)
-                done.update(zip(b.idx, ex))
-                bufs.append(buf)
-        for k, (gmax, grms) in enumerate(mags):
-            stats[f"gbucket{k}_gmax"], stats[f"gbucket{k}_grms"] = gmax, grms
-        for i, n in enumerate(names):
-            grads[n] = (done[i] if i in bucketed
-                        else exchange(n, local[n], stats))
-        if bp is None:
-            # the reference's global-semantics step casts every f32
-            # gradient to its wire dtype (the sparse ones too)
-            grads = opsw_cast(grads, plan)
-        if hb is not None:
-            # straggler attribution: this replica's beat at N x in its own
-            # slot, zero in the others, so the mean the fused all-reduce
-            # takes decodes slot j as replica j's beat: D more scalars in
-            # the one metrics all-reduce, no collective of their own. The
-            # beat is the batch's, or (``rt.beat``) this rank's own work
-            # in this step so far
-            beat = hb[0] if rt.beat is None else torch.tensor(
-                rt.beat(), dtype=torch.float32, device=hb.device)
-            slot = mesh.index(ba)
-            for j in range(n_rep):
-                stats[f"heartbeat{j}"] = beat * (float(n_rep) if j == slot
-                                                 else 0.0)
-        loss, metrics = buckets.fused_metrics(
-            loss.detach(), {**metrics, **stats}, ba, mesh, n_rep)
-        return (loss, metrics), grads, bufs
+        with span("step.exchange"):
+            done, bufs = overlap.finish() if overlap is not None else ({}, [])
+            local = {n: (full[n].grad if n in full else own[n].grad)
+                     for n in names}
+            for p in own.values():
+                p.grad = None      # the step owns its gradients from here on
+            for n, uids, d_rows, vs, ectx in deferred or ():
+                # overlap=False: the gatherv pushes, after the backward
+                local[n] = embedding.deferred_push(uids, d_rows, vs, ectx).to(
+                    own[n].dtype)
+            grads, stats = {}, {}
+            mags = overlap.stats if overlap is not None else []
+            if bp is not None and overlap is None:
+                for b in bp.buckets:
+                    ex, buf = buckets._exchange_bucket(
+                        b, [local[names[i]] for i in b.idx], scale, bp, mesh,
+                        census=mags if census else None)
+                    done.update(zip(b.idx, ex))
+                    bufs.append(buf)
+            for k, (gmax, grms) in enumerate(mags):
+                stats[f"gbucket{k}_gmax"] = gmax
+                stats[f"gbucket{k}_grms"] = grms
+            for i, n in enumerate(names):
+                grads[n] = (done[i] if i in bucketed
+                            else exchange(n, local[n], stats))
+            if bp is None:
+                # the reference's global-semantics step casts every f32
+                # gradient to its wire dtype (the sparse ones too)
+                grads = opsw_cast(grads, plan)
+            if hb is not None:
+                # straggler attribution: this replica's beat at N x in its own
+                # slot, zero in the others, so the mean the fused all-reduce
+                # takes decodes slot j as replica j's beat: D more scalars in
+                # the one metrics all-reduce, no collective of their own. The
+                # beat is the batch's, or (``rt.beat``) this rank's own work
+                # in this step so far
+                beat = hb[0] if rt.beat is None else torch.tensor(
+                    rt.beat(), dtype=torch.float32, device=hb.device)
+                slot = mesh.index(ba)
+                for j in range(n_rep):
+                    stats[f"heartbeat{j}"] = beat * (float(n_rep) if j == slot
+                                                     else 0.0)
+            loss, metrics = buckets.fused_metrics(
+                loss.detach(), {**metrics, **stats}, ba, mesh, n_rep)
+            return (loss, metrics), grads, bufs
 
     return value_and_grad
 
@@ -525,17 +529,20 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
             p.grad = None
         batch = dict(batch)
         hb = batch.pop("_heartbeat", None)
-        loss, metrics = model.loss_fn(batch)
+        with span("step.forward"):
+            loss, metrics = model.loss_fn(batch)
         if hb is not None:
             metrics = dict(metrics)
             for j in range(hb.shape[0]):
                 metrics[f"heartbeat{j}"] = hb[j]
-        with coll.backward():
+        with span("step.backward"), coll.backward():
             loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
             p.grad = None      # the step owns its gradients from here on
-        return (loss.detach(), metrics), opsw_cast(grads, plan), []
+        with span("step.exchange"):
+            grads = opsw_cast(grads, plan)
+        return (loss.detach(), metrics), grads, []
 
     if rt.mesh is not None:
         value_and_grad = _mesh_value_and_grad(model, rt, plan)
@@ -558,12 +565,14 @@ def make_train_step(model, optimizer: Optimizer, rt: Runtime,
             out = value_and_grad(state, batch)
         (loss, metrics), grads, bufs = out
         metrics = dict(metrics)
-        new_stale, grads, metrics = stale_rule(state.stale, grads, metrics)
-        if plan.fused_apply:
-            state, opt_metrics = optimizer.update_fused(
-                state, grads, bufs, plan.bucket_plan)
-        else:
-            state, opt_metrics = optimizer.update(state, grads)
+        with span("step.update"):
+            new_stale, grads, metrics = stale_rule(state.stale, grads,
+                                                   metrics)
+            if plan.fused_apply:
+                state, opt_metrics = optimizer.update_fused(
+                    state, grads, bufs, plan.bucket_plan)
+            else:
+                state, opt_metrics = optimizer.update(state, grads)
         state.stale = new_stale
         metrics.update(opt_metrics)
         metrics["loss"] = loss

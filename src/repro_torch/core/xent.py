@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import collectives as coll
+from repro_torch.utils.spans import span
 
 
 def _masked_f32(logits: torch.Tensor, vocab: int, col0: int) -> torch.Tensor:
@@ -38,47 +39,49 @@ class _Xent(torch.autograd.Function):
     @staticmethod
     def forward(fctx, logits, labels, vocab: int, shards: int, m: int,
                 model_axis: str, mesh):
-        vloc = logits.shape[-1]
-        col0 = m * vloc
-        lf = _masked_f32(logits, vocab, col0)
-        mx = lf.amax(dim=-1)
-        if shards > 1:
-            mx = coll.all_reduce_max(mx, model_axis, mesh)
-        lf.sub_(mx[..., None]).exp_()
-        se = lf.sum(dim=-1)
-        del lf
-        if shards > 1:
-            se = coll.all_reduce(se, model_axis, mesh)
-        lse = torch.log(se) + mx
-        lab = labels.long()[..., None]
-        if shards > 1:
-            local = lab - col0
-            owned = (local >= 0) & (local < vloc)
-            lab = torch.where(owned, local, torch.full_like(local, -1))
-            tgt = torch.gather(logits, -1, local.clamp(0, vloc - 1))
-            tgt = torch.where(owned, tgt.float(),
-                              torch.zeros((), device=tgt.device))[..., 0]
-            tgt = coll.all_reduce(tgt, model_axis, mesh)
-        else:
-            tgt = torch.gather(logits, -1, lab)[..., 0].float()
-        fctx.save_for_backward(logits, lab, mx, se)
-        fctx.vocab, fctx.col0, fctx.sharded = vocab, col0, shards > 1
-        return lse - tgt
+        with span("xent.forward"):
+            vloc = logits.shape[-1]
+            col0 = m * vloc
+            lf = _masked_f32(logits, vocab, col0)
+            mx = lf.amax(dim=-1)
+            if shards > 1:
+                mx = coll.all_reduce_max(mx, model_axis, mesh)
+            lf.sub_(mx[..., None]).exp_()
+            se = lf.sum(dim=-1)
+            del lf
+            if shards > 1:
+                se = coll.all_reduce(se, model_axis, mesh)
+            lse = torch.log(se) + mx
+            lab = labels.long()[..., None]
+            if shards > 1:
+                local = lab - col0
+                owned = (local >= 0) & (local < vloc)
+                lab = torch.where(owned, local, torch.full_like(local, -1))
+                tgt = torch.gather(logits, -1, local.clamp(0, vloc - 1))
+                tgt = torch.where(owned, tgt.float(),
+                                  torch.zeros((), device=tgt.device))[..., 0]
+                tgt = coll.all_reduce(tgt, model_axis, mesh)
+            else:
+                tgt = torch.gather(logits, -1, lab)[..., 0].float()
+            fctx.save_for_backward(logits, lab, mx, se)
+            fctx.vocab, fctx.col0, fctx.sharded = vocab, col0, shards > 1
+            return lse - tgt
 
     @staticmethod
     def backward(fctx, g):
-        logits, lab, mx, se = fctx.saved_tensors
-        p = _masked_f32(logits, fctx.vocab, fctx.col0)
-        p.sub_(mx[..., None]).exp_().mul_((g / se)[..., None])
-        if fctx.sharded:
-            # a shard subtracts g only at the labels it owns
-            owned = lab >= 0
-            p.scatter_add_(-1, lab.clamp(min=0),
-                           torch.where(owned, -g[..., None],
-                                       torch.zeros_like(g[..., None])))
-        else:
-            p.scatter_add_(-1, lab, (-g)[..., None])
-        return p.to(logits.dtype), None, None, None, None, None, None
+        with span("xent.backward"):
+            logits, lab, mx, se = fctx.saved_tensors
+            p = _masked_f32(logits, fctx.vocab, fctx.col0)
+            p.sub_(mx[..., None]).exp_().mul_((g / se)[..., None])
+            if fctx.sharded:
+                # a shard subtracts g only at the labels it owns
+                owned = lab >= 0
+                p.scatter_add_(-1, lab.clamp(min=0),
+                               torch.where(owned, -g[..., None],
+                                           torch.zeros_like(g[..., None])))
+            else:
+                p.scatter_add_(-1, lab, (-g)[..., None])
+            return p.to(logits.dtype), None, None, None, None, None, None
 
 
 def xent(logits: torch.Tensor, labels: torch.Tensor, *,

@@ -14,23 +14,24 @@ of the other families' training paths at the same shape and RunConfig
 (``seamless_train``, ``hymba_train``, ``chameleon_train``, ``rwkv_train``;
 the depths in ``CELLS``), and prints JSON lines:
 
-  stages    per-step device time of the forward (lookup, LSTM, head, loss),
-            the backward, and the update (OPSW cast, clipping, AdamW), from
-            CUDA events with a synchronize between stages;
   profile   torch.profiler over 3 steady steps (``profiled``): per step,
             device time by kernel class and the top kernels by name, and
             the device's idle share (1 - union of kernel intervals /
             profiled wall window).
 
 The chrome trace goes to results/profile_step/trace.json (parallax-nmt:
-nmt_trace.json). Needs a card; without one it exits non-zero.
+nmt_trace.json). It holds the step's spans (``utils/spans.py``: the
+forward, the embedding pull and push, the xent, the backward, the
+exchange and the update) beside the kernels they launched, on the same
+clock and with no synchronize between them; ``bench/run.py --trace 1``
+sums the kernel time under each. Needs a card; without one it exits
+non-zero.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-import statistics
 import sys
 import time
 from collections import defaultdict
@@ -43,7 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import (ModelConfig, RunConfig, ShapeConfig,
                                 get_config)
-from repro_torch.core.transform import get_runner, opsw_cast
+from repro_torch.core.transform import get_runner
 from repro_torch.data import SyntheticLM
 
 STEPS = 3
@@ -205,35 +206,6 @@ def _emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _stage_times(runner, batches) -> dict:
-    """Forward / backward / update device times of each step (CUDA events,
-    synchronized between stages so each bracket holds one stage)."""
-    model, opt = runner.model, runner.optimizer
-    state, plan = runner.state, runner.plan
-    out = defaultdict(list)
-    for b in batches:
-        b = {k: torch.as_tensor(v).to(runner.rt.device)
-             for k, v in b.items()}
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        loss, _ = model.loss_fn(b)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        grads = {n: p.grad for n, p in state.params.items()}
-        for p in state.params.values():
-            p.grad = None
-        state, _ = opt.update(state, opsw_cast(grads, plan))
-        del grads
-        ev[3].record()
-        torch.cuda.synchronize()
-        for k, (a, z) in zip(("forward_ms", "backward_ms", "update_ms"),
-                             zip(ev, ev[1:])):
-            out[k].append(a.elapsed_time(z))
-    return {k: statistics.median(v) for k, v in out.items()}
-
-
 def _union_us(intervals) -> float:
     busy, end = 0.0, None
     for s, e in sorted(intervals):
@@ -250,8 +222,9 @@ def profiled(fn, per: int, trace_path: Path, top: int = 10) -> dict:
     """Run ``fn`` once under torch.profiler and return its device time per
     unit (``per`` units in the call): wall and kernel ms, kernel ms by
     class, the top kernels by name, and the device's idle share (1 - union
-    of kernel intervals / the profiled wall window). The chrome trace goes
-    to ``trace_path``."""
+    of kernel intervals / the profiled wall window). A span's mirror on
+    the device (a user annotation) is no kernel and is not counted. The
+    chrome trace goes to ``trace_path``."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -259,7 +232,8 @@ def profiled(fn, per: int, trace_path: Path, top: int = 10) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     by_class, by_name = defaultdict(float), defaultdict(float)
     for e in kern:
         us = e.time_range.elapsed_us()
@@ -290,15 +264,8 @@ def main(argv=None) -> None:
     runner = get_runner(cfg, shape, rc, device="cuda")
     ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
                      **data_kw)
-    warm = [ds.batch(i) for i in range(2)]
-    for b in warm:
-        runner.run(b)
-    torch.cuda.synchronize()
-    stages = _stage_times(runner, [ds.batch(i) for i in range(2, 5)])
-    _emit({"phase": "stages", "arch": cfg.name,
-           "device": torch.cuda.get_device_name(0),
-           **stages, "step_ms": sum(stages.values())})
-
+    for i in range(5):
+        runner.run(ds.batch(i))
     batches = [ds.batch(i) for i in range(5, 5 + STEPS)]
 
     def steps():
@@ -306,6 +273,7 @@ def main(argv=None) -> None:
             runner.run(b)
 
     _emit({"phase": "profile", "arch": cfg.name, "steps": STEPS,
+           "device": torch.cuda.get_device_name(0),
            **profiled(steps, STEPS, OUT / trace, top=15)})
 
 if __name__ == "__main__":

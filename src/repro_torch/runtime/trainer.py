@@ -101,6 +101,7 @@ from repro_torch.optim.optimizer import (TrainState, fuse_state, is_fused,
 from repro_torch.runtime.monitor import StepMonitor
 from repro_torch.utils.dtypes import dtype_name
 from repro_torch.utils.roofline import HW
+from repro_torch.utils.spans import span
 from repro_torch.weights import gather_state
 
 log = logging.getLogger("repro_torch.trainer")
@@ -935,22 +936,26 @@ class Trainer:
         tokens_per_step = self.shape_cfg.tokens
         retries = 0
         while self.step < self.tcfg.total_steps:
-            batch = local_batch(self.rt, self._heartbeat_batch(
-                self.dataset.batch(self.step)))
+            with span("trainer.batch"):
+                batch = local_batch(self.rt, self._heartbeat_batch(
+                    self.dataset.batch(self.step)))
             self.monitor.start()
             self._beat_origin = (time.perf_counter(), coll.blocked_seconds())
             try:
-                self.state, metrics = self.train_step(self.state, batch)
-                metrics = host_scalars(metrics)
-                # the heartbeat slots leave the user's metrics for the
-                # attribution state (stats carries their EMAs)
-                beats = {int(k[9:]): metrics.pop(k) for k in list(metrics)
-                         if k.startswith("heartbeat") and k[9:].isdigit()}
-                if beats:
-                    self.monitor.note_heartbeats(beats)
-                self.profile.update(metrics)
-                self.monitor.note_overflow(
-                    self.profile.dropped(self.plan.table_methods))
+                with span("trainer.step"):
+                    self.state, metrics = self.train_step(self.state, batch)
+                with span("trainer.metrics"):
+                    metrics = host_scalars(metrics)
+                with span("trainer.profile"):
+                    # the heartbeat slots leave the user's metrics for the
+                    # attribution state (stats carries their EMAs)
+                    beats = {int(k[9:]): metrics.pop(k) for k in list(metrics)
+                             if k.startswith("heartbeat") and k[9:].isdigit()}
+                    if beats:
+                        self.monitor.note_heartbeats(beats)
+                    self.profile.update(metrics)
+                    self.monitor.note_overflow(
+                        self.profile.dropped(self.plan.table_methods))
                 retries = 0
             except ContractViolation:
                 raise             # the step breaks its plan: no retry mends it
@@ -966,7 +971,8 @@ class Trainer:
             self.step += 1
             if self.tcfg.replan_every and \
                     self.step % self.tcfg.replan_every == 0:
-                self.maybe_replan()
+                with span("trainer.replan"):
+                    self.maybe_replan()
                 # this step's stats reflect a replan it triggered
                 stats["replans"] = self.monitor.replans
                 if self.monitor.observed_alpha is not None:
@@ -978,20 +984,22 @@ class Trainer:
                 # a failed earlier background write re-raises out of the
                 # save's wait(): surface it and try again next period
                 try:
-                    self._save()
+                    with span("trainer.ckpt"):
+                        self._save()
                 except Exception as e:
                     log.exception("checkpoint at step %d failed", self.step)
                     self.monitor.note_ckpt_error(e)
-            act = self._decide()
-            if act == "remesh":
-                if self._auto_remesh() is not None:
-                    stats["remeshes"] = self.monitor.remeshes
-                    if self.mesh is not None:
-                        stats["mesh"] = dict(self.mesh.shape)
-            elif act is not None:
-                if self._flip_stale(act == "stale_on") is not None:
-                    stats["stale_flips"] = self.monitor.stale_flips
-                    stats["stale_mode"] = self.monitor._stale_on
+            with span("trainer.decide"):
+                act = self._decide()
+                if act == "remesh":
+                    if self._auto_remesh() is not None:
+                        stats["remeshes"] = self.monitor.remeshes
+                        if self.mesh is not None:
+                            stats["mesh"] = dict(self.mesh.shape)
+                elif act is not None:
+                    if self._flip_stale(act == "stale_on") is not None:
+                        stats["stale_flips"] = self.monitor.stale_flips
+                        stats["stale_mode"] = self.monitor._stale_on
             if on_metrics is not None:
                 on_metrics(self.step, {**metrics, **stats})
             elif self.step % self.tcfg.log_every == 0:
@@ -999,6 +1007,7 @@ class Trainer:
                          float(metrics.get("loss", float("nan"))),
                          stats["tokens_per_s"])
         if self.ckpt is not None:
-            self._save()
-            self._settle()
+            with span("trainer.ckpt"):
+                self._save()
+                self._settle()
         return self.state
