@@ -565,6 +565,27 @@ KERNELS = {
         "design": "S = 1, f32 and bf16: one pass over the state, 16-byte "
                   "loads, warp-shuffle sums",
     },
+    # the optimizer's kernels: no TPU kernel (the reference's update is an
+    # elementwise chain XLA fuses), the eager chain's replacement
+    "adamw_update_": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none: src/repro/optim/optimizer.py::adamw's chain "
+                    "(XLA-fused); the port's eager chain",
+        "design": "one pass: a run of 8 elements a thread, n / 2,048 "
+                  "blocks, 16-byte vectors per aligned array; the eager "
+                  "chain's roundings, no FMA; the clip factor read on the "
+                  "device",
+    },
+    "grad_sq_norm": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none: the clip's per-leaf sum(g^2) "
+                    "(src/repro/optim/optimizer.py::global_norm)",
+        "design": "f32 sum of squares over g in its own dtype: 8 "
+                  "accumulators a thread, fixed trees, 1,056 block "
+                  "partials summed in order by a second launch",
+    },
 }
 # the kernels each path must launch (embed_scatter_add is a backward kernel;
 # serving has no backward); rwkv_serve's wkv launches by route
@@ -661,6 +682,10 @@ PATH_KERNELS = {"main": ("embed_gather", "embed_scatter_add"),
                 # on (2, 2), the gatherv push on (1, 2) and in the jitter
                 # run takes the plain scatter
                 "elastic": ("embed_gather", "embed_scatter_add")}
+# the paths whose every step clips and updates each leaf with AdamW
+# (RunConfig's default): one grad_sq_norm and one adamw_update_ a leaf
+ADAMW_PATHS = ("main", "nmt", "train", "dense_train")
+ADAMW_KERNELS = ("adamw_update_", "grad_sq_norm")
 CENSUS = ("embed_rows", "embed_unique", "embed_dropped")
 NMT_CENSUS = tuple(f"{t}_{k}" for t in ("embed", "enc_embed")
                    for k in ("rows", "unique", "dropped"))
@@ -1066,13 +1091,87 @@ def phase_kernels(dev) -> dict:
     dense = _dense_train_kernels(dev, gen, timer, hold_gather, hold)
     flash = _flash_kernels(dev, gen, timer, errs, cases)
     wkv = _wkv_kernels(dev, gen, timer, errs, cases)
+    adam = _adamw_kernels(dev, gen, timer, errs, cases)
     res = {"phase": "kernels", "cases": cases, "n_ids": n, "owned": owned,
            "max_abs_err": errs, "launches": ops.launch_counts(),
            "embed_gather": gather, "embed_gather_serve": gather_serve,
            "embed_gather_rwkv": gather_rwkv, "dense_train_shape": dense,
-           "embed_scatter_add": scatter, "flash_attention": flash, **wkv}
+           "embed_scatter_add": scatter, "flash_attention": flash, **wkv,
+           **adam}
     emit(res)
     return res
+
+
+# the two largest leaves of each benchmark cell: parallax-lm's (800,000,
+# 512) tables (embed and head) and phi3-medium-14b's MLP weights over 8
+# layers; the optimizer's kernels reach this share of their byte bound there
+ADAMW_LEAVES = {"lm1b_table": (VOCAB, E), "phi3_mlp": (8, 5120, 17920)}
+ADAMW_BOUND_SHARE = 0.85
+
+
+def _adamw_kernels(dev, gen, timer: Timer, errs: dict, cases: list) -> dict:
+    """``ops.adamw_update_`` and ``ops.grad_sq_norm`` at ``ADAMW_LEAVES``
+    (bf16 p and g, f32 m and v, a clip factor of 0.37 on the device): one
+    clipped step bit for bit against the eager chain (``ref.
+    adamw_update_ref`` on the card), the norm within 1e-6 of an f64 sum;
+    then each timed beside its byte bound (22 B and 2 B a parameter), the
+    eager chain and, for the norm, ``torch.linalg.vector_norm`` (one
+    reduction, timed only); the update must reach ``ADAMW_BOUND_SHARE`` of
+    its bound at both. The row reports the lm1b leaf; ``leaves`` holds
+    both."""
+    scale = torch.tensor(0.37, device=dev)
+    kw = dict(scale=scale, bc1=0.1, bc2=0.0975, lr=1e-3, wd=None, b1=0.9,
+              b2=0.95, eps=1e-8)
+    upd, norm = {}, {}
+    for leaf, shape in ADAMW_LEAVES.items():
+        n = math.prod(shape)
+        p = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        m = torch.randn(shape, generator=gen, device=dev).mul_(1e-3)
+        v = torch.rand(shape, generator=gen, device=dev).mul_(1e-6)
+        want = [t.clone() for t in (p, m, v)]
+        ops.adamw_update_(p, g, m, v, **kw)
+        ref.adamw_update_ref(want[0], g, want[1], want[2],
+                             gdt=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip("pmv", (p, m, v), want):
+            check(torch.equal(_bits(a), _bits(b)),
+                  f"adamw_update_/{leaf}: {name} not bitwise equal to the "
+                  "eager chain")
+        cases.append(f"adamw_update_/{leaf}")
+        got = float(ops.grad_sq_norm(g))
+        want64 = float(g.double().square().sum())
+        rel = abs(got - want64) / want64
+        check(rel <= 1e-6, f"grad_sq_norm/{leaf}: {got} against the f64 "
+              f"sum {want64} (rel {rel})")
+        errs["grad_sq_norm"] = max(errs["grad_sq_norm"], rel)
+        cases.append(f"grad_sq_norm/{leaf}")
+        u_bytes, n_bytes = 22 * n, 2 * n
+        upd[leaf] = {
+            "shape": f"{tuple(shape)} bf16 p and g, f32 m and v",
+            "kernel_ms": timer.ms(lambda: ops.adamw_update_(p, g, m, v,
+                                                            **kw)),
+            "plain_ms": timer.ms(lambda: ref.adamw_update_ref(
+                *want[:1], g, *want[1:], gdt=torch.bfloat16, **kw),
+                runs=10),
+            "library_ms": None, "bytes": u_bytes,
+            "bound_ms": bound_ms(u_bytes)}
+        norm[leaf] = {
+            "shape": f"{tuple(shape)} bf16",
+            "kernel_ms": timer.ms(lambda: ops.grad_sq_norm(g)),
+            "plain_ms": timer.ms(lambda: ref.grad_sq_norm_ref(g), runs=10),
+            "library_ms": timer.ms(lambda: torch.linalg.vector_norm(
+                g, dtype=torch.float32)),
+            "bytes": n_bytes, "bound_ms": bound_ms(n_bytes)}
+        for row in (upd[leaf], norm[leaf]):
+            row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        check(upd[leaf]["share_of_bound"] >= ADAMW_BOUND_SHARE,
+              f"adamw_update_/{leaf}: {upd[leaf]['kernel_ms']} ms, "
+              f"{upd[leaf]['share_of_bound']:.3f} of its byte bound")
+        del p, g, m, v, want
+        torch.cuda.empty_cache()
+    return {"adamw_update_": {**upd["lm1b_table"], "leaves": upd},
+            "grad_sq_norm": {**norm["lm1b_table"], "leaves": norm}}
 
 
 def _serve_ids(dev) -> dict:
@@ -5862,6 +5961,12 @@ def main() -> None:
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(paths[path][name] > 0, f"{name} not launched on {path}")
+    for path in ADAMW_PATHS:
+        c = paths[path]
+        check(c["adamw_update_"] > 0
+              and c["adamw_update_"] == c["grad_sq_norm"],
+              f"{path}: {c['adamw_update_']} AdamW updates, "
+              f"{c['grad_sq_norm']} norms")
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "phase_seconds": seconds})
     print(info["nvidia_smi"], flush=True)
@@ -5871,6 +5976,8 @@ def main() -> None:
         if name == "wkv":           # the scalar route: no path takes it
             by_path = {p: c["wkv"] - c["wkv_tc"] - c["wkv_step"]
                        for p, c in paths.items()}
+        elif name in ADAMW_KERNELS:
+            by_path = {p: paths[p][name] for p in ADAMW_PATHS}
         else:
             by_path = {p: c[name] for p, c in paths.items()
                        if name in PATH_KERNELS[p]}
@@ -5893,6 +6000,8 @@ def main() -> None:
             rows[-1]["rwkv_shapes"] = kern["embed_gather_rwkv"]
         if name in ("embed_gather", "embed_scatter_add"):
             rows[-1]["dense_train_shape"] = kern["dense_train_shape"][name]
+        if name in ("adamw_update_", "grad_sq_norm"):
+            rows[-1]["leaves"] = k["leaves"]
         if name == "embed_scatter_add":
             # the measured tile sweep (kernels/autotune.py): per-R µs and
             # the chosen R at main's and dense_train's shapes

@@ -69,6 +69,14 @@ KERNELS = {
     # lw itemsize; 10 strides (b, h); stream
     "wkv_step": ("wkv_step.cu", "repro_wkv_step",
                  (_P,) * 8 + (_I,) * 15 + (_P,)),
+    # two entries of one library: p, g, m, v, scale; n, p itemsize, g
+    # itemsize, round to bf16, decay; b1, 1 - b1, b2, 1 - b2, 1 / bc1,
+    # 1 / bc2, eps, lr, wd; stream
+    "adamw_update": ("adamw.cu", "repro_adamw_update",
+                     (_P,) * 5 + (_I,) * 5 + (_F,) * 9 + (_P,)),
+    # g; n, itemsize; partials, out; stream
+    "grad_sq_norm": ("adamw.cu", "repro_grad_sq_norm",
+                     (_P, _I, _I, _P, _P, _P)),
 }
 
 _loaded: dict = {}
@@ -134,15 +142,20 @@ def _finish(name: str, started) -> str:
 
 
 def build_all(names=None) -> dict:
-    """Compile every (or the named) kernel, one nvcc each, in parallel.
-    Returns {name: {"seconds": wall time, "log": nvcc's -Xptxas -v output}}
-    ("" log when the library was already built)."""
+    """Compile every (or the named) kernel, one nvcc per source (entries
+    of one source share its library), in parallel. Returns {name:
+    {"seconds": wall time, "log": nvcc's -Xptxas -v output}} ("" log when
+    the library was already built)."""
     names = list(names or KERNELS)
     t0 = time.perf_counter()
-    started = {n: _start(n) for n in names}
+    first = {}
+    for n in names:
+        first.setdefault(KERNELS[n][0], n)
+    started = {n: _start(n) for n in first.values()}
     logs = {n: _finish(n, s) for n, s in started.items()}
     dt = time.perf_counter() - t0
-    return {n: {"seconds": dt, "log": logs[n]} for n in names}
+    return {n: {"seconds": dt, "log": logs[first[KERNELS[n][0]]]}
+            for n in names}
 
 
 def load(name: str):

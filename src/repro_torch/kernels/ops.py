@@ -1,5 +1,7 @@
 """Public wrappers of the kernels (the port of ``repro/kernels/ops.py``):
-the embedding pull and push, flash attention and the RWKV6 WKV recurrence.
+the embedding pull and push, flash attention, the RWKV6 WKV recurrence,
+and the optimizer's AdamW update and the clip's partial norm (kernels the
+reference leaves to XLA's fusion).
 
 Dispatch is by the tensor's device, never by a flag:
   * a CPU tensor takes the plain version (kernels/ref.py);
@@ -21,7 +23,9 @@ else, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -42,6 +46,9 @@ _FLASH_TC_DIMS = (64, 128, 160)
 _WKV_DIMS = (16, 32, 64)
 _WKV_TC_DIM = 64
 _WKV_MAX_CHUNK = 64
+# grad_sq_norm's first pass: at most this many blocks, each writing one
+# partial (csrc/adamw.cu's kNormBlocks)
+_NORM_BLOCKS = 1056
 
 
 def reset_launch_counts() -> None:
@@ -54,6 +61,8 @@ def reset_launch_counts() -> None:
     wkv.launches = 0
     wkv.launches_tc = 0
     wkv.launches_step = 0
+    adamw_update_.launches = 0
+    grad_sq_norm.launches = 0
 
 
 def launch_counts() -> dict:
@@ -69,7 +78,9 @@ def launch_counts() -> dict:
             "flash_attention_tc": flash_attention.launches_tc,
             "wkv": wkv.launches,
             "wkv_tc": wkv.launches_tc,
-            "wkv_step": wkv.launches_step}
+            "wkv_step": wkv.launches_step,
+            "adamw_update_": adamw_update_.launches,
+            "grad_sq_norm": grad_sq_norm.launches}
 
 
 class _MetaCounts:
@@ -90,13 +101,18 @@ def meta_flops():
         _MetaCounts.open.remove(count)
 
 
+def _meta_call(kernel: str, flops: int = 0) -> None:
+    """Count a meta call and its operations in every open count."""
+    for count in _MetaCounts.open:
+        count["flops"] += int(flops)
+        count["calls"][kernel] = count["calls"].get(kernel, 0) + 1
+
+
 def _meta_out(kernel: str, shape: tuple, dtype: torch.dtype,
               flops: int = 0) -> torch.Tensor:
     """A meta call's result: an empty meta tensor of the kernel's output
     shape and dtype, its operations counted."""
-    for count in _MetaCounts.open:
-        count["flops"] += int(flops)
-        count["calls"][kernel] = count["calls"].get(kernel, 0) + 1
+    _meta_call(kernel, flops)
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
@@ -528,6 +544,106 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
     return out, s_out
 
 
+def grad_sq_norm(g: torch.Tensor) -> torch.Tensor:
+    """One leaf's partial ||g||^2 of the clip's global norm: g bf16|f32 ->
+    a 0-d f32 tensor on g's device. On the card one pass reads g in its
+    own dtype (csrc/adamw.cu: block partials, then a second launch sums
+    them in order), makes no f32 copy, and gives the same bits for the
+    same values run after run and at any alignment (a leaf and its bucket
+    segment agree); it differs from ``torch.sum``'s order in the last bits.
+    A non-contiguous g is read through a contiguous copy in its dtype.
+    Counts in ``grad_sq_norm.launches``."""
+    _check(g.dtype in _DTYPES, f"grad_sq_norm: dtype {g.dtype} not in "
+           f"{_DTYPES}")
+    if g.device.type == "cpu":
+        return ref.grad_sq_norm_ref(g)
+    if g.device.type == "meta":
+        return _meta_out("grad_sq_norm", (), torch.float32)
+    if g.device.type != "cuda":
+        raise NotImplementedError(
+            f"grad_sq_norm: no kernel for device {g.device}")
+    if g.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=g.device)
+    g = g.contiguous()
+    partial = torch.empty(_NORM_BLOCKS, dtype=torch.float32, device=g.device)
+    out = torch.empty((), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = _build.load("grad_sq_norm")(g.data_ptr(), g.numel(),
+                                      g.element_size(), partial.data_ptr(),
+                                      out.data_ptr(), stream)
+    _raise_on(err, "grad_sq_norm")
+    grad_sq_norm.launches += 1
+    return out
+
+
+def _f32_reciprocal(x: float) -> float:
+    """1 / x as PyTorch's CUDA division by a Python scalar takes it: the
+    f32 quotient of 1 by f32(x)."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def adamw_update_(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                  v: torch.Tensor, *, scale: Optional[torch.Tensor],
+                  bc1: float, bc2: float, lr: float, wd: Optional[float],
+                  b1: float, b2: float, eps: float,
+                  gdt: Optional[torch.dtype] = None) -> None:
+    """One AdamW step of one leaf (or of a ZeRO-1 block or a bucket
+    segment of it), in place: p bf16|f32, g bf16|f32, m and v f32, all of
+    one shape on one device; ``scale`` the clip's 0-d f32 factor on that
+    device, or None; ``wd`` None for no decay term; ``gdt`` the dtype the
+    chain holds the gradient in (g's own by default; the fused path's
+    wire buffer is cast to the parameter's). The plain version is
+    ``ref.adamw_update_ref``. On the card one pass (csrc/adamw.cu) reads p,
+    g, m and v once, writes p, m and v, reads the scale on the device (no
+    sync), allocates nothing, and equals the plain version run on the card
+    bit for bit. A non-contiguous tensor (a view a remesh or a restore may
+    hand over) is read through a contiguous copy, written back after.
+    Counts in ``adamw_update_.launches``."""
+    gdt = g.dtype if gdt is None else gdt
+    _check(p.dtype in _DTYPES and g.dtype in _DTYPES and gdt in _DTYPES,
+           f"adamw_update_: p {p.dtype}, g {g.dtype}, gdt {gdt} not all in "
+           f"{_DTYPES}")
+    _check(m.dtype == torch.float32 and v.dtype == torch.float32,
+           f"adamw_update_: m {m.dtype}, v {v.dtype} must be f32")
+    _check(p.shape == g.shape == m.shape == v.shape,
+           f"adamw_update_: shapes {tuple(p.shape)}, {tuple(g.shape)}, "
+           f"{tuple(m.shape)}, {tuple(v.shape)} differ")
+    _check(g.device == p.device and m.device == p.device
+           and v.device == p.device,
+           "adamw_update_: p, g, m, v must lie on one device")
+    _check(scale is None or (scale.dim() == 0
+                             and scale.dtype == torch.float32
+                             and scale.device == p.device),
+           "adamw_update_: scale must be a 0-d f32 tensor on p's device")
+    if p.device.type == "cpu":
+        ref.adamw_update_ref(p, g, m, v, scale=scale, bc1=bc1, bc2=bc2,
+                             lr=lr, wd=wd, b1=b1, b2=b2, eps=eps, gdt=gdt)
+        return
+    if p.device.type == "meta":
+        _meta_call("adamw_update_")
+        return
+    if p.device.type != "cuda":
+        raise NotImplementedError(
+            f"adamw_update_: no kernel for device {p.device}")
+    if p.numel() == 0:
+        return
+    out = [t.contiguous() for t in (p, m, v)]
+    g = g.contiguous()
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    err = _build.load("adamw_update")(
+        out[0].data_ptr(), g.data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), None if scale is None else scale.data_ptr(),
+        p.numel(), p.element_size(), g.element_size(),
+        int(gdt == torch.bfloat16), int(wd is not None), b1, 1 - b1, b2,
+        1 - b2, _f32_reciprocal(bc1), _f32_reciprocal(bc2), eps, float(lr),
+        0.0 if wd is None else wd, stream)
+    _raise_on(err, "adamw_update_")
+    adamw_update_.launches += 1
+    for t, c in zip((p, m, v), out):
+        if c is not t:
+            t.copy_(c)
+
+
 embed_gather.launches = 0
 embed_gather.launches_bulk = 0
 embed_scatter_add.launches = 0
@@ -537,3 +653,5 @@ flash_attention.launches_tc = 0
 wkv.launches = 0
 wkv.launches_tc = 0
 wkv.launches_step = 0
+adamw_update_.launches = 0
+grad_sq_norm.launches = 0

@@ -3,9 +3,12 @@
 
 They are the CPU path of ``kernels/ops.py`` and the yardstick the CUDA
 kernels are held against on the card (chip_smoke.py): the embedding kernels
-bit for bit, flash attention and WKV within the reference's tolerances.
+and the AdamW update bit for bit, flash attention and WKV within the
+reference's tolerances, the clip's partial norm within 1e-6 of an f64 sum.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -117,3 +120,33 @@ def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             + kdec.transpose(-1, -2) @ vj
     out = torch.cat(outs, dim=2).permute(0, 2, 1, 3)[:, :s]
     return out.to(r.dtype), st
+
+
+def grad_sq_norm_ref(g: torch.Tensor) -> torch.Tensor:
+    """One leaf's partial ||g||^2 of the clip's global norm: a 0-d f32
+    sum of the squares of g widened to f32."""
+    return torch.sum(torch.square(g.float()))
+
+
+def adamw_update_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                     v: torch.Tensor, *, scale: Optional[torch.Tensor],
+                     bc1: float, bc2: float, lr: float,
+                     wd: Optional[float], b1: float, b2: float, eps: float,
+                     gdt: torch.dtype) -> None:
+    """One AdamW step of one leaf, in place on p (bf16|f32), m and v (f32),
+    as the reference's elementwise chain: the gradient held in ``gdt``
+    (rounded there after the clip's ``scale``, a 0-d f32 tensor or None),
+    the f32 moments, ``(m / bc1) / (sqrt(v / bc2) + eps)`` with the f32
+    bias corrections ``bc1``/``bc2``, plus ``wd * p`` unless ``wd`` is
+    None, and ``p - lr * u`` rounded into p's dtype."""
+    g32 = g.to(gdt).float()
+    if scale is not None:
+        g32 = (g32 * scale).to(gdt).float()
+    m.mul_(b1).add_(g32 * (1 - b1))
+    v.mul_(b2).add_(torch.square(g32).mul_(1 - b2))
+    # the reference's (m / bc1) / (sqrt(v / bc2) + eps), its temporaries
+    # reused
+    upd = (m / bc1).div_(torch.sqrt(v / bc2).add_(eps))
+    if wd is not None:
+        upd = upd + wd * p.float()
+    p.copy_((p.float() - lr * upd).to(p.dtype))

@@ -19,7 +19,11 @@
 Updates run in place under ``torch.no_grad()``: the reference returns new
 arrays, the port overwrites the parameters, moments and shadows it is given
 (the same values; at the paper's LM width a second copy of the tables and
-moments would cost several GB).
+moments would cost several GB). AdamW's step of a leaf and the clip's
+partial norm of a leaf are ``kernels/ops.py``'s ``adamw_update_`` and
+``grad_sq_norm``: the reference's elementwise chain on the CPU, one pass of
+a CUDA kernel each on the card (csrc/adamw.cu), which reads the clip factor
+on the device and keeps no temporary.
 
 Fused bucket-apply: under the bucketed exchange the all-reduced gradient
 already exists as one flat buffer per bucket. ``fuse_state`` /
@@ -27,12 +31,13 @@ already exists as one flat buffer per bucket. ``fuse_state`` /
 (``{"bucket": [buffers], "leaf": {name: tensor, None where bucketed}}``;
 the parameters stay per leaf, the model needs them), and
 ``Optimizer.update_fused`` reads each post-all-reduce buffer against that
-layout: one elementwise chain per bucket for the moments, one per leaf
-only for the parameter write. It replays ``update`` op for op (the wire ->
-parameter dtype -> f32 casts, the norm's partial sums per leaf in the
-leaf's own shape and in flatten order, the moments, bias corrections,
-weight decay, the parameter write and the EMA), so the two are
-bit-identical. ``sgd`` has no fused path.
+layout: adamw updates each bucket member's segment of the wire buffer and
+of the flat m/v buffers in place, momentum runs one elementwise chain per
+bucket. It replays ``update`` op for op (the wire -> parameter dtype -> f32
+casts, the norm's partial sums per leaf in the leaf's own shape and in
+flatten order, the moments, bias corrections, weight decay, the parameter
+write and the EMA), so the two are bit-identical. ``sgd`` has no fused
+path.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import torch
 
 from repro_torch.core import collectives as coll
 from repro_torch.core.plan import entry_axes
+from repro_torch.kernels import ops
 from repro_torch.weights import (block_of, gather_blocks, gather_tensor,
                                  opt_dims)
 
@@ -150,46 +156,42 @@ def unfuse_state(state: Optional[TrainState], bp, *,
                       ema=unfuse(state.ema), stale=state.stale)
 
 
-def _wd_segment(b, names: list, weight_decay: float,
-                wd_mask: Optional[dict], device=None):
-    """Per-bucket weight-decay factor: the per-parameter mask expanded
-    over the bucket's member extents (the scalar when there is no mask)."""
-    if not wd_mask:
-        return weight_decay
-    return torch.cat([
-        torch.full((sz,), float(weight_decay) * float(wd_mask[names[i]]),
-                   dtype=torch.float32, device=device)
-        for i, sz in zip(b.idx, b.sizes)])
+def _fused_clip(state: TrainState, grads: dict, bufs: list, bp,
+                clip_norm: Optional[float], rt) -> tuple:
+    """The global-norm clip on the fused layout. The norm's partials are
+    taken per leaf in the leaf's own shape and in flatten order, as
+    ``global_norm`` takes them (a flat reduction associates differently),
+    from views of the wire buffers: their cast to f32 there is the same
+    (bf16 and f32 only widen). -> (the clip factor, None without
+    clipping; metrics)."""
+    if clip_norm is None:
+        return None, {}
+    seg = bucket_segments(bp)
+    leaves = {}
+    for i, (n, p) in enumerate(state.params.items()):
+        if i in seg:
+            k, off, sz = seg[i]
+            leaves[n] = bufs[k][off:off + sz].view(p.shape)
+        else:
+            leaves[n] = grads[n]
+    gnorm = global_norm(leaves, rt)
+    return _clip_scale(gnorm, clip_norm), {"grad_norm": gnorm}
 
 
 def _fused_grads(state: TrainState, grads: dict, bufs: list, bp,
                  clip_norm: Optional[float], rt) -> tuple:
     """The per-param path's gradient chain on the flat buffers: each
     buffer cast wire -> parameter dtype -> f32 (the slice-back and the
-    update's casts), then clipped. The norm's partials are taken per leaf
-    in the leaf's own shape and in flatten order, as ``global_norm`` takes
-    them (a flat reduction associates differently), from views of the
-    wire buffers: their cast to f32 there is the same (bf16 and f32 only
-    widen). -> (``g32(k)``: bucket k's clipped f32 gradient, made when
-    asked, so that one bucket's copies live at a time; the unbucketed
-    gradients, clipped; metrics)."""
+    update's casts), then clipped by ``_fused_clip``'s factor. ->
+    (``g32(k)``: bucket k's clipped f32 gradient, made when asked, so that
+    one bucket's copies live at a time; the unbucketed gradients, clipped;
+    metrics)."""
     names = list(state.params)
     seg = bucket_segments(bp)
     pdt = [state.params[names[b.idx[0]]].dtype for b in bp.buckets]
-    rest = {n: g for i, (n, g) in enumerate(grads.items()) if i not in seg}
-    metrics, scale = {}, None
-    if clip_norm is not None:
-        leaves = {}
-        for i, n in enumerate(names):
-            if i in seg:
-                k, off, sz = seg[i]
-                leaves[n] = bufs[k][off:off + sz].view(state.params[n].shape)
-            else:
-                leaves[n] = grads[n]
-        gnorm = global_norm(leaves, rt)
-        scale = _clip_scale(gnorm, clip_norm)
-        rest = {n: _clipped(g, scale) for n, g in rest.items()}
-        metrics["grad_norm"] = gnorm
+    scale, metrics = _fused_clip(state, grads, bufs, bp, clip_norm, rt)
+    rest = {n: _clipped(g, scale) for i, (n, g) in enumerate(grads.items())
+            if i not in seg}
 
     def g32(k: int) -> torch.Tensor:
         g = bufs[k].to(pdt[k]).float()
@@ -236,7 +238,7 @@ def global_norm(grads: dict, rt=None) -> torch.Tensor:
         grads = {n: gather_tensor(g, held[n], mesh) if axes[n] else g
                  for n, g in grads.items()}
         axes = {n: () for n in grads}
-    parts = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
+    parts = {n: ops.grad_sq_norm(g) for n, g in grads.items()}
     groups: dict = {}
     for n, a in axes.items():
         if a:
@@ -268,8 +270,9 @@ def clip_by_global_norm(grads: dict, max_norm: float, rt=None) -> tuple:
 
 def _clip(grads: dict, max_norm: Optional[float], rt) -> tuple:
     """-> (the global-norm clip factor, None without clipping; metrics).
-    The update scales each gradient as it reaches it (``_clipped``), so
-    one leaf's clipped copy lives at a time, not the whole set's."""
+    The update scales each gradient as it reaches it (adamw's kernel
+    reads the factor; the others through ``_clipped``), so at most one
+    leaf's clipped copy lives at a time, not the whole set's."""
     if max_norm is None:
         return None, {}
     norm = global_norm(grads, rt)
@@ -362,22 +365,17 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
         return (_f32_scalar(1.0 - f32(b1) ** t),
                 _f32_scalar(1.0 - f32(b2) ** t))
 
-    def moments_(m: torch.Tensor, v: torch.Tensor, g32: torch.Tensor,
-                 bc1: float, bc2: float) -> torch.Tensor:
-        """m, v advanced in place; -> the Adam direction."""
-        m.mul_(b1).add_(g32 * (1 - b1))
-        v.mul_(b2).add_(torch.square(g32).mul_(1 - b2))
-        # the reference's (m / bc1) / (sqrt(v / bc2) + eps), its
-        # temporaries reused
-        return (m / bc1).div_(torch.sqrt(v / bc2).add_(eps))
-
-    def write_(p: torch.Tensor, upd32: torch.Tensor, lr_t, wd) -> None:
-        if weight_decay:
-            upd32 = upd32 + wd * p.float()
-        p.copy_((p.float() - lr_t * upd32).to(p.dtype))
-
-    def wd_of(n: str) -> float:
+    def wd_of(n: str) -> Optional[float]:
+        """A leaf's decay factor; None where the optimizer decays nothing
+        (a leaf the mask exempts still takes its 0 * p term)."""
+        if not weight_decay:
+            return None
         return weight_decay * (1.0 if wd_mask is None else float(wd_mask[n]))
+
+    def step_(n, p, g, m, v, scale, bc1, bc2, lr_t, gdt=None) -> None:
+        ops.adamw_update_(p, g, m, v, scale=scale, bc1=bc1, bc2=bc2,
+                          lr=lr_t, wd=wd_of(n), b1=b1, b2=b2, eps=eps,
+                          gdt=gdt)
 
     @torch.no_grad()
     def update(state: TrainState, grads: dict) -> tuple:
@@ -387,48 +385,44 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
         lr_t = lr_fn(step)
         zero = _opt_dims(rt)
         for n, p in state.params.items():
-            leaf_(n, p, _clipped(grads[n], scale), state.m[n], state.v[n],
-                  bc1, bc2, lr_t, zero.get(n))
+            leaf_(n, p, grads[n], state.m[n], state.v[n], scale, bc1, bc2,
+                  lr_t, zero.get(n))
         _ema_update_(state.ema, state.params, ema_decay)
         state.step = step
         return state, metrics
 
-    def leaf_(n, p, g, m, v, bc1, bc2, lr_t, dims) -> None:
+    def leaf_(n, p, g, m, v, scale, bc1, bc2, lr_t, dims) -> None:
         """One leaf's moments and parameter (a block of them under
         ZeRO-1)."""
         def fn(pt, gt):
-            write_(pt, moments_(m, v, gt.float(), bc1, bc2), lr_t, wd_of(n))
+            step_(n, pt, gt, m, v, scale, bc1, bc2, lr_t)
         _apply_leaf_(p, g, dims, rt.mesh if dims else None, fn)
 
     @torch.no_grad()
     def update_fused(state: TrainState, grads: dict, bufs: list,
                      bp) -> tuple:
-        """Bucket-native adamw: each all-reduced flat buffer drives one
-        moment chain against the fused m/v buffers; the unbucketed leaves
-        (the sparse tables' pushed gradients) walk the per-leaf path."""
+        """Bucket-native adamw: each bucket member's segment of its
+        all-reduced flat buffer updates the member against its segments of
+        the fused m/v buffers, the wire cast to the parameter's dtype; the
+        unbucketed leaves (the sparse tables' pushed gradients) walk the
+        per-leaf path."""
         names = list(state.params)
-        g32, rest, metrics = _fused_grads(state, grads, bufs, bp,
-                                          clip_norm, rt)
+        scale, metrics = _fused_clip(state, grads, bufs, bp, clip_norm, rt)
         step = state.step + 1
         bc1, bc2 = corrections(step)
         lr_t = lr_fn(step)
-        # bucket by bucket: one bucket's f32 gradient and update at a time
-        for k, b in enumerate(bp.buckets):
-            upd = moments_(state.m["bucket"][k], state.v["bucket"][k],
-                           g32(k), bc1, bc2)
-            wd_seg = _wd_segment(b, names, weight_decay, wd_mask,
-                                 upd.device) if weight_decay else 0.0
+        for k, buf in enumerate(bufs):
+            m, v = state.m["bucket"][k], state.v["bucket"][k]
             for n, p, off, sz in _bucket_members(bp, k, names,
                                                  state.params):
-                wd = wd_seg
-                if isinstance(wd, torch.Tensor):
-                    wd = wd[off:off + sz].view(p.shape)
-                write_(p, upd[off:off + sz].view(p.shape), lr_t, wd)
-            del upd
+                parts = [t[off:off + sz].view(p.shape) for t in (buf, m, v)]
+                step_(n, p, *parts, scale, bc1, bc2, lr_t, gdt=p.dtype)
         zero = _opt_dims(rt)
-        for n, g in rest.items():
-            leaf_(n, state.params[n], g, state.m["leaf"][n],
-                  state.v["leaf"][n], bc1, bc2, lr_t, zero.get(n))
+        seg = bucket_segments(bp)
+        for i, n in enumerate(names):
+            if i not in seg:
+                leaf_(n, state.params[n], grads[n], state.m["leaf"][n],
+                      state.v["leaf"][n], scale, bc1, bc2, lr_t, zero.get(n))
         _ema_fused_(state, bp, names, ema_decay)
         state.step = step
         return state, metrics

@@ -19,6 +19,11 @@ def pytest_configure(config):
         "markers",
         "distributed: spawns a multi-device subprocess (deselect with "
         "-m 'not distributed' for a fast single-device pass)")
+    config.addinivalue_line(
+        "markers",
+        "card: runs a CUDA kernel of the port, so it needs a card and skips "
+        "without one (a CUDA kernel has no CPU or interpret mode); on the "
+        "card: PYTHONPATH=src python -m pytest -q -m card tests/")
 
 
 @pytest.fixture(scope="session")

@@ -103,7 +103,8 @@ def test_cpu_path_does_not_count_launches():
                                    "embed_scatter_add_fused": 0,
                                    "flash_attention": 0,
                                    "flash_attention_tc": 0, "wkv": 0,
-                                   "wkv_tc": 0, "wkv_step": 0}
+                                   "wkv_tc": 0, "wkv_step": 0,
+                                   "adamw_update_": 0, "grad_sq_norm": 0}
 
 
 @pytest.mark.parametrize("bad", ["ids_dtype", "ids_rank", "table_dtype",
@@ -164,6 +165,20 @@ def test_wrappers_raise_off_cpu_without_a_kernel(monkeypatch):
                                            "embed_scatter_add": 1}}
     with pytest.raises(ValueError):
         ops.embed_gather(torch.zeros((8, 4)), ids)
+
+
+def test_build_all_starts_one_nvcc_per_source(monkeypatch):
+    """Entries of one source (csrc/adamw.cu's ``adamw_update`` and
+    ``grad_sq_norm``) share its library: ``build_all`` starts one build for
+    them, never two writers of one file."""
+    started = []
+    monkeypatch.setattr(_build, "_start",
+                        lambda name: started.append(name) or None)
+    res = _build.build_all(["adamw_update", "grad_sq_norm", "wkv"])
+    assert started == ["adamw_update", "wkv"]
+    assert set(res) == {"adamw_update", "grad_sq_norm", "wkv"}
+    assert _build.library_path("adamw_update") == \
+        _build.library_path("grad_sq_norm")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
